@@ -1,0 +1,401 @@
+// Snapshot-probing PoRC block engines for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of the JAX package:
+//   porc_snapshot_kernel    <- repro/kernels/porc_snapshot.py::porc_snapshot
+//                              (body _snapshot_kernel)
+//   porc_multisource_kernel <- repro/kernels/porc_snapshot.py::
+//                              porc_multisource_scan, policy-free branch
+//                              (body _multisource_kernel)
+// and computes, bit for bit, the plain torch engines
+// repro_torch/kernels/ref.py::ref_porc_snapshot / _porc_multisource_scan.
+//
+// What bounds it. The work is a chain of blocks: block b routes against
+// the loads that block b-1 left, so the blocks run in order. Per block a
+// key hashes a few salts, reads a few loads and adds one. The least time
+// the card could take is the bytes the function must move -- the keys
+// read once and the assignments written once, 8 bytes per message --
+// over 3.35 TB/s; in practice the chain of dependent blocks sets the
+// pace: a few barriers and shared-memory round trips per block.
+//
+// Design. One persistent CTA walks the blocks in order, because each
+// block depends on the previous one. The load vector (and, multisource,
+// the merged base and the S delta lanes) stays in dynamic shared memory
+// for the whole stream while it fits, and in the output buffers in
+// global memory (read through L2 with __ldcg) above that. One thread per
+// key of the block, looping when the block has more keys than the CTA
+// threads; the salted candidate chain is hashed in the kernel, as the
+// Pallas kernel fuses it. The fallback argmin of the snapshot (lowest
+// index on ties) is taken before any add and only when some key of the
+// block exhausted its chain. Adds are atomicAdd on the load, which is
+// exact: the counts are integers below 2^24.
+//
+// Numerics. The capacity is evaluated as the reference compiles it:
+// (1+eps)*x/n folds to x*K with K = f32(1+eps)*f32(1/n), computed once on
+// the host. Every float operation is an explicit round-to-nearest
+// intrinsic so that nvcc cannot contract it into an FMA; build without
+// --use_fast_math. Mass and load sums are integer-valued f32, exact in
+// any order only while the stream stays below 2^24 messages.
+//
+// C interface (bound with ctypes): each launcher returns the
+// cudaError_t of the launch, 0 on success.
+
+#include <cmath>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// repro/core/hashing.py::hash_to_bins for one (key, salt).
+__device__ __forceinline__ int hash_to_bin(uint32_t key, uint32_t salt,
+                                           uint32_t n_bins) {
+  uint32_t h = mix32(key + salt * 0x9E3779B9u);
+  h = mix32(h ^ (salt * 0x7F4A7C15u + 0x165667B1u));
+  return static_cast<int>(h % n_bins);
+}
+
+template <bool kSmem>
+__device__ __forceinline__ float rd(const float* p) {
+  if constexpr (kSmem) {
+    return *p;
+  } else {
+    return __ldcg(p);  // L2: sees the CTA's own atomics after a barrier
+  }
+}
+
+// (value, index) pair that wins: smaller value, then smaller index.
+__device__ __forceinline__ void argmin_merge(float& v, int& i, float v2,
+                                             int i2) {
+  if (v2 < v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    float v2 = __shfl_xor_sync(0xFFFFFFFFu, v, off);
+    int i2 = __shfl_xor_sync(0xFFFFFFFFu, i, off);
+    argmin_merge(v, i, v2, i2);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
+  return v;
+}
+
+// Block-wide argmin of load[0..n), lowest index on ties. Every thread of
+// the CTA must call it; every thread gets the result.
+template <bool kSmem>
+__device__ int block_argmin(const float* load, int n) {
+  __shared__ float red_v[kWarp];
+  __shared__ int red_i[kWarp];
+  float v = INFINITY;
+  int idx = 0x7FFFFFFF;
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    argmin_merge(v, idx, rd<kSmem>(load + c), c);
+  warp_argmin(v, idx);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = idx;
+  }
+  __syncthreads();
+  const int n_warps = (blockDim.x + kWarp - 1) / kWarp;
+  v = lane < n_warps ? red_v[lane] : INFINITY;
+  idx = lane < n_warps ? red_i[lane] : 0x7FFFFFFF;
+  warp_argmin(v, idx);
+  __syncthreads();  // red_* reusable by the next call
+  return idx;
+}
+
+// Block-wide sum (integer-valued f32: exact in any order below 2^24).
+template <bool kSmem>
+__device__ float block_sum(const float* x, int n) {
+  __shared__ float red[kWarp];
+  float acc = 0.0f;
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    acc = __fadd_rn(acc, rd<kSmem>(x + c));
+  acc = warp_sum(acc);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  const int n_warps = (blockDim.x + kWarp - 1) / kWarp;
+  acc = warp_sum(lane < n_warps ? red[lane] : 0.0f);
+  __syncthreads();
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Single source: ref_porc_snapshot
+// ---------------------------------------------------------------------------
+
+template <bool kSmem>
+__global__ void porc_snapshot_kernel(const int* __restrict__ keys,
+                                     const float* __restrict__ load0,
+                                     const float* __restrict__ m0_ptr,
+                                     int* __restrict__ assign,
+                                     float* __restrict__ load_out,
+                                     int n_blocks, int block, int n_bins,
+                                     int chunk, float cap_scale) {
+  extern __shared__ float smem[];
+  float* load = kSmem ? smem : load_out;
+  for (int c = threadIdx.x; c < n_bins; c += blockDim.x) load[c] = load0[c];
+  __syncthreads();
+
+  const float m0 = *m0_ptr;
+  const int max_probes = 4 * n_bins;
+  // block=1 walks the whole chain of Alg. 1 (the sequential oracle);
+  // block>1 probes the first `chunk` salts
+  const int budget = block == 1 ? max_probes : min(chunk, max_probes);
+  const float fblock = static_cast<float>(block);
+
+  for (int b = 0; b < n_blocks; ++b) {
+    // cap = (m0 + (b+1)*block) * K, the reference's f32 order
+    const float mt =
+        __fadd_rn(m0, __fmul_rn(__fadd_rn(static_cast<float>(b), 1.0f), fblock));
+    const float cap = __fmul_rn(mt, cap_scale);
+    const int base_i = b * block;
+    int miss = 0;
+    for (int k = threadIdx.x; k < block; k += blockDim.x) {
+      const uint32_t key = static_cast<uint32_t>(keys[base_i + k]);
+      int pick = -1;
+      for (int s = 1; s <= budget; ++s) {
+        const int c = hash_to_bin(key, static_cast<uint32_t>(s),
+                                  static_cast<uint32_t>(n_bins));
+        if (rd<kSmem>(load + c) < cap) {
+          pick = c;
+          break;
+        }
+      }
+      assign[base_i + k] = pick;
+      miss |= pick < 0;
+    }
+    // barrier: every key has read the snapshot before any add
+    if (__syncthreads_or(miss)) {
+      const int amin = block_argmin<kSmem>(load, n_bins);
+      for (int k = threadIdx.x; k < block; k += blockDim.x)
+        if (assign[base_i + k] < 0) assign[base_i + k] = amin;
+    }
+    for (int k = threadIdx.x; k < block; k += blockDim.x)
+      atomicAdd(load + assign[base_i + k], 1.0f);
+    __syncthreads();
+  }
+  if (kSmem)
+    for (int c = threadIdx.x; c < n_bins; c += blockDim.x)
+      load_out[c] = load[c];
+}
+
+// ---------------------------------------------------------------------------
+// Multi-source: ref._porc_multisource_scan, policy-free
+// ---------------------------------------------------------------------------
+//
+// keys is the round-robin-interleaved stream: message i belongs to
+// source i % S, and step b covers keys[b*S*block, (b+1)*S*block). Thread
+// items walk that range in stream order (coalesced): item j of step b is
+// source j % S; assignments are written in stream order, so no
+// transpose is needed on either side.
+
+template <bool kSmem>
+__global__ void porc_multisource_kernel(
+    const int* __restrict__ keys, const float* __restrict__ base0,
+    const float* __restrict__ delta0, const int* __restrict__ ticks0_ptr,
+    int* __restrict__ assign, float* __restrict__ base_out,
+    float* __restrict__ delta_out, int* __restrict__ ticks_out, int n_steps,
+    int n_sources, int block, int n_bins, int chunk, int sync_every,
+    float cap_scale, float lookahead) {
+  extern __shared__ float smem[];
+  const int S = n_sources;
+  float* cap = smem;                                   // [S]
+  int* need = reinterpret_cast<int*>(smem + S);        // [S] fallback flag
+  int* amin = need + S;                                // [S] fallback bin
+  float* base = kSmem ? smem + 3 * S : base_out;       // [n]
+  float* delta = kSmem ? base + n_bins : delta_out;    // [S, n]
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+
+  for (int c = threadIdx.x; c < n_bins; c += blockDim.x) base[c] = base0[c];
+  for (int c = threadIdx.x; c < S * n_bins; c += blockDim.x)
+    delta[c] = delta0[c];
+  __syncthreads();
+
+  const int ticks0 = *ticks0_ptr;
+  const int max_probes = 4 * n_bins;
+  const int budget = block == 1 ? max_probes : min(chunk, max_probes);
+  const int per_step = S * block;
+
+  for (int b = 0; b < n_steps; ++b) {
+    // 1. per-source local-view mass and capacity
+    const float base_mass = block_sum<kSmem>(base, n_bins);
+    for (int s = warp; s < S; s += n_warps) {
+      float acc = 0.0f;
+      for (int c = lane; c < n_bins; c += kWarp)
+        acc = __fadd_rn(acc, rd<kSmem>(delta + s * n_bins + c));
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        const float mass = __fadd_rn(base_mass, acc);
+        cap[s] = __fmul_rn(__fadd_rn(mass, lookahead), cap_scale);
+        need[s] = 0;
+      }
+    }
+    __syncthreads();
+
+    // 2. every (source, key) resolves against base + delta[s]
+    const int base_i = b * per_step;
+    for (int j = threadIdx.x; j < per_step; j += blockDim.x) {
+      const int s = j % S;
+      const uint32_t key = static_cast<uint32_t>(keys[base_i + j]);
+      const float* d = delta + s * n_bins;
+      const float cs = cap[s];
+      int pick = -1;
+      for (int t = 1; t <= budget; ++t) {
+        const int c = hash_to_bin(key, static_cast<uint32_t>(t),
+                                  static_cast<uint32_t>(n_bins));
+        if (__fadd_rn(rd<kSmem>(base + c), rd<kSmem>(d + c)) < cs) {
+          pick = c;
+          break;
+        }
+      }
+      assign[base_i + j] = pick;
+      if (pick < 0) need[s] = 1;
+    }
+    __syncthreads();
+
+    // 3. each source's own fallback: argmin of its view, lowest index
+    for (int s = warp; s < S; s += n_warps) {
+      if (!need[s]) continue;
+      const float* d = delta + s * n_bins;
+      float v = INFINITY;
+      int idx = 0x7FFFFFFF;
+      for (int c = lane; c < n_bins; c += kWarp)
+        argmin_merge(v, idx,
+                     __fadd_rn(rd<kSmem>(base + c), rd<kSmem>(d + c)), c);
+      warp_argmin(v, idx);
+      if (lane == 0) amin[s] = idx;
+    }
+    __syncthreads();
+
+    // 4. add into the source's delta lane
+    for (int j = threadIdx.x; j < per_step; j += blockDim.x) {
+      const int s = j % S;
+      int a = assign[base_i + j];
+      if (a < 0) {
+        a = amin[s];
+        assign[base_i + j] = a;
+      }
+      atomicAdd(delta + s * n_bins + a, 1.0f);
+    }
+    __syncthreads();
+
+    // 5. piggyback merge on the sync phase carried in ticks
+    if ((ticks0 + b + 1) % sync_every == 0) {
+      for (int c = threadIdx.x; c < n_bins; c += blockDim.x) {
+        float acc = 0.0f;
+        for (int s = 0; s < S; ++s) {
+          acc = __fadd_rn(acc, rd<kSmem>(delta + s * n_bins + c));
+          delta[s * n_bins + c] = 0.0f;
+        }
+        base[c] = __fadd_rn(rd<kSmem>(base + c), acc);
+      }
+      __syncthreads();
+    }
+  }
+
+  if (kSmem) {
+    for (int c = threadIdx.x; c < n_bins; c += blockDim.x)
+      base_out[c] = base[c];
+    for (int c = threadIdx.x; c < S * n_bins; c += blockDim.x)
+      delta_out[c] = delta[c];
+  }
+  if (threadIdx.x == 0) *ticks_out = (ticks0 + n_steps) % sync_every;
+}
+
+// Largest dynamic shared memory a launch asks for; above it the state
+// lives in the output buffers in global memory.
+constexpr size_t kSmemLimit = 220 * 1024;
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace
+
+extern "C" int porc_snapshot_launch(const void* keys, const void* load0,
+                                    const void* m0, void* assign,
+                                    void* load_out, int n_blocks, int block,
+                                    int n_bins, int chunk, float cap_scale,
+                                    void* stream) {
+  const size_t bytes = sizeof(float) * static_cast<size_t>(n_bins);
+  const int threads = 256;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bytes <= kSmemLimit) {
+    err = set_smem(porc_snapshot_kernel<true>, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    porc_snapshot_kernel<true><<<1, threads, bytes, st>>>(
+        static_cast<const int*>(keys), static_cast<const float*>(load0),
+        static_cast<const float*>(m0), static_cast<int*>(assign),
+        static_cast<float*>(load_out), n_blocks, block, n_bins, chunk,
+        cap_scale);
+  } else {
+    porc_snapshot_kernel<false><<<1, threads, 0, st>>>(
+        static_cast<const int*>(keys), static_cast<const float*>(load0),
+        static_cast<const float*>(m0), static_cast<int*>(assign),
+        static_cast<float*>(load_out), n_blocks, block, n_bins, chunk,
+        cap_scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int porc_multisource_launch(
+    const void* keys, const void* base0, const void* delta0,
+    const void* ticks0, void* assign, void* base_out, void* delta_out,
+    void* ticks_out, int n_steps, int n_sources, int block, int n_bins,
+    int chunk, int sync_every, float cap_scale, float lookahead,
+    void* stream) {
+  const size_t small = sizeof(float) * 3 * static_cast<size_t>(n_sources);
+  const size_t state = sizeof(float) * (static_cast<size_t>(n_sources) + 1) *
+                       static_cast<size_t>(n_bins);
+  const int threads = 1024;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (small + state <= kSmemLimit) {
+    err = set_smem(porc_multisource_kernel<true>, small + state);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    porc_multisource_kernel<true><<<1, threads, small + state, st>>>(
+        static_cast<const int*>(keys), static_cast<const float*>(base0),
+        static_cast<const float*>(delta0), static_cast<const int*>(ticks0),
+        static_cast<int*>(assign), static_cast<float*>(base_out),
+        static_cast<float*>(delta_out), static_cast<int*>(ticks_out),
+        n_steps, n_sources, block, n_bins, chunk, sync_every, cap_scale,
+        lookahead);
+  } else {
+    err = set_smem(porc_multisource_kernel<false>, small);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    porc_multisource_kernel<false><<<1, threads, small, st>>>(
+        static_cast<const int*>(keys), static_cast<const float*>(base0),
+        static_cast<const float*>(delta0), static_cast<const int*>(ticks0),
+        static_cast<int*>(assign), static_cast<float*>(base_out),
+        static_cast<float*>(delta_out), static_cast<int*>(ticks_out),
+        n_steps, n_sources, block, n_bins, chunk, sync_every, cap_scale,
+        lookahead);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,155 @@
+"""Wrappers of the hand-written CUDA routing kernels
+(``csrc/porc_snapshot.cu``), the port of the Pallas kernels in
+``repro/kernels/porc_snapshot.py``.
+
+``porc_snapshot`` and ``porc_multisource_scan`` keep the signatures and
+the returned tuples of the Pallas wrappers. A CUDA tensor always goes to
+the kernel, which launches on the current stream; a CPU tensor goes to
+the plain torch version in ``ref`` (the CPU has no kernel). Each wrapper
+counts its kernel launches in ``<wrapper>.launches``, a plain integer,
+so a run can show that its main path went through the kernel.
+
+The heavy-hitter policy branch of ``porc_multisource_scan`` is not
+ported yet (ROADMAP).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import build
+from .blocks import cap_scale
+from .ref import _HH_NOT_PORTED, _porc_multisource_scan, ref_porc_snapshot
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with typed entry points
+    (``c_void_p`` for pointers and the stream, or ctypes would cut them
+    to 32-bit ints)."""
+    lib = build.load("porc_snapshot")
+    lib.porc_snapshot_launch.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
+    lib.porc_snapshot_launch.restype = _I
+    lib.porc_multisource_launch.argtypes = [_P] * 8 + [_I] * 6 + [_F, _F, _P]
+    lib.porc_multisource_launch.restype = _I
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _scalar(x, dtype, device) -> torch.Tensor:
+    """A 0-dim device tensor the kernel reads through a pointer (no
+    host sync when ``x`` already is one)."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1 or x.device != device:
+            raise ValueError(f"expected a scalar on {device}, got shape "
+                             f"{tuple(x.shape)} on {x.device}")
+        return x.reshape(()).to(dtype).contiguous()
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def _raise_on(err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
+                  eps: float = 0.05, chunk: int = 8,
+                  load0: torch.Tensor | None = None, m0=0.0):
+    """Snapshot-probing PoRC — drop-in for ``ref.ref_porc_snapshot``
+    (same signature, bit-identical result). ``m0`` may be a 0-dim f32
+    device tensor, read by the kernel through a pointer.
+
+    Returns (assignment [M] int32, final load [n_bins] f32).
+    """
+    if not keys.is_cuda:
+        return ref_porc_snapshot(keys, n_bins, block=block, eps=eps,
+                                 chunk=chunk, load0=load0, m0=m0)
+    dev = keys.device
+    M = keys.shape[0]
+    _check(keys, "keys", torch.int32, (M,), dev)
+    if block < 1 or chunk < 1 or n_bins < 1 or M % block or M >= 2**31:
+        raise ValueError(f"porc_snapshot: M={M} must be a multiple of "
+                         f"block={block} below 2^31; n_bins={n_bins}, "
+                         f"chunk={chunk} must be >= 1")
+    if load0 is None:
+        load0 = torch.zeros(n_bins, dtype=torch.float32, device=dev)
+    _check(load0, "load0", torch.float32, (n_bins,), dev)
+    if M == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev), load0.clone()
+    m0 = _scalar(m0, torch.float32, dev)
+    assign = torch.empty(M, dtype=torch.int32, device=dev)
+    load = torch.empty(n_bins, dtype=torch.float32, device=dev)
+    err = _lib().porc_snapshot_launch(
+        keys.data_ptr(), load0.data_ptr(), m0.data_ptr(), assign.data_ptr(),
+        load.data_ptr(), M // block, block, n_bins, chunk,
+        cap_scale(eps, n_bins), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "porc_snapshot")
+    porc_snapshot.launches += 1
+    return assign, load
+
+
+porc_snapshot.launches = 0
+
+
+def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
+                          sync_every: int, block: int, eps: float,
+                          chunk: int, base0, delta0, ticks0,
+                          skb0=None, skd0=None, policy=None):
+    """Kernel counterpart of ``ref._porc_multisource_scan``: the core
+    multi-source scan over full per-source blocks, same argument order
+    and the same ``(assign, base, delta, ticks, skb, skd)`` return
+    (``skb``/``skd`` stay None). ``ticks0`` may be a 0-dim int32 device
+    tensor, read by the kernel through a pointer.
+    """
+    if policy is not None or skb0 is not None or skd0 is not None:
+        raise NotImplementedError(_HH_NOT_PORTED)
+    if not keys.is_cuda:
+        return _porc_multisource_scan(keys, n_bins, n_sources, sync_every,
+                                      block, eps, chunk, "snapshot", base0,
+                                      delta0, ticks0)
+    dev = keys.device
+    S = n_sources
+    M = keys.shape[0]
+    _check(keys, "keys", torch.int32, (M,), dev)
+    if min(block, chunk, n_bins, S, sync_every) < 1 \
+            or M % (S * block) or M >= 2**31:
+        raise ValueError(f"porc_multisource_scan: M={M} must be a multiple "
+                         f"of S*block={S}*{block} below 2^31; n_bins, "
+                         "chunk, sync_every must be >= 1")
+    _check(base0, "base0", torch.float32, (n_bins,), dev)
+    _check(delta0, "delta0", torch.float32, (S, n_bins), dev)
+    ticks0 = _scalar(ticks0, torch.int32, dev)
+    if M == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
+                delta0.clone(), ticks0 % sync_every, None, None)
+    assign = torch.empty(M, dtype=torch.int32, device=dev)
+    base = torch.empty(n_bins, dtype=torch.float32, device=dev)
+    delta = torch.empty((S, n_bins), dtype=torch.float32, device=dev)
+    ticks = torch.empty((), dtype=torch.int32, device=dev)
+    err = _lib().porc_multisource_launch(
+        keys.data_ptr(), base0.data_ptr(), delta0.data_ptr(),
+        ticks0.data_ptr(), assign.data_ptr(), base.data_ptr(),
+        delta.data_ptr(), ticks.data_ptr(), M // (S * block), S, block,
+        n_bins, chunk, sync_every, cap_scale(eps, n_bins),
+        float(np.float32(block / S)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "porc_multisource_scan")
+    porc_multisource_scan.launches += 1
+    return assign, base, delta, ticks, None, None
+
+
+porc_multisource_scan.launches = 0
