@@ -8,9 +8,10 @@ Phases:
      (nvidia-smi);
   2. build: compiles the CUDA kernels from the checkout's sources
      (``src/repro_torch/kernels/csrc``) into ``build/repro_torch_kernels/``;
-  3. kernels: holds ``porc_snapshot`` and ``porc_multisource_scan``
-     against their plain torch versions on the card, bit for bit, on a
-     WP-profile stream, and times both at the main path's shapes;
+  3. kernels: holds ``porc_snapshot``, ``porc_multisource_scan`` and its
+     HHPolicy branch against their plain torch versions on the card, bit
+     for bit, on WP- and TW-profile streams, and times each at the main
+     path's shapes;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -19,7 +20,15 @@ Phases:
      (b) the Fig 14/15 deployment (24 workers, α=20, slot 5,000, 16
      moves per slot, two executors at 30%, 8 sources) on a TW-profile
      stream (31M keys, p1=2.67%) cut to 22M messages;
-  5. prints the ``{"kernels": [...]}`` line and, last, the device line.
+     (c) (b) with ``hh_scheme="WCHOICES"`` on the same stream, and (d)
+     (a) at block 128 with ``hh_scheme="DCHOICES"`` on the 2.2M prefix:
+     the heavy-hitter path through the HHPolicy kernel;
+  5. serving: a ``ServingEngine`` on the card over a W-Choices
+     ``CGRequestRouter`` (24 replicas × α=20, 8 sources) under a chaos
+     schedule (replicas 0 and 1 at 30% from tick 1, replica 3 crashed at
+     tick 200 and back at 350), 2,048 TW-profile requests per tick for
+     500 ticks, then drained: nothing may be lost;
+  6. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -217,6 +226,179 @@ def time_multisource(keys, dev, n: int, S: int, slot: int,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops)
 
 
+HH_POLICIES = ("w", "d", "w_no_rotate", "d_chain4_spread",
+               "d_chain4_argmin", "neutral", "neutral_spread")
+
+
+def hh_policy(name: str, n_bins: int):
+    """The HHPolicy grid of the kernel check: W- and D-Choices at their
+    defaults, rotation off, a 4-candidate chain whose heavy budgets take
+    the full-set fallback (spread in load order, or rotation and spread
+    off: the argmin bin), and the neutral policy with and without them."""
+    from repro_torch.kernels.blocks import HHPolicy, neutral_hh_policy
+    short = dict(scheme="d", chain=4, d_tail=6)
+    neutral = neutral_hh_policy(n_bins)
+    return {
+        "w": HHPolicy(scheme="w"),
+        "d": HHPolicy(scheme="d"),
+        "w_no_rotate": HHPolicy(scheme="w", rotate_duplicates=False),
+        "d_chain4_spread": HHPolicy(**short),
+        "d_chain4_argmin": HHPolicy(**short, rotate_duplicates=False,
+                                    spread_fallback=False),
+        "neutral": neutral,
+        "neutral_spread": neutral._replace(rotate_duplicates=True,
+                                           spread_fallback=True),
+    }[name]
+
+
+def check_multisource_hh(streams: dict, dev) -> float:
+    """The HHPolicy branch of porc_multisource_scan vs the plain
+    _porc_multisource_scan(policy=...), bit for bit — assignments, base,
+    delta, routed, ticks and both sketch lanes — through the span driver
+    with a ragged tail and the state carried across two calls, over
+    streams × n_bins {100, 480, 60,000} × S {1, 8} × sync {1, 3} × the
+    policies of ``hh_policy``. 60,000 bins put the views out of shared
+    memory. Also: the kernel split at a step boundary equals one call."""
+    import torch
+    from repro_torch.kernels import ref
+    err = 0.0
+    fields = ("assign", "base", "delta", "routed", "ticks", "sketch_base",
+              "sketch_delta")
+    for sname, keys in streams.items():
+        for n in (100, 480, 60_000):
+            for S in (1, 8):
+                for sync in (1, 3):
+                    m = S * 128 * 5 + S * 77 + (S // 2 if S > 1 else 0)
+                    split = S * 128 * 2 + S * 3 + S // 3
+                    for pname in HH_POLICIES:
+                        pol = hh_policy(pname, n)
+                        out = {}
+                        for eng in ("cuda", "snapshot"):
+                            a1, st = ref.ref_porc_multisource(
+                                keys[:split], n, S, sync_every=sync,
+                                block=128, eps=0.01, engine=eng, policy=pol,
+                                device=dev)
+                            a2, st = ref.ref_porc_multisource(
+                                keys[split:m], n, S, sync_every=sync,
+                                block=128, eps=0.01, state=st, engine=eng,
+                                policy=pol, device=dev)
+                            out[eng] = (torch.cat([a1, a2]), st.base,
+                                        st.delta, st.routed, st.ticks,
+                                        st.sketch_base, st.sketch_delta)
+                        for what, x, y in zip(fields, out["cuda"],
+                                              out["snapshot"]):
+                            err = max(err, _same(
+                                f"HH {sname} {pname} S={S} n={n} sync={sync}"
+                                f" {what}", x, y))
+                    # split at a step boundary == one call, on the kernel
+                    pol = hh_policy("w", n)
+                    aligned = S * 128 * 4
+                    one, st1 = ref.ref_porc_multisource(
+                        keys[:aligned], n, S, sync_every=sync, block=128,
+                        eps=0.01, engine="cuda", policy=pol, device=dev)
+                    parts, st2 = [], None
+                    for lo, hi in ((0, S * 128 * 2), (S * 128 * 2, aligned)):
+                        a, st2 = ref.ref_porc_multisource(
+                            keys[lo:hi], n, S, sync_every=sync, block=128,
+                            eps=0.01, state=st2, engine="cuda", policy=pol,
+                            device=dev)
+                        parts.append(a)
+                    for what, x, y in zip(fields, (one,) + tuple(st1),
+                                          (torch.cat(parts),) + tuple(st2)):
+                        _same(f"HH split {sname} S={S} n={n} sync={sync} "
+                              f"{what}", x, y)
+                    log(f"  HHPolicy {sname} n_bins={n:>6} S={S} "
+                        f"sync={sync}: {len(HH_POLICIES)} policies identical"
+                        f" ({m} messages); split == one call")
+    return err
+
+
+def hh_probes(keys, n, S, sync, block, eps, chunk, base, delta, ticks, skb,
+              skd, pol) -> int:
+    """Candidates the HHPolicy scan hashes on these inputs: per key, its
+    first-fit position + 1 when it resolves, else its whole window
+    (replayed with the plain engine's block math)."""
+    import torch
+    from repro_torch.core.hashing import hash_to_bins
+    from repro_torch.kernels import blocks as B
+    dev = keys.device
+    C = B.hh_chunk(pol, chunk, n)
+    salts = B.probe_salts(C, device=dev)
+    nb = keys.shape[0] // (S * block)
+    kb = keys.reshape(nb, block, S).permute(0, 2, 1)
+    base, delta, skb, skd = (x.clone() for x in (base, delta, skb, skd))
+    lane = (torch.arange(S, device=dev) * n)[:, None]
+    idx = torch.arange(C, device=dev)
+    total = 0
+    for b in range(nb):
+        kblk = kb[b]
+        mass = base.sum() + delta.sum(1)
+        cap = B.view_cap(eps, n, mass, block / S)
+        views = base[None] + delta
+        cand = hash_to_bins(kblk[..., None], salts, n)
+        bud = B.hh_budgets(pol, n, eps, B.sketch_query_lanes(pol, skb, skd,
+                                                             kblk),
+                           mass[:, None])
+        window = torch.clamp(bud.long(), max=C)
+        pos = idx.expand(S, block, C)
+        if pol.rotate_duplicates:
+            i = torch.arange(block, device=dev)
+            eq = kblk[:, :, None] == kblk[:, None, :]
+            dup = (eq & (i[None, :] < i[:, None])[None]).sum(2)
+            offset = (dup * window) // torch.clamp(eq.sum(2), min=1)
+            pos = torch.remainder(idx - offset[..., None],
+                                  torch.clamp(window, min=1)[..., None])
+        ok = ((views.gather(1, cand.reshape(S, -1).long()).reshape(cand.shape)
+               < cap[:, None, None]) & (idx < window[..., None]))
+        first = torch.where(ok, pos, torch.full_like(pos, C)).amin(2)
+        total += int(torch.where(ok.any(2), first + 1, window).sum())
+        a = B.snapshot_block_hh(views, cap, kblk, cand, bud, n,
+                                pol.rotate_duplicates, pol.spread_fallback)
+        delta.view(-1).index_add_(0, (lane + a.long()).reshape(-1),
+                                  torch.ones(S * block, device=dev))
+        skd = B.sketch_add_lanes(pol, skd, kblk)
+        if (int(ticks) + b + 1) % sync == 0:
+            base, delta = base + delta.sum(0), torch.zeros_like(delta)
+            skb, skd = skb + B.lane_sum(skd), torch.zeros_like(skd)
+    return total
+
+
+def time_multisource_hh(keys, dev, n: int, S: int, slot: int,
+                        block: int) -> dict:
+    """The HHPolicy branch at the main path's span shape (one slot's
+    128-block span, W-Choices chain of n_bins candidates), from a state
+    warmed by ten slots of the same stream."""
+    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.blocks import HHPolicy
+    pol = HHPolicy(scheme="w")
+    per = slot // S // block * block
+    M = per * S
+    warm = 10 * slot
+    _, st = ref.ref_porc_multisource(keys[:warm], n, S, block=block,
+                                     eps=0.01, engine="cuda", policy=pol,
+                                     device=dev)
+    k = keys[warm: warm + M].contiguous()
+    args = (k, n, S, 1, block, 0.01, 8, st.base, st.delta, st.ticks,
+            st.sketch_base, st.sketch_delta, pol)
+    ms = cuda_ms(lambda: ps.porc_multisource_scan(*args), reps=50)
+    plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
+        *args[:7], "snapshot", *args[7:]), reps=3, warmup=1)
+    steps = M // (S * block)
+    D, W = pol.depth, pol.width
+    lanes = (1 + S) * D * W
+    nbytes = (4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
+              + 4 * lanes * 2)                # sketch lanes in and out
+    probes = hh_probes(*args)
+    ops = ((probes + 2 * D * M) * OPS_PER_PROBE        # chain + sketch hashes
+           + M * (2 * D + 1)                           # sketch reads, adds
+           + steps * S * block * block                 # duplicate ranks
+           + steps * (S + 1) * n * 2 + steps * lanes)  # masses, merges
+    return dict(shape=f"M={M} S={S} n_bins={n} block={block} W-Choices "
+                f"chain={n}", ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, probes=probes)
+
+
 def bound(t: dict) -> tuple[float, str]:
     by_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     by_ops = t["ops"] / OPS_PER_S * 1e3
@@ -238,6 +420,7 @@ def run_cg(name: str, cfg, keys, caps, frac, dev, kernel: str,
     from repro_torch.kernels import porc_snapshot as ps
     ps.porc_snapshot.launches = 0
     ps.porc_multisource_scan.launches = 0
+    ps.porc_multisource_scan.hh_launches = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -246,7 +429,9 @@ def run_cg(name: str, cfg, keys, caps, frac, dev, kernel: str,
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     launches = {"porc_snapshot": ps.porc_snapshot.launches,
-                "porc_multisource_scan": ps.porc_multisource_scan.launches}
+                "porc_multisource_scan": ps.porc_multisource_scan.launches,
+                "porc_multisource_scan_hh":
+                    ps.porc_multisource_scan.hh_launches}
     if check_launches and launches[kernel] <= 0:
         fail(f"{name}: the main path never launched {kernel}")
     m = keys.shape[0]
@@ -277,31 +462,66 @@ def run_cg(name: str, cfg, keys, caps, frac, dev, kernel: str,
     d_kg = simulation.simulate_deployment(kg, cfg.n_workers, service_ms,
                                           fr, offered)
     imb = res.imbalance
+    slots = m // cfg.slot_len
     out = dict(
         run=name, messages=m, seconds=secs, msgs_per_s=m / secs,
+        host_ms_per_slot=secs / slots * 1e3,
+        vw_spread=vw_spread(keys, res.vw_assignment, V, cfg.hot_fraction),
         imbalance_first3=float(imb[:3].mean()),
         imbalance_last3=float(imb[-3:].mean()),
         moves=int(res.moves), vw_conserved=conserved, launches=launches,
         kg_cg_mean_latency_ratio=float(d_kg.mean_latency_ms
                                        / d_cg.mean_latency_ms),
         kg_cg_throughput_ratio=float(d_kg.throughput / d_cg.throughput))
-    log(f"  {name}: {m} msgs in {secs:.3f} s = {m / secs:,.0f} msgs/s; "
+    log(f"  {name}: {m} msgs in {secs:.3f} s = {m / secs:,.0f} msgs/s, "
+        f"host {out['host_ms_per_slot']:.3f} ms/slot; "
         f"imbalance first3 {out['imbalance_first3']:.4f} last3 "
         f"{out['imbalance_last3']:.4f}; moves {out['moves']}; VWs conserved "
         f"{conserved}; launches {launches}; KG/CG mean latency "
-        f"{out['kg_cg_mean_latency_ratio']:.3f}")
+        f"{out['kg_cg_mean_latency_ratio']:.3f}; distinct VWs per key: "
+        f"10 hottest {out['vw_spread']['top10']:.2f}, tail "
+        f"{out['vw_spread']['tail']:.3f}")
     return out, res
 
 
-def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
-              check_launches: bool = True) -> list[dict]:
-    """The two main-path configurations; ``scale`` < 1 cuts the stream
-    for a rehearsal on the CPU."""
-    import numpy as np
+def vw_spread(keys, vw, n_vw: int, hot_fraction: float) -> dict:
+    """Mean number of distinct VWs the 10 hottest keys, and the tail keys
+    (exact count below ``hot_fraction`` of the stream), land on."""
     import torch
-    from repro_torch.configs.paper_stream import (CPULIMIT_FRACTION, PAPER_CG,
-                                                  RHO, STORM_SOURCES,
+    pairs = torch.unique(keys.long() * n_vw + vw.long())
+    _, per_key = torch.unique(pairs // n_vw, return_counts=True)
+    _, count = torch.unique(keys.long(), return_counts=True)
+    top = torch.argsort(count, descending=True)[:10]
+    tail = count < hot_fraction * keys.shape[0]
+    return dict(top10=float(per_key[top].double().mean()),
+                tail=float(per_key[tail].double().mean()),
+                tail_keys=int(tail.sum()))
+
+
+def deployment_config():
+    """The Fig 14/15 deployment: (CGConfig, capacities, cpulimit
+    fractions) — 24 workers × α=20, slot 5,000, 16 moves, 8 sources,
+    two executors at 30%."""
+    import numpy as np
+    from repro_torch.configs.paper_stream import (CPULIMIT_FRACTION, RHO,
+                                                  STORM_SOURCES,
                                                   STORM_WORKERS)
+    from repro_torch.core import cg
+    W = STORM_WORKERS
+    frac = np.concatenate([[CPULIMIT_FRACTION] * 2, np.ones(W - 2)])
+    cfg = cg.CGConfig(n_workers=W, alpha=20, eps=0.01, slot_len=5_000,
+                      max_moves_per_slot=16, n_sources=STORM_SOURCES,
+                      engine="auto")
+    return cfg, frac / frac.sum() / RHO, frac
+
+
+def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
+              check_launches: bool = True, tw_keys=None) -> list[dict]:
+    """The two policy-free main-path configurations; ``scale`` < 1 cuts
+    the stream for a rehearsal on the CPU. ``tw_keys`` is (b)'s stream,
+    sampled here when not given."""
+    import torch
+    from repro_torch.configs.paper_stream import PAPER_CG, RHO
     from repro_torch.core import cg, streams
     runs = []
     # (a) the paper's simulation setup, heterogeneous y=3 z=5 at rho=0.8
@@ -331,19 +551,158 @@ def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
     del res1, oracle
 
     # (b) the Fig 14/15 deployment: 24 workers, two executors at 30%
-    W = STORM_WORKERS
-    frac_b = np.concatenate([[CPULIMIT_FRACTION] * 2, np.ones(W - 2)])
-    caps_b = frac_b / frac_b.sum() / RHO
-    cfg_b = cg.CGConfig(n_workers=W, alpha=20, eps=0.01, slot_len=5_000,
-                        max_moves_per_slot=16, n_sources=STORM_SOURCES,
-                        engine="auto")
+    cfg_b, caps_b, frac_b = deployment_config()
     mb = int(TW_TABLE1["n_messages"] * scale) // cfg_b.slot_len \
         * cfg_b.slot_len
-    tw_keys = sample(TW_TABLE1, seed + 1, mb, dev)
-    out, _ = run_cg("deployment_tw_sources8", cfg_b, tw_keys, caps_b, frac_b,
-                    dev, "porc_multisource_scan", check_launches)
+    if tw_keys is None:
+        tw_keys = sample(TW_TABLE1, seed + 1, mb, dev)
+    out, _ = run_cg("deployment_tw_sources8", cfg_b, tw_keys[:mb], caps_b,
+                    frac_b, dev, "porc_multisource_scan", check_launches)
     runs.append(out)
     return runs
+
+
+def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
+            check_launches: bool = True) -> list[dict]:
+    """The heavy-hitter main path through the HHPolicy kernel: (c) the
+    deployment with W-Choices on (b)'s stream, (d) the paper's setup at
+    block 128 with D-Choices on the prefix (a) block 1 routed. Each run's
+    key spread is printed beside its policy-free twin's."""
+    from repro_torch.configs.paper_stream import PAPER_CG, RHO
+    from repro_torch.core import streams
+    twin = {r["run"]: r for r in base_runs}
+    runs = []
+    cfg_b, caps_b, frac_b = deployment_config()
+    mb = int(TW_TABLE1["n_messages"] * scale) // cfg_b.slot_len \
+        * cfg_b.slot_len
+    cfg_c = cfg_b._replace(hh_scheme="WCHOICES")
+    out, _ = run_cg("deployment_tw_sources8_wchoices", cfg_c, tw_keys[:mb],
+                    caps_b, frac_b, dev, "porc_multisource_scan_hh",
+                    check_launches)
+    out["policy_free_twin"] = "deployment_tw_sources8"
+    runs.append(out)
+    n = PAPER_CG.n_workers
+    caps = streams.heterogeneous_capacities(n, 3, 5.0) / RHO
+    m1 = twin["paper_wp_block1"]["messages"]
+    cfg_d = PAPER_CG._replace(block_size=128, engine="auto",
+                              hh_scheme="DCHOICES")
+    out, _ = run_cg("paper_wp_block128_dchoices", cfg_d, wp_keys[:m1], caps,
+                    caps / caps.max(), dev, "porc_multisource_scan_hh",
+                    check_launches)
+    out["policy_free_twin"] = "paper_wp_block1"
+    runs.append(out)
+    b = twin["deployment_tw_sources8"]["vw_spread"]
+    for r in runs:
+        t = twin[r["policy_free_twin"]]["vw_spread"]
+        log(f"  {r['run']}: distinct VWs per key, 10 hottest "
+            f"{r['vw_spread']['top10']:.2f} (policy-free twin "
+            f"{t['top10']:.2f}, (b) {b['top10']:.2f}), tail "
+            f"{r['vw_spread']['tail']:.3f} (policy-free twin {t['tail']:.3f},"
+            f" (b) {b['tail']:.3f}); HH kernel launches "
+            f"{r['launches']['porc_multisource_scan_hh']}")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serving with its failure path
+# ---------------------------------------------------------------------------
+
+def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
+                 check_launches: bool = True) -> dict:
+    """A ``ServingEngine`` on ``dev`` over a W-Choices router at the
+    deployment's width, under slowdowns and a kill-and-recover schedule,
+    offered 0.75 of the fleet's drain rate (the utilisation of
+    ``benchmarks/bench_failures.py``), then drained. Fails if a request
+    is lost or dropped, or the HHPolicy kernel never launched."""
+    import numpy as np
+    import torch
+    from repro_torch.core import streams
+    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosSchedule
+    from repro_torch.serve import CGRequestRouter, ServingEngine
+    W, slow = 24, 0.3
+    crash_at, recover_at = int(0.4 * n_ticks), int(0.7 * n_ticks)
+    max_batch = round(per_tick / (0.75 * (W - 2 + 2 * slow)))
+    keys = streams.sample_trace(
+        seed + 2, streams.TraceSpec(**TW_TABLE1), n_ticks * per_tick,
+        device="cpu").numpy()
+    router = CGRequestRouter(
+        n_replicas=W, alpha=20, n_sources=8, hh_scheme="w",
+        capacity_weighted=True, adaptive_moves=True, hysteresis=True,
+        state_bytes_per_request=256 * 1024.0, engine="auto", device=dev)
+    chaos = ChaosSchedule([ChaosEvent(1, "slow", 0, factor=1 / slow),
+                           ChaosEvent(1, "slow", 1, factor=1 / slow),
+                           ChaosEvent(crash_at, "crash", 3),
+                           ChaosEvent(recover_at, "recover", 3)])
+    eng = ServingEngine([lambda b: b for _ in range(W)], router,
+                        max_batch=max_batch, chaos=chaos,
+                        heartbeat_timeout_steps=2, readmit_ramp_steps=20,
+                        async_submit=True)
+
+    def lost():
+        return eng.submitted - sum(r.served for r in eng.replicas) \
+            - eng.in_flight
+
+    ps.porc_multisource_scan.launches = 0
+    ps.porc_multisource_scan.hh_launches = 0
+    marks = []
+    t0 = time.perf_counter()
+    for tick in range(n_ticks):
+        k = keys[tick * per_tick: (tick + 1) * per_tick]
+        eng.submit_batch(k, list(k))
+        eng.step()
+        marks.append(len(eng.latency_steps))
+        if lost():
+            fail(f"serving: {lost()} requests lost at tick {tick + 1}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    drain_ticks = 0
+    while eng.in_flight and drain_ticks < 20 * n_ticks:
+        eng.step()
+        drain_ticks += 1
+    launches = ps.porc_multisource_scan.hh_launches
+    served = sum(r.served for r in eng.replicas)
+    if eng.in_flight or lost() or eng.dropped or served != eng.submitted:
+        fail(f"serving: submitted {eng.submitted}, served {served}, in "
+             f"flight {eng.in_flight}, dropped {eng.dropped}")
+    if check_launches and launches <= 0:
+        fail("serving: the router never launched the HHPolicy kernel")
+    if eng.evacuations < 1:
+        fail("serving: the crashed replica was never evacuated")
+    lat = np.asarray(eng.latency_steps)
+
+    def window(lo_tick, hi_tick):
+        lo = marks[lo_tick - 2] if lo_tick > 1 else 0
+        hi = marks[hi_tick - 2] if hi_tick - 2 < len(marks) else len(lat)
+        seg = lat[lo:hi]
+        return dict(mean=float(seg.mean()),
+                    p99=float(np.percentile(seg, 99)), max=int(seg.max()),
+                    served=int(len(seg)))
+
+    out = dict(
+        requests=n_ticks * per_tick, ticks=n_ticks, max_batch=max_batch,
+        seconds=secs, requests_per_s=n_ticks * per_tick / secs,
+        host_ms_per_tick=secs / n_ticks * 1e3, drain_ticks=drain_ticks,
+        submitted=eng.submitted, served=served, lost=lost(),
+        dropped=eng.dropped, retried=eng.retried,
+        evacuations=eng.evacuations, moves=router.moves,
+        bytes_moved=router.bytes_moved, hh_launches=launches,
+        latency_before=window(1, crash_at),
+        latency_during=window(crash_at, recover_at),
+        latency_after=window(recover_at, n_ticks + 1 + drain_ticks))
+    log(f"  serving: {out['requests']} requests in {secs:.3f} s = "
+        f"{out['requests_per_s']:,.0f} dispatched requests/s "
+        f"({out['host_ms_per_tick']:.3f} ms/tick, max_batch {max_batch}); "
+        f"lost {out['lost']}, dropped {eng.dropped}, retried {eng.retried}; "
+        f"evacuations {eng.evacuations}, moves {router.moves}, bytes moved "
+        f"{router.bytes_moved:.0f}; HH kernel launches {launches}")
+    for phase in ("before", "during", "after"):
+        w = out[f"latency_{phase}"]
+        log(f"  serving tick latency {phase} the failure: mean "
+            f"{w['mean']:.3f}, p99 {w['p99']:.1f}, max {w['max']} "
+            f"({w['served']} served)")
+    return out
 
 
 def sample(spec: dict, seed: int, n_messages: int, dev):
@@ -391,42 +750,61 @@ def main() -> int:
             log("  ptxas:", line.strip())
 
     # 3. kernels vs plain, on the card
-    log("== kernels vs plain (bit for bit, WP stream)")
+    log("== kernels vs plain (bit for bit, WP and TW streams)")
     wp_keys = sample(WP_TABLE1, args.seed, WP_TABLE1["n_messages"], dev)
+    tw_keys = sample(TW_TABLE1, args.seed + 1, TW_TABLE1["n_messages"], dev)
     err_s = check_snapshot(wp_keys, dev)
     err_m = check_multisource(wp_keys, dev)
+    err_h = check_multisource_hh({"WP": wp_keys, "TW": tw_keys}, dev)
     t_s = time_snapshot(wp_keys, dev, n=100, slot=10_000, block=128)
     t_m = time_multisource(wp_keys, dev, n=480, S=8, slot=5_000, block=128)
-    for name, t in (("porc_snapshot", t_s), ("porc_multisource_scan", t_m)):
+    t_h = time_multisource_hh(tw_keys, dev, n=480, S=8, slot=5_000,
+                              block=128)
+    timing = {"porc_snapshot": t_s, "porc_multisource_scan": t_m,
+              "porc_multisource_scan[HHPolicy]": t_h}
+    for name, t in timing.items():
         b, by = bound(t)
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch, "
             f"plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by})")
 
     # 4. the main path
     log("== main path: cg.run(engine='auto')")
-    runs = main_path(dev, args.seed, wp_keys)
-    launches_s = sum(r["launches"]["porc_snapshot"] for r in runs)
-    launches_m = sum(r["launches"]["porc_multisource_scan"] for r in runs)
+    runs = main_path(dev, args.seed, wp_keys, tw_keys=tw_keys)
+    log("== heavy-hitter main path: cg.run(hh_scheme=..., engine='auto')")
+    runs += hh_path(dev, wp_keys, tw_keys, runs)
+    del wp_keys, tw_keys
 
-    # 5. report
+    # 5. serving with its failure path
+    log("== serving: ServingEngine + CGRequestRouter(hh_scheme='w') under "
+        "chaos")
+    serving = serving_path(dev, args.seed)
+
+    # 6. report
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("porc_snapshot", "porc_multisource_scan",
+                          "porc_multisource_scan_hh")}
+    launches["porc_multisource_scan_hh"] += serving["hh_launches"]
     src = "src/repro_torch/kernels/csrc/porc_snapshot.cu"
     kernels = []
-    for name, t, err, launches, line in (
-            ("porc_snapshot", t_s, err_s, launches_s, 78),
-            ("porc_multisource_scan", t_m, err_m, launches_m, 207)):
+    for name, err, count, line in (
+            ("porc_snapshot", err_s, launches["porc_snapshot"], 78),
+            ("porc_multisource_scan", err_m,
+             launches["porc_multisource_scan"], 207),
+            ("porc_multisource_scan[HHPolicy]", err_h,
+             launches["porc_multisource_scan_hh"], 207)):
+        t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
             name=name, route="cuda", source=src,
             replaces=f"src/repro/kernels/porc_snapshot.py:{line}",
-            launches=launches, max_abs_err=err, ms=t["ms"],
+            launches=count, max_abs_err=err, ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=None))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
-            card=card, build_s=build_s, timing=dict(porc_snapshot=t_s,
-                                                    porc_multisource_scan=t_m),
-            runs=runs, kernels=kernels), indent=1))
+            card=card, build_s=build_s, timing=timing, runs=runs,
+            serving=serving, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ The JAX package's state crosses over as nested dicts of numpy arrays
 (``to_tree`` makes one from a NamedTuple of either package: any array
 that ``numpy.asarray`` takes is a leaf), and comes back the same way.
 ``porc_state``, ``multisource_state`` and ``cg_state`` turn such a tree
-into the port's state on ``device`` — so a run begun in one package
-continues in the other.
+into the port's state on ``device``, heavy-hitter sketch lanes included
+— so a run begun in one package continues in the other.
+``router_snapshot`` and ``load_router`` do the same for a serving
+router's whole routing, delegation and controller state.
 """
 from __future__ import annotations
 
@@ -17,15 +19,14 @@ import torch
 
 from repro_torch.core.cg import CGState
 from repro_torch.core.controller import ControllerState
-from repro_torch.core.delegation import PairQueues
+from repro_torch.core.delegation import DelegationState, PairQueues
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.ref import MultiSourcePorcState, PorcState
 
 # NamedTuple fields that hold a NamedTuple of their own
 _NESTED = {(CGState, "signal_queues"): PairQueues,
-           (CGState, "controller"): ControllerState}
-# sketch lanes of the heavy-hitter policy, which the port lacks yet
-_SKETCH_FIELDS = ("sketch", "sketch_base", "sketch_delta")
+           (CGState, "controller"): ControllerState,
+           (DelegationState, "queues"): PairQueues}
 
 
 def to_tree(state) -> dict[str, Any]:
@@ -48,10 +49,7 @@ def _from_tree(cls: type[NamedTuple], tree: dict, device: torch.device):
     fields = {}
     for name in cls._fields:
         value = tree.get(name)
-        if name in _SKETCH_FIELDS:
-            if value is not None:
-                raise NotImplementedError(
-                    "heavy-hitter sketch state is not ported yet (ROADMAP)")
+        if value is None:           # e.g. the sketch lanes without a policy
             fields[name] = None
         elif (cls, name) in _NESTED:
             fields[name] = _from_tree(_NESTED[(cls, name)], value, device)
@@ -74,3 +72,52 @@ def cg_state(tree: dict, device="cuda") -> CGState:
     """``cg.CGState`` (with its ``PairQueues`` and ``ControllerState``)
     from a tree of the JAX ``CGState``."""
     return _from_tree(CGState, tree, resolve_device(device))
+
+
+def _array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def router_snapshot(router) -> dict[str, Any]:
+    """The state of a ``CGRequestRouter`` of either package — routing
+    lanes and sketch, owner map, rates, FCFS queues, controller, clocks
+    and byte accounting — as a tree of numpy arrays and numbers."""
+    ctl = router._controller
+    return {
+        "routing": to_tree(router._state),
+        "delegation": to_tree(router._dstate),
+        "rated_load": _array(router._rated_load),
+        "routed": int(router._routed),
+        "moves": int(router.moves),
+        "rebalance_mark": int(router._rebalance_mark),
+        "queued_busy": bool(router._queued_busy),
+        "queued_idle": bool(router._queued_idle),
+        "vw_bytes": (None if router._vw_bytes is None
+                     else np.array(router._vw_bytes)),
+        "controller": None if ctl is None else to_tree(ctl.state),
+    }
+
+
+def load_router(router, tree: dict) -> None:
+    """Load a ``router_snapshot`` tree into a port ``CGRequestRouter``
+    built with the same configuration, on the router's device."""
+    dev = router._dev
+    router._state = _from_tree(MultiSourcePorcState, tree["routing"], dev)
+    router._dstate = _from_tree(DelegationState, tree["delegation"], dev)
+    router._rated_load = torch.from_numpy(
+        np.array(tree["rated_load"])).to(dev)
+    router._routed = int(tree["routed"])
+    router.moves = int(tree["moves"])
+    router._rebalance_mark = int(tree["rebalance_mark"])
+    router._queued_busy = bool(tree["queued_busy"])
+    router._queued_idle = bool(tree["queued_idle"])
+    vb = tree["vw_bytes"]
+    router._vw_bytes = None if vb is None else np.array(vb, np.float64)
+    if (tree["controller"] is None) != (router._controller is None):
+        raise ValueError("the snapshot's controller does not match the "
+                         "router's configuration")
+    if router._controller is not None:
+        router._controller.state = _from_tree(ControllerState,
+                                              tree["controller"], dev)

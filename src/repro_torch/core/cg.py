@@ -14,8 +14,10 @@ assignments, owner maps and moves.
 engine on the CPU, the CUDA kernels on the card (``engine="auto"``).
 Nothing in the slot loop reads a device value back to the host.
 
-Not in this port yet: the heavy-hitter probe-depth policy
-(``hh_scheme``), which raises ``NotImplementedError``.
+``hh_scheme`` turns on the heavy-hitter probe-depth policy (D/W-Choices)
+for the PORC inner scheme: a count-min sketch, carried in
+``CGState.sketch``, classifies keys at block boundaries; on the card the
+slot routes through the HHPolicy kernel.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import blocks as kblocks
 from repro_torch.kernels.backend import resolve_device, resolve_engine
 
 from . import controller, delegation, simulation
@@ -53,13 +56,16 @@ class CGConfig(NamedTuple):
     hysteresis: bool = False      # latch busy/idle between enter/exit
     theta_margin: float = 0.05    # exit-level offset
     dwell: int = 3                # slots a raw signal must persist
-    hh_scheme: str = ""           # heavy-hitter policy: not ported yet
-    sketch_depth: int = 4
-    sketch_width: int = 4096
-    hot_fraction: float = 1e-3
-    d_heavy: int = 32
-    d_tail: int = 2
-    hh_headroom: float = 2.0
+    hh_scheme: str = ""           # heavy-hitter probe-depth policy for
+                                  # PORC: "" = off, "d" = D-Choices, "w" =
+                                  # W-Choices ("DCHOICES"/"WCHOICES" too;
+                                  # requires block_size >= 1)
+    sketch_depth: int = 4         # count-min sketch rows
+    sketch_width: int = 4096      # count-min sketch columns per row
+    hot_fraction: float = 1e-3    # heavy when est >= fraction of mass
+    d_heavy: int = 32             # heavy-key probe ceiling under "d"
+    d_tail: int = 2               # tail-key probe budget
+    hh_headroom: float = 2.0      # slack over the Eq.-2 spread
     engine: str = "auto"          # block engine for the PORC inner
                                   # scheme: "ref" (plain torch), "cuda"
                                   # (the kernel, bit-identical), "auto" =
@@ -80,7 +86,8 @@ class CGState(NamedTuple):
     sg_ptr: torch.Tensor      # []   exact SG round-robin pointer (i32)
     moves: torch.Tensor       # []   cumulative paired moves
     controller: controller.ControllerState
-    sketch: torch.Tensor | None = None   # heavy-hitter lane (not ported)
+    sketch: torch.Tensor | None = None   # [depth, width] count-min key
+                              # frequencies (None when hh_scheme is off)
 
 
 class DelegationTelemetry(NamedTuple):
@@ -104,21 +111,41 @@ class CGResult(NamedTuple):
     state: CGState
 
 
-def hh_policy(cfg: CGConfig):
-    """None: the heavy-hitter policy is not ported yet."""
-    if cfg.hh_scheme:
-        raise NotImplementedError(
-            "hh_scheme (D/W-Choices) is not ported yet: ROADMAP Queue 2, "
-            "the HHPolicy branch of porc_multisource_scan")
-    return None
+def _hh_letter(name: str) -> str:
+    """Normalize an hh_scheme spelling to the kernel letter: "d"/"w" or
+    the registry names "DCHOICES"/"WCHOICES", case-insensitively."""
+    letter = {"d": "d", "w": "w",
+              "dchoices": "d", "wchoices": "w"}.get(name.lower())
+    if letter is None:
+        raise ValueError(f"unknown hh_scheme {name!r}; use 'd'/'w' "
+                         f"(or 'DCHOICES'/'WCHOICES')")
+    return letter
+
+
+def hh_policy(cfg: CGConfig) -> kblocks.HHPolicy | None:
+    """The ``HHPolicy`` a CGConfig's heavy-hitter knobs describe (None
+    when ``hh_scheme`` is off)."""
+    if not cfg.hh_scheme:
+        return None
+    if cfg.inner != "PORC":
+        raise ValueError("hh_scheme requires the PORC inner scheme")
+    if cfg.block_size < 1:
+        raise ValueError("hh_scheme requires the block path "
+                         "(block_size >= 1); the sketch classifies keys "
+                         "at block boundaries")
+    return kblocks.HHPolicy(
+        scheme=_hh_letter(cfg.hh_scheme), depth=cfg.sketch_depth,
+        width=cfg.sketch_width, hot_fraction=cfg.hot_fraction,
+        d_heavy=cfg.d_heavy, d_tail=cfg.d_tail, headroom=cfg.hh_headroom)
 
 
 def init_state(cfg: CGConfig, device="cuda") -> CGState:
-    hh_policy(cfg)
+    policy = hh_policy(cfg)
     dev = resolve_device(device)
     n, a = cfg.n_workers, cfg.alpha
     V = n * a
     return CGState(
+        sketch=None if policy is None else kblocks.hh_sketch_init(policy, dev),
         vw_load=torch.zeros(V, dtype=torch.float32, device=dev),
         vw_owner=torch.arange(n, dtype=torch.int32, device=dev).repeat(a),
         vw_rate=torch.zeros(V, dtype=torch.float32, device=dev),
@@ -157,10 +184,12 @@ def controller_config(cfg: CGConfig) -> controller.ControllerConfig:
 
 def _route_slot(cfg: CGConfig, vw_load, t_offset, sg_ptr, sketch, keys):
     """Route one slot of messages onto virtual workers (inner scheme).
-    Returns ``(vw_load, sketch, vw)``."""
+    Returns ``(vw_load, sketch, vw)``; the sketch is threaded unchanged
+    for KG/SG and without a policy, and updated per block — then fully
+    published at the slot boundary — for PORC with ``hh_scheme``."""
     V = cfg.n_workers * cfg.alpha
     dev = keys.device
-    hh_policy(cfg)
+    policy = hh_policy(cfg)
     if cfg.inner == "KG":
         vw = hash_to_bins(keys, 1, V)
     elif cfg.inner == "SG":
@@ -188,21 +217,28 @@ def _route_slot(cfg: CGConfig, vw_load, t_offset, sg_ptr, sketch, keys):
             delta=torch.zeros((cfg.n_sources, V), dtype=torch.float32,
                               device=dev),
             routed=t_offset,
-            ticks=torch.zeros((), dtype=torch.int32, device=dev))
+            ticks=torch.zeros((), dtype=torch.int32, device=dev),
+            sketch_base=sketch,
+            sketch_delta=None if sketch is None else torch.zeros(
+                (cfg.n_sources,) + tuple(sketch.shape), dtype=torch.float32,
+                device=dev))
         vw, state = ref.ref_porc_multisource(
             keys, V, cfg.n_sources, sync_every=cfg.sync_every,
-            block=cfg.block_size, eps=cfg.eps, state=state,
+            block=cfg.block_size, eps=cfg.eps, state=state, policy=policy,
             engine=resolve_engine(cfg.engine, dev), device=dev)
+        if state.sketch_base is not None:
+            sketch = state.sketch_base + ref.lane_sum(state.sketch_delta)
         return state.base + state.delta.sum(0), sketch, vw
 
     if cfg.block_size >= 1:
         # block-parallel PoRC against per-block load snapshots;
         # bit-identical to the sequential path below at block_size == 1
-        state = ref.PorcState(load=vw_load, routed=t_offset)
+        state = ref.PorcState(load=vw_load, routed=t_offset, sketch=sketch)
         vw, state = ref.ref_porc_route(
             keys, V, block=cfg.block_size, eps=cfg.eps, state=state,
-            engine=resolve_engine(cfg.engine, dev), device=dev)
-        return state.load, sketch, vw
+            policy=policy, engine=resolve_engine(cfg.engine, dev),
+            device=dev)
+        return state.load, state.sketch, vw
 
     # PoRC (Alg. 1) continuing across slots: capacity uses global time
     from .partitioners import porc_sequential
@@ -226,7 +262,7 @@ def run(cfg: CGConfig, keys, capacities, state: CGState | None = None,
 
     Returns CGResult with per-slot metrics and the full assignment.
     """
-    hh_policy(cfg)
+    policy = hh_policy(cfg)
     dev = resolve_device(device)
     keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32)
     m = keys.shape[0]
@@ -245,6 +281,12 @@ def run(cfg: CGConfig, keys, capacities, state: CGState | None = None,
     ones = torch.ones(cfg.slot_len, dtype=torch.float32, device=dev)
 
     state = init_state(cfg, dev) if state is None else state
+    # normalize the sketch lane to cfg: a state carried from a policy-off
+    # run cold-starts an empty sketch; turning the policy off drops it
+    if policy is not None and state.sketch is None:
+        state = state._replace(sketch=kblocks.hh_sketch_init(policy, dev))
+    elif policy is None and state.sketch is not None:
+        state = state._replace(sketch=None)
     out = []
     for t in range(slots):
         c = caps[t]

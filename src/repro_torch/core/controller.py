@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.backend import resolve_device
+
 
 class ControllerConfig(NamedTuple):
     n_workers: int
@@ -58,8 +60,9 @@ def _device_scalar(x, device) -> torch.Tensor:
     return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
-def init_controller(cfg: ControllerConfig, device="cpu") -> ControllerState:
+def init_controller(cfg: ControllerConfig, device="cuda") -> ControllerState:
     n = cfg.n_workers
+    device = resolve_device(device)
     return ControllerState(
         depth_ewma=torch.zeros(n, dtype=torch.float32, device=device),
         busy_latch=torch.zeros(n, dtype=torch.bool, device=device),
@@ -149,7 +152,7 @@ class DelegationController:
 
     def __init__(self, cfg: ControllerConfig, *,
                  enter_busy: float, exit_busy: float,
-                 enter_idle: float, exit_idle: float, device="cpu"):
+                 enter_idle: float, exit_idle: float, device="cuda"):
         self.cfg = cfg
         self.enter_busy, self.exit_busy = enter_busy, exit_busy
         self.enter_idle, self.exit_idle = enter_idle, exit_idle
@@ -157,7 +160,7 @@ class DelegationController:
 
     @classmethod
     def from_thresholds(cls, cfg: ControllerConfig, *, theta_busy: float,
-                        theta_idle: float, margin: float, device="cpu"):
+                        theta_idle: float, margin: float, device="cuda"):
         """Busy exits ``margin`` below its enter level, idle ``margin``
         above."""
         return cls(cfg, enter_busy=theta_busy,

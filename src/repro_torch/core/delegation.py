@@ -14,8 +14,9 @@ where it decides an integer: a division by a static constant is a
 product with the f32 reciprocal, and ``rate_decay·rate + arrivals`` is
 one fused multiply-add.
 
-``VersionedOwnerMap`` and ``evacuate`` belong to the serving slice and
-are not ported yet (ROADMAP).
+``evacuate`` re-homes a dead worker's VWs capacity-proportionally (host
+NumPy, as in the reference); ``VersionedOwnerMap`` commits owner maps
+under monotonically increasing versions.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.backend import resolve_device
 
 NOT_QUEUED = 2**31 - 1     # sorts after every real slot (int32 max)
 
@@ -54,7 +57,8 @@ class DelegationState(NamedTuple):
     bytes_moved: torch.Tensor | float = 0.0  # [] f32 cumulative bytes
 
 
-def init_queues(n_workers: int, device="cpu") -> PairQueues:
+def init_queues(n_workers: int, device="cuda") -> PairQueues:
+    device = resolve_device(device)
     return PairQueues(
         busy_since=torch.full((n_workers,), NOT_QUEUED, dtype=torch.int32,
                               device=device),
@@ -64,7 +68,8 @@ def init_queues(n_workers: int, device="cpu") -> PairQueues:
 
 
 def init_state(cfg: DelegationConfig, vw_owner=None,
-               device="cpu") -> DelegationState:
+               device="cuda") -> DelegationState:
+    device = resolve_device(device)
     if vw_owner is None:
         vw_owner = torch.arange(cfg.n_workers, dtype=torch.int32).repeat(
             max(1, cfg.n_virtual // max(cfg.n_workers, 1)))[: cfg.n_virtual]
@@ -319,3 +324,108 @@ def rebalance_step(cfg: DelegationConfig, state: DelegationState, pressure,
         moves=state.moves + n_done,
         bytes_moved=state.bytes_moved + n_bytes)
     return new_state, n_done
+
+
+def _host(x) -> np.ndarray:
+    """Any array-like (a device tensor included) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class VersionedOwnerMap:
+    """Replicated owner map with atomic versioned commits (§V-C owner
+    propagation).
+
+    ``commit`` publishes a new map as the head of the next version;
+    ``adopt`` promotes the head to the base once every router holds it.
+    A router that has not adopted the head routes against the base — a
+    stale router is conservative, never torn: ``view()`` returns one
+    committed snapshot whole. Versions only move forward. The mesh
+    layout of the reference (``mesh=``) waits for the mesh tier.
+    """
+
+    def __init__(self, owner, mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh tier is not ported yet (ROADMAP Queue 1 item 7)")
+        self._device = resolve_device(device)
+        owner = self._pin(owner)
+        self._base = owner
+        self._head = owner
+        self._version = 0
+        self._base_version = 0
+
+    def _pin(self, owner) -> torch.Tensor:
+        return torch.as_tensor(owner).to(device=self._device,
+                                         dtype=torch.int32)
+
+    @property
+    def version(self) -> int:
+        """Version of the latest committed map (monotonic)."""
+        return self._version
+
+    @property
+    def base_version(self) -> int:
+        """Version of the snapshot every router is known to hold."""
+        return self._base_version
+
+    def commit(self, owner) -> int:
+        """Atomically publish a new owner map. Returns its version."""
+        self._head = self._pin(owner)
+        self._version += 1
+        return self._version
+
+    def adopt(self) -> int:
+        """Every router has the head: promote it to base."""
+        self._base = self._head
+        self._base_version = self._version
+        return self._base_version
+
+    def view(self, version: int | None = None) -> torch.Tensor:
+        """The snapshot a router holding ``version`` routes against: the
+        head when current, else the base. ``None`` means current."""
+        if version is None or version >= self._version:
+            return self._head
+        return self._base
+
+
+def evacuate(vw_owner, vw_rate, dead, capacities, vw_bytes=None):
+    """Re-home every VW owned by the ``dead`` worker(s) onto survivors,
+    capacity-proportionally: hottest VW first, each onto the survivor
+    with the largest remaining rate deficit against its
+    capacity-proportional share. Unmetered (no move or byte budget);
+    bytes are only accounted. Host-side NumPy, as in the reference: a
+    failure is rare and the greedy loop data-dependent.
+
+    Returns ``(new_owner [V] np.int32, n_moved int, bytes_moved float)``.
+    """
+    owner = np.array(_host(vw_owner), np.int32)
+    rate = _host(vw_rate).astype(np.float64)
+    if rate.sum() <= 0:
+        rate = np.ones_like(rate)             # cold engine: balance counts
+    capacities = _host(capacities)
+    n = len(capacities)
+    dead = np.atleast_1d(np.asarray(dead, np.int64))
+    alive = np.ones(n, bool)
+    alive[dead] = False
+    if not alive.any():
+        return owner, 0, 0.0                  # nowhere to go: no-op
+    caps = np.where(alive, capacities.astype(np.float64), 0.0)
+    if caps.sum() <= 0:
+        caps = alive.astype(np.float64)       # degenerate: uniform
+    evac = np.flatnonzero(np.isin(owner, dead))
+    if len(evac) == 0:
+        return owner, 0, 0.0
+    # survivors' deficit against their share of the whole rate
+    rate_w = np.bincount(owner, weights=np.maximum(rate, 0.0), minlength=n)
+    target = caps / caps.sum() * rate_w.sum()
+    deficit = np.where(alive, target - rate_w, -np.inf)
+    order = evac[np.argsort(-rate[evac], kind="stable")]   # hottest first
+    for v in order:
+        d = int(np.argmax(deficit))
+        owner[v] = d
+        deficit[d] -= max(float(rate[v]), 1e-9)
+    bytes_moved = (float(_host(vw_bytes).astype(np.float64)[evac].sum())
+                   if vw_bytes is not None else 0.0)
+    return owner, len(evac), bytes_moved

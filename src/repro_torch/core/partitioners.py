@@ -7,8 +7,9 @@ PoRC  power of random choices (Alg. 1)  salted probe < cap      load state
 
 PoRC comes in its exact sequential form (one message per unit time),
 its block-parallel form (B messages per load snapshot, bit-identical at
-B=1) and its multi-source form (§V-C). The other schemes of the
-reference registry (PKG, PoTC, CH, Greedy-d, D/W-Choices) are not
+B=1) and its multi-source form (§V-C). D-Choices and W-Choices are PoRC
+with heavy-hitter-aware probe depths (arXiv:1510.05714). The other
+schemes of the reference registry (PKG, PoTC, CH, Greedy-d) are not
 ported yet and ``route`` rejects them.
 
 Every partitioner routes the whole stream it is given against fresh
@@ -131,6 +132,37 @@ def power_of_random_choices_multisource(keys, n_bins: int, n_sources: int,
 
 
 # ---------------------------------------------------------------------------
+# D-Choices / W-Choices — heavy-hitter-aware probe depths (1510.05714)
+# ---------------------------------------------------------------------------
+
+def _hh_choices(keys, n_bins: int, scheme: str, eps: float, block: int, hh,
+                engine: str = "ref", device="cuda") -> torch.Tensor:
+    from repro_torch.kernels.ref import HHPolicy, ref_porc_route
+    policy = (HHPolicy(scheme=scheme) if hh is None
+              else hh._replace(scheme=scheme))
+    assign, _ = ref_porc_route(keys, n_bins, block=block, eps=eps,
+                               policy=policy, engine=engine, device=device)
+    return assign
+
+
+def d_choices(keys, n_bins: int, eps: float = 0.01, block: int = 128,
+              hh=None, engine: str = "ref", device="cuda") -> torch.Tensor:
+    """D-Choices: PoRC block engine with per-key probe budgets — heavy
+    keys (count-min estimate ≥ ``hot_fraction``·m_t) probe up to
+    ``d_heavy`` salted choices, tail keys keep ``d_tail``. ``hh``
+    overrides the default ``HHPolicy`` knobs (the scheme is forced)."""
+    return _hh_choices(keys, n_bins, "d", eps, block, hh, engine, device)
+
+
+def w_choices(keys, n_bins: int, eps: float = 0.01, block: int = 128,
+              hh=None, engine: str = "ref", device="cuda") -> torch.Tensor:
+    """W-Choices: like D-Choices, but a heavy key's probe ceiling is the
+    full worker set, its budget set by the Eq.-2 schedule. ``hh``
+    overrides the default ``HHPolicy`` knobs (the scheme is forced)."""
+    return _hh_choices(keys, n_bins, "w", eps, block, hh, engine, device)
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -138,26 +170,44 @@ def route(scheme: str, keys, n_bins: int, *, eps: float = 0.01,
           block_size: int | None = None, sources: int = 1,
           sync_every: int = 1, hh=None, engine: str = "ref",
           device="cuda") -> torch.Tensor:
-    """Route a full stream with the named scheme (KG, SG or PORC).
+    """Route a full stream with the named scheme (KG, SG, PORC, DCHOICES
+    or WCHOICES).
 
     ``block_size=None`` is the exact sequential oracle; ``>= 1`` the
     block path (bit-identical at 1). ``sources > 1`` is the §V-C
-    multi-source PoRC. ``engine`` ("ref" | "cuda" | "auto") selects the
-    block engine of PoRC's block and multi-source paths.
+    multi-source PoRC. ``DCHOICES``/``WCHOICES`` are block-native
+    (``block_size=None`` means 128), accept ``sources > 1``, and take
+    ``hh`` (an ``HHPolicy``) to override their knobs; every other scheme
+    rejects ``hh``. ``engine`` ("ref" | "cuda" | "auto") selects the
+    block engine of the PoRC family's block and multi-source paths.
     """
     scheme = scheme.upper()
-    if scheme not in ALL_SCHEMES:
+    if scheme not in ALL_SCHEMES + HH_SCHEMES:
         raise NotImplementedError(
             f"scheme {scheme!r} is not ported yet (ROADMAP: the rest of "
-            "partitioners); the port routes KG, SG and PORC")
-    if hh is not None:
+            "partitioners); the port routes KG, SG, PORC, DCHOICES and "
+            "WCHOICES")
+    if hh is not None and scheme not in HH_SCHEMES:
         raise ValueError(f"scheme {scheme!r} takes no heavy-hitter policy")
-    if engine != "ref" and scheme != "PORC":
+    if engine != "ref" and scheme not in ("PORC",) + HH_SCHEMES:
         raise ValueError(f"scheme {scheme!r} has no kernel engine variant")
-    if engine != "ref" and not (block_size or sources > 1):
+    if engine != "ref" and scheme == "PORC" and not (block_size
+                                                     or sources > 1):
         raise ValueError("engine applies to the block path — pass "
                          "block_size (the sequential oracle is plain only)")
     keys = torch.as_tensor(keys).to(resolve_device(device))
+    if scheme in HH_SCHEMES:
+        from repro_torch.kernels.ref import HHPolicy
+        letter = "d" if scheme == "DCHOICES" else "w"
+        if sources > 1:
+            policy = (HHPolicy(scheme=letter) if hh is None
+                      else hh._replace(scheme=letter))
+            return power_of_random_choices_multisource(
+                keys, n_bins, sources, eps=eps, block=block_size or 128,
+                sync_every=sync_every, hh=policy, engine=engine,
+                device=keys.device)
+        return _hh_choices(keys, n_bins, letter, eps, block_size or 128, hh,
+                           engine, keys.device)
     if scheme == "KG":
         return key_grouping(keys, n_bins)
     if scheme == "SG":
@@ -175,3 +225,4 @@ def route(scheme: str, keys, n_bins: int, *, eps: float = 0.01,
 
 
 ALL_SCHEMES = ("KG", "SG", "PORC")
+HH_SCHEMES = ("DCHOICES", "WCHOICES")

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import resolve_device
+
 
 def zipf_probs(n_keys: int, z: float) -> np.ndarray:
     """Probability mass of the zipf(z) distribution over ranks 1..n_keys."""
@@ -30,11 +32,11 @@ def _sample(seed: int, p: np.ndarray, n_messages: int,
             device) -> torch.Tensor:
     keys = np.random.default_rng(seed).choice(p.shape[0], size=n_messages,
                                               p=p).astype(np.int32)
-    return torch.from_numpy(keys).to(device)
+    return torch.from_numpy(keys).to(resolve_device(device))
 
 
 def sample_zipf_stream(seed: int, n_messages: int, n_keys: int, z: float,
-                       device="cpu") -> torch.Tensor:
+                       device="cuda") -> torch.Tensor:
     """i.i.d. zipf(z) key stream as int32 ranks (0 = most frequent)."""
     return _sample(seed, zipf_probs(n_keys, z), n_messages, device)
 
@@ -67,7 +69,7 @@ def trace_probs(spec: TraceSpec) -> np.ndarray:
 
 
 def sample_trace(seed: int, spec: TraceSpec, n_messages: int | None = None,
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     return _sample(seed, trace_probs(spec), n_messages or spec.n_messages,
                    device)
 

@@ -7,10 +7,13 @@ the returned tuples of the Pallas wrappers. A CUDA tensor always goes to
 the kernel, which launches on the current stream; a CPU tensor goes to
 the plain torch version in ``ref`` (the CPU has no kernel). Each wrapper
 counts its kernel launches in ``<wrapper>.launches``, a plain integer,
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel;
+``porc_multisource_scan.hh_launches`` counts the launches of its
+``HHPolicy`` branch, a kernel of its own.
 
-The heavy-hitter policy branch of ``porc_multisource_scan`` is not
-ported yet (ROADMAP).
+Only full per-source blocks reach these kernels. The ragged sub-S tail
+of ``ref_porc_multisource`` stays plain torch on every device, as the
+reference routes it with jnp too.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ import numpy as np
 import torch
 
 from . import build
-from .blocks import cap_scale
-from .ref import _HH_NOT_PORTED, _porc_multisource_scan, ref_porc_snapshot
+from .blocks import (HHPolicy, cap_scale, hh_budget_ceiling, hh_chunk,
+                     hh_need_scale)
+from .ref import _porc_multisource_scan, ref_porc_snapshot
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +43,9 @@ def _lib() -> ctypes.CDLL:
     lib.porc_snapshot_launch.restype = _I
     lib.porc_multisource_launch.argtypes = [_P] * 8 + [_I] * 6 + [_F, _F, _P]
     lib.porc_multisource_launch.restype = _I
+    lib.porc_multisource_hh_launch.argtypes = ([_P] * 14 + [_I] * 13
+                                               + [_F] * 4 + [_P])
+    lib.porc_multisource_hh_launch.restype = _I
     return lib
 
 
@@ -108,19 +115,20 @@ porc_snapshot.launches = 0
 def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                           sync_every: int, block: int, eps: float,
                           chunk: int, base0, delta0, ticks0,
-                          skb0=None, skd0=None, policy=None):
+                          skb0=None, skd0=None,
+                          policy: HHPolicy | None = None):
     """Kernel counterpart of ``ref._porc_multisource_scan``: the core
     multi-source scan over full per-source blocks, same argument order
-    and the same ``(assign, base, delta, ticks, skb, skd)`` return
-    (``skb``/``skd`` stay None). ``ticks0`` may be a 0-dim int32 device
-    tensor, read by the kernel through a pointer.
+    and the same ``(assign, base, delta, ticks, skb, skd)`` return.
+    ``ticks0`` may be a 0-dim int32 device tensor, read by the kernel
+    through a pointer. With a ``policy`` the sketch lanes ``skb0``
+    [depth, width] and ``skd0`` [S, depth, width] ride along and the
+    HHPolicy kernel launches; without one ``skb``/``skd`` stay None.
     """
-    if policy is not None or skb0 is not None or skd0 is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
     if not keys.is_cuda:
         return _porc_multisource_scan(keys, n_bins, n_sources, sync_every,
                                       block, eps, chunk, "snapshot", base0,
-                                      delta0, ticks0)
+                                      delta0, ticks0, skb0, skd0, policy)
     dev = keys.device
     S = n_sources
     M = keys.shape[0]
@@ -133,6 +141,12 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     _check(base0, "base0", torch.float32, (n_bins,), dev)
     _check(delta0, "delta0", torch.float32, (S, n_bins), dev)
     ticks0 = _scalar(ticks0, torch.int32, dev)
+    if policy is not None:
+        return _multisource_hh(keys, n_bins, S, sync_every, block, eps,
+                               chunk, base0, delta0, ticks0, skb0, skd0,
+                               policy)
+    if skb0 is not None or skd0 is not None:
+        raise ValueError("sketch lanes given without an HHPolicy")
     if M == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
                 delta0.clone(), ticks0 % sync_every, None, None)
@@ -153,3 +167,51 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
 
 
 porc_multisource_scan.launches = 0
+porc_multisource_scan.hh_launches = 0
+
+
+def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
+                    delta0, ticks0, skb0, skd0, policy: HHPolicy):
+    """The HHPolicy branch of ``porc_multisource_scan`` on the card (the
+    checked inputs of the wrapper)."""
+    dev = keys.device
+    M = keys.shape[0]
+    D, W = policy.depth, policy.width
+    if policy.scheme not in ("d", "w") or min(D, W) < 1:
+        raise ValueError(f"bad HHPolicy {policy}")
+    _check(skb0, "skb0", torch.float32, (D, W), dev)
+    _check(skd0, "skd0", torch.float32, (S, D, W), dev)
+    if M == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
+                delta0.clone(), ticks0 % sync_every, skb0.clone(),
+                skd0.clone())
+    assign = torch.empty(M, dtype=torch.int32, device=dev)
+    base = torch.empty(n_bins, dtype=torch.float32, device=dev)
+    delta = torch.empty((S, n_bins), dtype=torch.float32, device=dev)
+    ticks = torch.empty((), dtype=torch.int32, device=dev)
+    skb = torch.empty((D, W), dtype=torch.float32, device=dev)
+    skd = torch.empty((S, D, W), dtype=torch.float32, device=dev)
+    spread = bool(policy.spread_fallback)
+    # scratch of the spread fallback: per-item flags and the stable load
+    # order of one source's view (a power-of-two bitonic network)
+    sort_n = 1 << max(n_bins - 1, 0).bit_length()
+    flags = torch.empty(S * block if spread else 1, dtype=torch.int32,
+                        device=dev)
+    order = torch.empty(sort_n if spread else 1, dtype=torch.int64,
+                        device=dev)
+    f32 = np.float32
+    err = _lib().porc_multisource_hh_launch(
+        keys.data_ptr(), base0.data_ptr(), delta0.data_ptr(),
+        ticks0.data_ptr(), skb0.data_ptr(), skd0.data_ptr(),
+        assign.data_ptr(), base.data_ptr(), delta.data_ptr(),
+        ticks.data_ptr(), skb.data_ptr(), skd.data_ptr(), flags.data_ptr(),
+        order.data_ptr(), M // (S * block), S, block, n_bins, sync_every,
+        D, W, hh_chunk(policy, chunk, n_bins), policy.d_tail,
+        hh_budget_ceiling(policy, n_bins), int(policy.rotate_duplicates),
+        int(spread), sort_n, cap_scale(eps, n_bins),
+        float(f32(block / S)), float(f32(policy.hot_fraction)),
+        hh_need_scale(policy, n_bins, eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "porc_multisource_scan (HHPolicy)")
+    porc_multisource_scan.hh_launches += 1
+    return assign, base, delta, ticks, skb, skd

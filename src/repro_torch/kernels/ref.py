@@ -8,8 +8,9 @@ driver needs only host-side lengths, and the message clock ``routed``
 and the sync phase ``ticks`` stay device tensors, so a caller's slot
 loop never waits on the device to route.
 
-The rank-sequential ``ref_porc_assign`` ("strict" engine) and the
-heavy-hitter policy path are not ported yet (ROADMAP).
+With an ``HHPolicy`` the engines carry the count-min sketch lanes and
+route with per-key probe budgets (D-/W-Choices). The rank-sequential
+``ref_porc_assign`` ("strict" engine) is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -20,11 +21,13 @@ import torch
 from repro_torch.core.hashing import hash_to_bins
 
 from .backend import resolve_device, resolve_engine
-from .blocks import probe_salts, snapshot_block, snapshot_cap, view_cap
+from .blocks import (  # noqa: F401  (re-exports, as the reference's)
+    HHPolicy, hh_budgets, hh_chunk, hh_sketch_init, hh_sketch_query,
+    hh_sketch_update, lane_sum, neutral_hh_policy, probe_salts,
+    sketch_add_lanes, sketch_query_lanes, snapshot_block, snapshot_block_hh,
+    snapshot_cap, view_cap)
 
-_HH_NOT_PORTED = ("the heavy-hitter policy (HHPolicy) path is not ported "
-                  "yet (ROADMAP Queue 2: the HHPolicy branch of "
-                  "porc_multisource_scan)")
+_HH_NEEDS_SNAPSHOT = "HHPolicy requires the snapshot engine"
 
 
 # ---------------------------------------------------------------------------
@@ -35,22 +38,24 @@ class PorcState(NamedTuple):
     """Routing state threaded across blocks, slots and batches: the
     per-bin message count ``load`` and the global message clock
     ``routed`` (m_t) that drives the capacity (1+eps)·m_t/n. ``sketch``
-    stays None (no heavy-hitter policy in this port yet).
+    is the count-min heavy-hitter sketch [depth, width] when an
+    ``HHPolicy`` is active, None otherwise.
 
     State-carry contract: splitting a stream over several
     ``ref_porc_route`` calls with the carried state equals one call
     (block boundaries realign per call)."""
     load: torch.Tensor     # [n_bins] f32
     routed: torch.Tensor   # []       f32
-    sketch: torch.Tensor | None = None
+    sketch: torch.Tensor | None = None   # [depth, width] f32 (HHPolicy)
 
 
-def porc_state_init(n_bins: int, policy=None, device="cuda") -> PorcState:
-    if policy is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
+def porc_state_init(n_bins: int, policy: HHPolicy | None = None,
+                    device="cuda") -> PorcState:
     dev = resolve_device(device)
     return PorcState(load=torch.zeros(n_bins, dtype=torch.float32, device=dev),
-                     routed=torch.zeros((), dtype=torch.float32, device=dev))
+                     routed=torch.zeros((), dtype=torch.float32, device=dev),
+                     sketch=(None if policy is None
+                             else hh_sketch_init(policy, dev)))
 
 
 def block_spans(m: int, block: int) -> list[tuple[int, int, int]]:
@@ -133,7 +138,8 @@ def _as_keys(keys, device) -> torch.Tensor:
 
 def ref_porc_route(keys, n_bins: int, *, block: int = 128,
                    eps: float = 0.05, state: PorcState | None = None,
-                   engine: str = "snapshot", policy=None, device="cuda"):
+                   engine: str = "snapshot", policy: HHPolicy | None = None,
+                   device="cuda"):
     """Route an arbitrary-length key stream in blocks of ``block``.
 
     ``engine="snapshot"`` runs the plain engine ``ref_porc_snapshot``;
@@ -143,18 +149,41 @@ def ref_porc_route(keys, n_bins: int, *, block: int = 128,
     ``block=1`` both engines are bit-identical to the sequential oracle
     ``partitioners.power_of_random_choices``.
 
-    State-carry contract: ``state`` (load, clock) continues across
-    calls — split-call == one-call with aligned block boundaries.
+    ``policy`` turns on heavy-hitter-aware probe depths (D/W-Choices)
+    with the sketch carried in ``state.sketch``; it routes through the
+    multi-source engine at S=1, as the reference does. With a policy,
+    ``block=1`` is not the sequential oracle.
+
+    State-carry contract: ``state`` (load, clock, sketch) continues
+    across calls — split-call == one-call with aligned block boundaries.
 
     Returns (assignment [M] int32, new PorcState).
     """
-    if policy is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
+    if policy is not None and engine == "strict":
+        raise ValueError(_HH_NEEDS_SNAPSHOT)
     keys = _as_keys(keys, device)
     dev = keys.device
     engine = resolve_engine(engine, dev)
     if state is None:
-        state = porc_state_init(n_bins, device=dev)
+        state = porc_state_init(n_bins, policy, device=dev)
+    if policy is not None:
+        skb = (state.sketch if state.sketch is not None
+               else hh_sketch_init(policy, dev))
+        ms = MultiSourcePorcState(
+            base=state.load,
+            delta=torch.zeros((1, n_bins), dtype=torch.float32, device=dev),
+            routed=state.routed,
+            ticks=torch.zeros((), dtype=torch.int32, device=dev),
+            sketch_base=skb,
+            sketch_delta=torch.zeros((1,) + tuple(skb.shape),
+                                     dtype=torch.float32, device=dev))
+        assign, ms = ref_porc_multisource(
+            keys, n_bins, 1, sync_every=1, block=block, eps=eps, state=ms,
+            engine=engine, policy=policy, device=dev)
+        return assign, PorcState(load=ms.base + ms.delta.sum(0),
+                                 routed=ms.routed,
+                                 sketch=ms.sketch_base
+                                 + lane_sum(ms.sketch_delta))
     if engine == "cuda":
         from .porc_snapshot import porc_snapshot as eng
     else:
@@ -179,34 +208,45 @@ class MultiSourcePorcState(NamedTuple):
 
     Each source routes against its local view ``base + delta[s]``; the
     deltas merge into ``base`` every ``sync_every`` blocks, with the
-    phase carried in ``ticks`` across calls. The sketch lanes stay None
-    (no heavy-hitter policy in this port yet).
+    phase carried in ``ticks`` across calls. With an ``HHPolicy`` the
+    count-min sketch shards the same way: ``sketch_base`` is the merged
+    sketch, ``sketch_delta[s]`` source s's unpublished counts, merged on
+    the same schedule; both stay None without a policy.
     """
     base: torch.Tensor     # [n_bins]    f32 merged (synchronized) load
     delta: torch.Tensor    # [S, n_bins] f32 per-source unpublished counts
     routed: torch.Tensor   # []          f32 global message clock m_t
     ticks: torch.Tensor    # []          i32 blocks since the last merge
-    sketch_base: torch.Tensor | None = None
-    sketch_delta: torch.Tensor | None = None
+    sketch_base: torch.Tensor | None = None    # [depth, width] f32
+    sketch_delta: torch.Tensor | None = None   # [S, depth, width] f32
 
 
-def multisource_state_init(n_bins: int, n_sources: int, policy=None,
+def _sketch_lanes_init(policy: HHPolicy, n_sources: int, dev):
+    return (hh_sketch_init(policy, dev),
+            torch.zeros((n_sources, policy.depth, policy.width),
+                        dtype=torch.float32, device=dev))
+
+
+def multisource_state_init(n_bins: int, n_sources: int,
+                           policy: HHPolicy | None = None,
                            device="cuda") -> MultiSourcePorcState:
-    if policy is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
     dev = resolve_device(device)
+    skb, skd = (None, None) if policy is None else _sketch_lanes_init(
+        policy, n_sources, dev)
     return MultiSourcePorcState(
         base=torch.zeros(n_bins, dtype=torch.float32, device=dev),
         delta=torch.zeros((n_sources, n_bins), dtype=torch.float32,
                           device=dev),
         routed=torch.zeros((), dtype=torch.float32, device=dev),
-        ticks=torch.zeros((), dtype=torch.int32, device=dev))
+        ticks=torch.zeros((), dtype=torch.int32, device=dev),
+        sketch_base=skb, sketch_delta=skd)
 
 
 def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                            sync_every: int, block: int, eps: float,
                            chunk: int, engine: str, base0, delta0, ticks0,
-                           skb0=None, skd0=None, policy=None):
+                           skb0=None, skd0=None,
+                           policy: HHPolicy | None = None):
     """Core multi-source scan over full per-source blocks (plain engine).
 
     ``keys`` is the round-robin-interleaved global stream (message i
@@ -215,10 +255,15 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     ``base + delta[s]`` with the capacity of its local-view mass; every
     ``sync_every`` steps (phase from ``ticks0``) the deltas merge.
 
-    Returns (assign [M] in stream order, base, delta, ticks, None, None).
+    With a ``policy`` each source also classifies its block against its
+    local sketch view ``skb + skd[s]`` at the block boundary, routes with
+    per-key budgets (``snapshot_block_hh``) over a chain of
+    ``hh_chunk`` candidates hashed per block, and adds the block to its
+    sketch lane afterwards; the lanes merge with the loads.
+
+    Returns (assign [M] in stream order, base, delta, ticks, skb, skd);
+    ``skb``/``skd`` are None without a policy.
     """
-    if policy is not None or skb0 is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
     if engine != "snapshot":
         raise ValueError(f"plain multisource engine is 'snapshot', got "
                          f"{engine!r}")
@@ -230,8 +275,14 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     nb = M // (S * block)
     # [nb, S, block]: element [b, s, k] = keys[(b·block + k)·S + s]
     kb = keys.reshape(nb, block, S).permute(0, 2, 1)
-    cand0 = hash_to_bins(kb[..., None], probe_salts(chunk, device=dev),
-                         n_bins)                          # [nb, S, block, C]
+    if policy is None:
+        cand0 = hash_to_bins(kb[..., None], probe_salts(chunk, device=dev),
+                             n_bins)                      # [nb, S, block, C]
+        skb = skd = None
+    else:
+        # the policy chain can be n_bins deep: hash it per block
+        salts = probe_salts(hh_chunk(policy, chunk, n_bins), device=dev)
+        skb, skd = skb0.clone(), skd0.clone()
     base = base0.to(torch.float32).clone()
     delta = delta0.to(torch.float32).clone()
     ticks0 = torch.as_tensor(ticks0, dtype=torch.int32, device=dev)
@@ -244,48 +295,73 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         mass = base.sum() + delta.sum(1)                  # [S]
         cap = view_cap(eps, n_bins, mass, block / S)
         views = base[None, :] + delta                     # [S, n_bins]
-        a = snapshot_block(views, cap, kb[b], cand0[b], n_bins, block, chunk)
+        if policy is None:
+            a = snapshot_block(views, cap, kb[b], cand0[b], n_bins, block,
+                               chunk)
+        else:
+            cand = hash_to_bins(kb[b][..., None], salts, n_bins)
+            est = sketch_query_lanes(policy, skb, skd, kb[b])  # [S, block]
+            bud = hh_budgets(policy, n_bins, eps, est, mass[:, None])
+            a = snapshot_block_hh(views, cap, kb[b], cand, bud, n_bins,
+                                  policy.rotate_duplicates,
+                                  policy.spread_fallback)
+            skd = sketch_add_lanes(policy, skd, kb[b])
         delta.view(-1).index_add_(0, (lane + a.long()).reshape(-1), ones)
         assign[b] = a
         # piggyback merge — phase continues from ticks0 across calls
         sync = ((ticks0 + (b + 1)) % sync_every) == 0
         base = torch.where(sync, base + delta.sum(0), base)
         delta = torch.where(sync, torch.zeros_like(delta), delta)
+        if policy is not None:
+            skb = torch.where(sync, skb + lane_sum(skd), skb)
+            skd = torch.where(sync, torch.zeros_like(skd), skd)
     # invert the round-robin interleave back to global message order
     return (assign.permute(0, 2, 1).reshape(-1), base, delta,
-            (ticks0 + nb) % sync_every, None, None)
+            (ticks0 + nb) % sync_every, skb, skd)
 
 
 def _porc_multisource_tail(keys_pad: torch.Tensor, n_bins: int,
                            n_sources: int, eps: float, chunk: int, base0,
                            delta0, n_tail: int, skb0=None, skd0=None,
-                           policy=None):
+                           policy: HHPolicy | None = None):
     """Ragged tail: the final r < S messages, one to each of sources
-    0..r-1 (``keys_pad`` padded to [S]; the phantom lanes' deltas are
-    masked out). The residue publishes immediately: merged base, zero
-    deltas."""
-    if policy is not None or skb0 is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
+    0..r-1 (``keys_pad`` padded to [S]; the phantom lanes' load and
+    sketch updates are masked out). The residue publishes immediately:
+    merged base and sketch, zero deltas."""
     S = n_sources
     dev = keys_pad.device
     active = (torch.arange(S, device=dev) < n_tail).to(torch.float32)
+    C = chunk if policy is None else hh_chunk(policy, chunk, n_bins)
     cand0 = hash_to_bins(keys_pad[:, None, None],
-                         probe_salts(chunk, device=dev), n_bins)
+                         probe_salts(C, device=dev), n_bins)
     mass = base0.sum() + delta0.sum(1)
     cap = view_cap(eps, n_bins, mass, 1.0 / S)
-    assign = snapshot_block(base0[None, :] + delta0, cap, keys_pad[:, None],
-                            cand0, n_bins, 1, chunk)[:, 0]
+    views = base0[None, :] + delta0
+    if policy is None:
+        assign = snapshot_block(views, cap, keys_pad[:, None], cand0,
+                                n_bins, 1, chunk)[:, 0]
+        skb = skd = None
+    else:
+        est = sketch_query_lanes(policy, skb0, skd0, keys_pad[:, None])
+        bud = hh_budgets(policy, n_bins, eps, est, mass[:, None])
+        assign = snapshot_block_hh(views, cap, keys_pad[:, None], cand0, bud,
+                                   n_bins, policy.rotate_duplicates,
+                                   policy.spread_fallback)[:, 0]
+        skd = sketch_add_lanes(policy, skd0, keys_pad[:, None],
+                               weights=active[:, None])
+        skb = skb0 + lane_sum(skd)
+        skd = torch.zeros_like(skd)
     delta = delta0.clone()
     delta[torch.arange(S, device=dev), assign.long()] += active
-    return assign, base0 + delta.sum(0), torch.zeros_like(delta), None, None
+    return assign, base0 + delta.sum(0), torch.zeros_like(delta), skb, skd
 
 
 def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
                          sync_every: int = 1, block: int = 128,
                          eps: float = 0.05, chunk: int = 8,
                          state: MultiSourcePorcState | None = None,
-                         engine: str = "snapshot", policy=None,
-                         device="cuda"):
+                         engine: str = "snapshot",
+                         policy: HHPolicy | None = None, device="cuda"):
     """Multi-source block-parallel PoRC (§V-C distributed sources).
 
     The stream splits round-robin across ``n_sources`` sources; each
@@ -297,20 +373,27 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
     they stay jnp in the reference. With ``n_sources=1, sync_every=1``
     the result equals ``ref_porc_route``.
 
+    ``policy`` turns on heavy-hitter-aware probe depths: each source
+    classifies keys against its local sketch view and probes with
+    per-key budgets; the sketch lanes shard and merge like the loads. A
+    state without sketch lanes starts the sketch cold.
+
     Returns (assignment [M] int32 in stream order, new
     MultiSourcePorcState).
     """
-    if policy is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
+    if policy is not None and engine == "strict":
+        raise ValueError(_HH_NEEDS_SNAPSHOT)
     keys = _as_keys(keys, device)
     dev = keys.device
     engine = resolve_engine(engine, dev)
     S = n_sources
     if state is None:
-        state = multisource_state_init(n_bins, S, device=dev)
-    base, delta, routed, ticks, skb, _ = state
-    if skb is not None:
-        raise NotImplementedError(_HH_NOT_PORTED)
+        state = multisource_state_init(n_bins, S, policy, device=dev)
+    base, delta, routed, ticks, skb, skd = state
+    if policy is None:
+        skb = skd = None                 # the sketch rides only with it
+    elif skb is None:
+        skb, skd = _sketch_lanes_init(policy, S, dev)   # cold start
     per = keys.shape[0] // S             # full per-source span length
     r = keys.shape[0] - per * S
     parts = []
@@ -319,21 +402,22 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
         span = keys[off: off + length * S]
         if engine == "cuda":
             from .porc_snapshot import porc_multisource_scan
-            a, base, delta, ticks, _, _ = porc_multisource_scan(
+            a, base, delta, ticks, skb, skd = porc_multisource_scan(
                 span, n_bins, S, sync_every, blk, eps, chunk,
-                base, delta, ticks)
+                base, delta, ticks, skb, skd, policy)
         else:
-            a, base, delta, ticks, _, _ = _porc_multisource_scan(
+            a, base, delta, ticks, skb, skd = _porc_multisource_scan(
                 span, n_bins, S, sync_every, blk, eps, chunk, engine,
-                base, delta, ticks)
+                base, delta, ticks, skb, skd, policy)
         routed = routed + length * S
         parts.append(a)
         off += length * S
     if r:
         keys_pad = torch.cat([keys[off:], torch.zeros(S - r, dtype=keys.dtype,
                                                       device=dev)])
-        a, base, delta, _, _ = _porc_multisource_tail(
-            keys_pad, n_bins, S, eps, chunk, base, delta, r)
+        a, base, delta, skb, skd = _porc_multisource_tail(
+            keys_pad, n_bins, S, eps, chunk, base, delta, r, skb, skd,
+            policy)
         routed = routed + r
         ticks = torch.zeros_like(ticks)  # tail publish = a merge
         parts.append(a[:r])
@@ -342,14 +426,19 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
     else:
         assign = parts[0] if len(parts) == 1 else torch.cat(parts)
     return assign, MultiSourcePorcState(base=base, delta=delta,
-                                        routed=routed, ticks=ticks)
+                                        routed=routed, ticks=ticks,
+                                        sketch_base=skb, sketch_delta=skd)
 
 
 def multisource_merge(state: MultiSourcePorcState) -> MultiSourcePorcState:
     """Force a synchronization: publish every source's delta into the
-    base and restart the sync phase."""
+    base (and the sketch lanes into the sketch base, when present) and
+    restart the sync phase."""
+    skb, skd = state.sketch_base, state.sketch_delta
     return MultiSourcePorcState(
         base=state.base + state.delta.sum(0),
         delta=torch.zeros_like(state.delta),
         routed=state.routed,
-        ticks=torch.zeros_like(state.ticks))
+        ticks=torch.zeros_like(state.ticks),
+        sketch_base=None if skb is None else skb + lane_sum(skd),
+        sketch_delta=None if skd is None else torch.zeros_like(skd))

@@ -222,9 +222,9 @@ def test_stream_profiles_and_configs_match():
 
 
 def test_samplers_are_seeded():
-    a = tstr.sample_trace(3, tstr.WP_TRACE, 1000)
-    b = tstr.sample_trace(3, tstr.WP_TRACE, 1000)
+    a = tstr.sample_trace(3, tstr.WP_TRACE, 1000, device="cpu")
+    b = tstr.sample_trace(3, tstr.WP_TRACE, 1000, device="cpu")
     assert torch.equal(a, b) and a.dtype == torch.int32
     assert int(a.max()) < tstr.WP_TRACE.n_keys
-    z = tstr.sample_zipf_stream(3, 1000, 50, 1.1)
+    z = tstr.sample_zipf_stream(3, 1000, 50, 1.1, device="cpu")
     assert z.shape == (1000,) and int(z.min()) >= 0

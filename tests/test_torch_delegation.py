@@ -55,7 +55,7 @@ def test_rebalance_step_matches_jax(kw, budget_kind):
     cfg_j = jd.DelegationConfig(n_workers=N, n_virtual=V, **kw)
     cfg_t = td.DelegationConfig(n_workers=N, n_virtual=V, **kw)
     sj = jd.init_state(cfg_j)
-    st = td.init_state(cfg_t)
+    st = td.init_state(cfg_t, device="cpu")
     same(sj.vw_owner, st.vw_owner)
     for util, arr, caps, bud, vec in pressure_seq(7, 25):
         busy, idle = util > 0.85, util < 0.75
@@ -83,7 +83,7 @@ def test_plan_pairs_matches_jax(fcfs, budget_kind):
                                 byte_budget_per_slot=3.0)
     cfg_t = td.DelegationConfig(n_workers=N, n_virtual=0, fcfs=fcfs,
                                 byte_budget_per_slot=3.0)
-    qj, qt = jd.init_queues(N), td.init_queues(N)
+    qj, qt = jd.init_queues(N), td.init_queues(N, device="cpu")
     for i, (util, _, _, bud, vec) in enumerate(pressure_seq(11, 20)):
         busy, idle = util > 0.9, util < 0.7
         b = {"none": None, "scalar": bud, "vector": vec}[budget_kind]
@@ -116,7 +116,8 @@ CONTROLLER_CASES = {
 def test_controller_step_matches_jax(kw):
     cfg_j = jc.ControllerConfig(n_workers=N, max_moves=8, **kw)
     cfg_t = tc.ControllerConfig(n_workers=N, max_moves=8, **kw)
-    sj, st = jc.init_controller(cfg_j), tc.init_controller(cfg_t)
+    sj, st = (jc.init_controller(cfg_j),
+              tc.init_controller(cfg_t, device="cpu"))
     rng = np.random.default_rng(3)
     for i in range(30):
         p = rng.uniform(0.6, 1.05, N).astype(np.float32)
@@ -137,7 +138,7 @@ def test_controller_step_matches_jax(kw):
 def test_delegation_controller_wrapper():
     cfg = tc.ControllerConfig(n_workers=N, hysteresis=True, dwell=1)
     ctl = tc.DelegationController.from_thresholds(
-        cfg, theta_busy=0.85, theta_idle=0.75, margin=0.05)
+        cfg, theta_busy=0.85, theta_idle=0.75, margin=0.05, device="cpu")
     busy, idle, budget = ctl.step(torch.full((N,), 0.9), torch.zeros(N))
     assert bool(busy.all()) and not bool(idle.any())
     assert ctl.flaps == N and ctl.last_budget == cfg.max_moves

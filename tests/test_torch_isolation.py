@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package,
-its entry points refuse the kernel engine on CPU tensors, and they
-never fall back to the CPU when CUDA is missing."""
+its entry points refuse the kernel engine on CPU tensors, they default
+to the card, and they never fall back to the CPU when CUDA is missing."""
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -19,12 +21,24 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 _RUN = """
 import sys
 import numpy as np
+from repro_torch import convert
+from repro_torch.checkpoint import checkpointer
 from repro_torch.core import cg
 from repro_torch.kernels import porc_snapshot, build
+from repro_torch.runtime import chaos, fault_tolerance
+from repro_torch.serve import CGRequestRouter, ServingEngine
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
-res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000), keys,
+res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
+                         hh_scheme="w"), keys,
              np.full(4, 0.3125, np.float32), device="cpu")
 assert res.assignment.shape == (4000,)
+eng = ServingEngine([lambda b: b] * 3,
+                    CGRequestRouter(3, hh_scheme="w", device="cpu"),
+                    chaos=chaos.ChaosSchedule.kill_one(1, at=2))
+for _ in range(4):
+    eng.submit_batch(keys[:64], list(keys[:64]))
+    eng.step()
+assert eng.submitted == sum(r.served for r in eng.replicas) + eng.in_flight
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -38,6 +52,18 @@ def test_subprocess_run_imports_no_jax_or_repro():
                           text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": str(SRC)})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.kernels.build",
+                                    "repro_torch.serve",
+                                    "repro_torch.core.cg"])
+def test_module_imports_first_in_a_fresh_interpreter(module):
+    """No import cycle bites whichever module a program imports first
+    (the GPU tests start from ``repro_torch.kernels``)."""
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"],
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert proc.returncode == 0, proc.stderr
 
 
 def _imports(path: Path):
@@ -92,21 +118,31 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     keys = np.arange(256, dtype=np.int32)
     cfg = cg.CGConfig(n_workers=2, alpha=2, slot_len=128)
+    from repro_torch.core import controller, delegation, streams
+    from repro_torch.serve import CGRequestRouter
     for call in (lambda: cg.run(cfg, keys, np.ones(2)),
                  lambda: ref.ref_porc_route(keys, 8),
                  lambda: ref.ref_porc_multisource(keys, 8, 2),
-                 lambda: partitioners.route("PORC", keys, 8, block_size=64)):
+                 lambda: partitioners.route("PORC", keys, 8, block_size=64),
+                 lambda: partitioners.route("WCHOICES", keys, 8),
+                 lambda: CGRequestRouter(4, hh_scheme="w"),
+                 lambda: delegation.init_queues(4),
+                 lambda: controller.init_controller(
+                     controller.ControllerConfig(n_workers=4)),
+                 lambda: streams.sample_zipf_stream(0, 10, 5, 1.1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
 
 def test_unported_paths_say_so():
     keys = np.arange(256, dtype=np.int32)
-    cfg = cg.CGConfig(n_workers=2, alpha=2, slot_len=128, hh_scheme="w")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ref.ref_porc_route(keys, 8, engine="strict", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        partitioners.route("PKG", keys, 8, device="cpu")
+    cfg = cg.CGConfig(n_workers=2, alpha=2, slot_len=128, engine="strict")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cg.run(cfg, keys, np.ones(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ref.ref_porc_route(keys, 8, policy=object(), device="cpu")
 
 
 def test_chip_smoke_main_path_rehearses_on_cpu():
@@ -129,3 +165,85 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
                                         "deployment_tw_sources8"]
     assert all(r["vw_conserved"] and r["moves"] > 0 for r in runs)
     assert runs[1]["oracle_prefix_identical"] == 20_000
+
+
+# every module of the port, for the walk over its public functions
+_MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
+            "repro_torch.core.cg", "repro_torch.core.controller",
+            "repro_torch.core.delegation", "repro_torch.core.hashing",
+            "repro_torch.core.metrics", "repro_torch.core.partitioners",
+            "repro_torch.core.simulation", "repro_torch.core.streams",
+            "repro_torch.kernels.backend", "repro_torch.kernels.blocks",
+            "repro_torch.kernels.porc_snapshot", "repro_torch.kernels.ref",
+            "repro_torch.runtime.chaos",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.serve.engine")
+
+
+def _public_callables():
+    for name in _MODULES:
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__", "") != name:
+                continue
+            if inspect.isfunction(obj) or inspect.isclass(obj):
+                yield f"{name}.{attr}", obj
+            if inspect.isclass(obj):
+                for meth, fn in vars(obj).items():
+                    if inspect.isfunction(fn) or isinstance(fn, classmethod):
+                        yield f"{name}.{attr}.{meth}", getattr(obj, meth)
+
+
+def test_no_public_entry_point_defaults_to_the_cpu():
+    """Every public function, class and method of the port that takes a
+    ``device`` defaults it to the card, never to "cpu"."""
+    with_device = []
+    for qual, obj in _public_callables():
+        try:
+            sig = inspect.signature(obj)
+        except (TypeError, ValueError):
+            continue
+        param = sig.parameters.get("device")
+        if param is None:
+            continue
+        with_device.append(qual)
+        if param.default is not inspect.Parameter.empty:  # else: required
+            assert param.default is not None, qual
+            assert torch.device(param.default).type != "cpu", qual
+    assert len(with_device) >= 25, with_device
+    for must in ("repro_torch.core.controller.init_controller",
+                 "repro_torch.core.delegation.init_queues",
+                 "repro_torch.core.delegation.init_state",
+                 "repro_torch.core.streams.sample_trace",
+                 "repro_torch.serve.engine.CGRequestRouter",
+                 "repro_torch.core.controller.DelegationController"):
+        assert must in with_device, must
+
+
+def test_chip_smoke_hh_and_serving_phases_rehearse_on_cpu():
+    """``chip_smoke.py``'s heavy-hitter main path and serving phase at a
+    tiny scale with the plain engines: both HH runs route and conserve
+    the VW population, and the serving engine under its chaos schedule
+    loses nothing."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    dev = torch.device("cpu")
+    wp = chip_smoke.sample(chip_smoke.WP_TABLE1, 0, 44_000, dev)
+    tw = chip_smoke.sample(chip_smoke.TW_TABLE1, 1, 44_000, dev)
+    base = [dict(run=name, messages=m, vw_spread=dict(top10=1.0, tail=1.0))
+            for name, m in (("paper_wp_block1", 20_000),
+                            ("deployment_tw_sources8", 40_000))]
+    runs = chip_smoke.hh_path(dev, wp, tw, base, scale=0.002,
+                              check_launches=False)
+    assert [r["run"] for r in runs] == ["deployment_tw_sources8_wchoices",
+                                        "paper_wp_block128_dchoices"]
+    assert all(r["vw_conserved"] for r in runs)
+    sv = chip_smoke.serving_path(dev, 0, n_ticks=40, per_tick=256,
+                                 check_launches=False)
+    assert sv["lost"] == 0 and sv["dropped"] == 0
+    assert sv["served"] == sv["submitted"] == 40 * 256
+    assert sv["evacuations"] == 1

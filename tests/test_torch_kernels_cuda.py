@@ -96,3 +96,98 @@ def test_wrappers_check_their_inputs(dev):
         ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8,
                                  torch.zeros(16, device=dev),
                                  torch.zeros(3, 16, device=dev), 0)
+
+
+# ---------------------------------------------------------------------------
+# the HHPolicy branch of porc_multisource_scan
+# ---------------------------------------------------------------------------
+
+def hh_policy(name, n_bins):
+    """The policies of the parity sweep: D/W-Choices, rotation and the
+    spread fallback each on and off, and the neutral policy."""
+    neutral = ref.neutral_hh_policy(n_bins, width=1024)
+    return {
+        "w": ref.HHPolicy(scheme="w", width=1024),
+        "d": ref.HHPolicy(scheme="d", width=1024, d_heavy=16),
+        "w_plain_order": ref.HHPolicy(scheme="w", width=1024,
+                                      rotate_duplicates=False,
+                                      spread_fallback=False),
+        # heavy budgets beyond a short chain: the full-set spread fallback
+        "d_short_chain": ref.HHPolicy(scheme="d", width=1024, chain=4,
+                                      d_tail=6),
+        "neutral": neutral,
+        "neutral_spread": neutral._replace(rotate_duplicates=True,
+                                           spread_fallback=True),
+    }[name]
+
+
+HH_NAMES = ["w", "d", "w_plain_order", "d_short_chain", "neutral",
+            "neutral_spread"]
+
+
+@pytest.mark.parametrize("policy", HH_NAMES)
+@pytest.mark.parametrize("n_sources,n_bins", [(1, 100), (8, 480),
+                                              (8, 60_000)])
+@pytest.mark.parametrize("sync_every", [1, 3])
+def test_multisource_hh_kernel_matches_plain(dev, policy, n_sources, n_bins,
+                                             sync_every):
+    """Assignments, loads, ticks and both sketch lanes, through the span
+    driver with a ragged tail and the state carried across two calls;
+    60,000 bins keep the views in global memory."""
+    pol = hh_policy(policy, n_bins)
+    keys = zipf_keys(n_sources * 128 * 4 + n_sources * 9 + 1, dev, z=1.4)
+    split = n_sources * 128 + n_sources // 2 + 1
+    out = {}
+    for eng in ("cuda", "snapshot"):
+        a1, st = ref.ref_porc_multisource(
+            keys[:split], n_bins, n_sources, sync_every=sync_every,
+            block=128, eps=0.01, engine=eng, policy=pol, device=dev)
+        a2, st = ref.ref_porc_multisource(
+            keys[split:], n_bins, n_sources, sync_every=sync_every,
+            block=128, eps=0.01, state=st, engine=eng, policy=pol,
+            device=dev)
+        out[eng] = (torch.cat([a1, a2]), st.base, st.delta, st.routed,
+                    st.ticks, st.sketch_base, st.sketch_delta)
+    for x, y in zip(out["cuda"], out["snapshot"]):
+        assert torch.equal(x, y)
+
+
+def test_multisource_hh_kernel_direct_continuation(dev):
+    """The raw scan from a non-empty state (loads, sketch lanes, sync
+    phase), counted on its own launch counter."""
+    S, n, block = 4, 200, 64
+    pol = ref.HHPolicy(scheme="w", width=512)
+    keys = zipf_keys(S * block * 6, dev, seed=3)
+    rng = np.random.default_rng(4)
+    base0 = torch.from_numpy(rng.integers(0, 9, n).astype(np.float32)).to(dev)
+    delta0 = torch.from_numpy(rng.integers(0, 3, (S, n)).astype(
+        np.float32)).to(dev)
+    skb0 = torch.from_numpy(rng.integers(0, 50, (4, 512)).astype(
+        np.float32)).to(dev)
+    skd0 = torch.from_numpy(rng.integers(0, 5, (S, 4, 512)).astype(
+        np.float32)).to(dev)
+    args = (keys, n, S, 3, block, 0.05, 8, base0, delta0,
+            torch.tensor(1, dtype=torch.int32, device=dev), skb0, skd0, pol)
+    before = (ps.porc_multisource_scan.launches,
+              ps.porc_multisource_scan.hh_launches)
+    got = ps.porc_multisource_scan(*args)
+    assert (ps.porc_multisource_scan.launches,
+            ps.porc_multisource_scan.hh_launches) == (before[0],
+                                                      before[1] + 1)
+    want = ref._porc_multisource_scan(*args[:7], "snapshot", *args[7:])
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_hh_wrapper_checks_its_inputs(dev):
+    keys = zipf_keys(256, dev)
+    pol = ref.HHPolicy(width=64)
+    base, delta = torch.zeros(16, device=dev), torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError):       # sketch lanes of the wrong width
+        ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
+                                 torch.zeros(4, 32, device=dev),
+                                 torch.zeros(2, 4, 32, device=dev), pol)
+    with pytest.raises(ValueError):       # lanes without a policy
+        ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
+                                 torch.zeros(4, 64, device=dev),
+                                 torch.zeros(2, 4, 64, device=dev))

@@ -3,10 +3,11 @@
 
     python3 tools/profile_cg_torch.py [--slots 200] [--out profile.json]
 
-Runs the two main-path configurations of ``chip_smoke.py`` (the paper's
+Runs three main-path configurations of ``chip_smoke.py`` (the paper's
 setup at block 128, single-source kernel; the Fig 14/15 deployment with
-8 sources, multi-source kernel) over a window of ``--slots`` slots,
-after one warm-up slot:
+8 sources, multi-source kernel; the same deployment with W-Choices, the
+HHPolicy kernel) over a window of ``--slots`` slots, after one warm-up
+slot:
 - once without the profiler: wall time, messages/s, host ms per slot;
 - once under ``torch.profiler``: the device's busy share (kernel time
   over wall time), kernel launches per slot, and the ops that take the
@@ -28,7 +29,7 @@ sys.path.insert(0, str(ROOT))
 
 
 def configs():
-    """(name, CGConfig, capacities, trace spec) of the two main paths."""
+    """(name, CGConfig, capacities, trace spec) of the main paths."""
     import numpy as np
     import chip_smoke
     from repro_torch.configs.paper_stream import (CPULIMIT_FRACTION, PAPER_CG,
@@ -45,6 +46,9 @@ def configs():
                                                     engine="auto"),
              caps_a, chip_smoke.WP_TABLE1),
             ("deployment_tw_sources8", cfg_b, frac / frac.sum() / RHO,
+             chip_smoke.TW_TABLE1),
+            ("deployment_tw_sources8_wchoices",
+             cfg_b._replace(hh_scheme="WCHOICES"), frac / frac.sum() / RHO,
              chip_smoke.TW_TABLE1)]
 
 
