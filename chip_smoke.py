@@ -7,11 +7,13 @@ Phases:
   1. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi);
   2. build: compiles the CUDA kernels from the checkout's sources
-     (``src/repro_torch/kernels/csrc``) into ``build/repro_torch_kernels/``;
+     (``src/repro_torch/kernels/csrc``: ``porc_snapshot.cu`` and
+     ``porc_assign.cu``, one ``nvcc`` each, started together) into
+     ``build/repro_torch_kernels/``;
   3. kernels: holds ``porc_snapshot``, ``porc_multisource_scan`` and its
-     HHPolicy branch against their plain torch versions on the card, bit
-     for bit, on WP- and TW-profile streams, and times each at the main
-     path's shapes;
+     HHPolicy branch, ``porc_assign`` and ``porc_multisource_strict``
+     against their plain torch versions on the card, bit for bit, on WP-
+     and TW-profile streams, and times each at the main path's shapes;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -23,6 +25,18 @@ Phases:
      (c) (b) with ``hh_scheme="WCHOICES"`` on the same stream, and (d)
      (a) at block 128 with ``hh_scheme="DCHOICES"`` on the 2.2M prefix:
      the heavy-hitter path through the HHPolicy kernel;
+     the strict engine and the partitioner registry:
+     (f) (a) with ``engine="strict"`` (the ``porc_assign`` kernel), at
+     block 128 and at block 1 on the 2.2M prefix, which must equal (a)'s
+     block-1 run;
+     (g) the Fig 11 point, ``partitioners.route("PORC", ...,
+     sources=100, block_size=128, engine="strict")`` over 1,000 VWs (100
+     workers × α=10) on (a)'s 22M-message stream, and the same with
+     ``engine="auto"`` (the snapshot kernel), within the staleness
+     envelope of the JAX tests;
+     (h) the Fig 7/8 table at ``bench_schemes_workers.py``'s size: the
+     first 200,000 WP messages over 5, 10, 50 and 100 workers × α=10,
+     every scheme of the registry, sequential and blocked at 128;
   5. serving: a ``ServingEngine`` on the card over a W-Choices
      ``CGRequestRouter`` (24 replicas × α=20, 8 sources) under a chaos
      schedule (replicas 0 and 1 at 30% from tick 1, replica 3 crashed at
@@ -60,6 +74,47 @@ TW_TABLE1 = dict(name="TW", n_messages=22_000_000, n_keys=31_000_000,
 
 def log(*a):
     print(*a, flush=True)
+
+
+def counters() -> dict:
+    """(object, attribute) of every kernel's launch counter, and of the
+    plain strict engine's tally of calls on CUDA tensors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import (porc_assign,
+                                                 porc_multisource_strict)
+    from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
+                                                   porc_snapshot)
+    return {"porc_snapshot": (porc_snapshot, "launches"),
+            "porc_multisource_scan": (porc_multisource_scan, "launches"),
+            "porc_multisource_scan_hh": (porc_multisource_scan,
+                                         "hh_launches"),
+            "porc_assign": (porc_assign, "launches"),
+            "porc_multisource_strict": (porc_multisource_strict,
+                                        "launches"),
+            "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls")}
+
+
+def zero_counts():
+    for obj, attr in counters().values():
+        if isinstance(obj, dict):
+            obj[attr] = 0
+        else:
+            setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: obj[attr] if isinstance(obj, dict) else getattr(obj, attr)
+            for k, (obj, attr) in counters().items()}
+
+
+def check_counts(name: str, counts: dict, kernel: str | None, dev,
+                 check_launches: bool):
+    """A main-path run launched its kernel (when it names one), and never
+    ran the plain strict engine on the card."""
+    if check_launches and kernel and counts[kernel] <= 0:
+        fail(f"{name}: the main path never launched {kernel}")
+    if dev.type == "cuda" and counts["plain_strict_on_cuda"]:
+        fail(f"{name}: the plain strict engine ran on CUDA tensors")
 
 
 def fail(msg: str):
@@ -113,7 +168,7 @@ def _same(name: str, a, b) -> float:
 def check_snapshot(keys, dev) -> float:
     """porc_snapshot kernel vs ref_porc_snapshot, bit for bit."""
     import torch
-    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.kernels.porc_snapshot import porc_snapshot
     from repro_torch.kernels import ref
     err = 0.0
     cases = [(n, blk) for n in (100, 480, 1000) for blk in (1, 128)]
@@ -124,7 +179,7 @@ def check_snapshot(keys, dev) -> float:
         # direct call with a load0/m0 continuation
         load0 = torch.arange(n, device=dev, dtype=torch.float32) % 7
         m0 = torch.full((), float(load0.sum()), device=dev)
-        a_k, l_k = ps.porc_snapshot(k, n, block=blk, eps=0.01, load0=load0,
+        a_k, l_k = porc_snapshot(k, n, block=blk, eps=0.01, load0=load0,
                                     m0=m0)
         a_p, l_p = ref.ref_porc_snapshot(k, n, block=blk, eps=0.01,
                                          load0=load0, m0=m0)
@@ -183,17 +238,17 @@ def check_multisource(keys, dev) -> float:
 def time_snapshot(keys, dev, n: int, slot: int, block: int) -> dict:
     """porc_snapshot at the main path's shape: one slot's full blocks."""
     import torch
-    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.kernels.porc_snapshot import porc_snapshot
     from repro_torch.kernels import ref
     M = slot // block * block
     k = keys[:M].contiguous()
     load0 = torch.zeros(n, device=dev)
     m0 = torch.zeros((), device=dev)
-    ms = cuda_ms(lambda: ps.porc_snapshot(k, n, block=block, eps=0.01,
+    ms = cuda_ms(lambda: porc_snapshot(k, n, block=block, eps=0.01,
                                           load0=load0, m0=m0), reps=50)
     plain_ms = cuda_ms(lambda: ref.ref_porc_snapshot(
         k, n, block=block, eps=0.01, load0=load0, m0=m0), reps=3, warmup=1)
-    a, _ = ps.porc_snapshot(k, n, block=block, eps=0.01, load0=load0, m0=m0)
+    a, _ = porc_snapshot(k, n, block=block, eps=0.01, load0=load0, m0=m0)
     nbytes = 4 * M * 2 + 4 * n * 2 + 4
     ops = probes_used(k, a, n, 8) * OPS_PER_PROBE + M
     return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
@@ -205,7 +260,7 @@ def time_multisource(keys, dev, n: int, S: int, slot: int,
     """porc_multisource_scan at the main path's shape: one slot's span
     of full per-source blocks."""
     import torch
-    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
     from repro_torch.kernels import ref
     per = slot // S // block * block
     M = per * S
@@ -214,10 +269,10 @@ def time_multisource(keys, dev, n: int, S: int, slot: int,
     delta0 = torch.zeros((S, n), device=dev)
     ticks0 = torch.zeros((), dtype=torch.int32, device=dev)
     args = (k, n, S, 1, block, 0.01, 8, base0, delta0, ticks0)
-    ms = cuda_ms(lambda: ps.porc_multisource_scan(*args), reps=50)
+    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
     plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
         *args[:7], "snapshot", *args[7:]), reps=3, warmup=1)
-    a = ps.porc_multisource_scan(*args)[0]
+    a = porc_multisource_scan(*args)[0]
     steps = M // (S * block)
     nbytes = 4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
     ops = (probes_used(k, a, n, 8) * OPS_PER_PROBE + M
@@ -368,7 +423,7 @@ def time_multisource_hh(keys, dev, n: int, S: int, slot: int,
     """The HHPolicy branch at the main path's span shape (one slot's
     128-block span, W-Choices chain of n_bins candidates), from a state
     warmed by ten slots of the same stream."""
-    from repro_torch.kernels import porc_snapshot as ps
+    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
     from repro_torch.kernels import ref
     from repro_torch.kernels.blocks import HHPolicy
     pol = HHPolicy(scheme="w")
@@ -381,7 +436,7 @@ def time_multisource_hh(keys, dev, n: int, S: int, slot: int,
     k = keys[warm: warm + M].contiguous()
     args = (k, n, S, 1, block, 0.01, 8, st.base, st.delta, st.ticks,
             st.sketch_base, st.sketch_delta, pol)
-    ms = cuda_ms(lambda: ps.porc_multisource_scan(*args), reps=50)
+    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
     plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
         *args[:7], "snapshot", *args[7:]), reps=3, warmup=1)
     steps = M // (S * block)
@@ -397,6 +452,209 @@ def time_multisource_hh(keys, dev, n: int, S: int, slot: int,
     return dict(shape=f"M={M} S={S} n_bins={n} block={block} W-Choices "
                 f"chain={n}", ms=ms, plain_ms=plain_ms, bytes=nbytes,
                 ops=ops, probes=probes)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, the strict engine: porc_assign and porc_multisource_strict
+# ---------------------------------------------------------------------------
+
+def check_assign(streams: dict, dev) -> float:
+    """porc_assign vs ref_porc_assign, bit for bit, over streams × n_bins
+    {8, 100, 480, 1,000, 60,000} × block {1, 64, 128}: a direct call from
+    a (load0, m0) continuation; the span driver over a ragged length with
+    the state carried across two calls; split at a block boundary == one
+    call; block 1 == the per-message oracle. 60,000 bins put the load in
+    global memory."""
+    import torch
+    from repro_torch.core.partitioners import power_of_random_choices
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import porc_assign
+    err = 0.0
+    for sname, keys in streams.items():
+        for n in (8, 100, 480, 1000, 60_000):
+            for blk in (1, 64, 128):
+                m = 400 if blk == 1 else 128 * 30
+                k = keys[:m].contiguous()
+                load0 = torch.arange(n, device=dev, dtype=torch.float32) % 7
+                m0 = load0.sum()
+                got = porc_assign(k, n, block=blk, eps=0.01, load0=load0,
+                                  m0=m0)
+                want = ref.ref_porc_assign(k, n, block=blk, eps=0.01,
+                                           load0=load0, m0=m0)
+                for what, x, y in zip(("assign", "load"), got, want):
+                    err = max(err, _same(f"porc_assign {sname} n={n} "
+                                         f"block={blk} {what}", x, y))
+                rag, split = m + 77, 256
+                out = {}
+                for eng in ("strict", "strict_ref"):
+                    a1, st = ref.ref_porc_route(keys[:split], n, block=blk,
+                                                eps=0.01, engine=eng,
+                                                device=dev)
+                    a2, st = ref.ref_porc_route(keys[split:rag], n,
+                                                block=blk, eps=0.01,
+                                                state=st, engine=eng,
+                                                device=dev)
+                    out[eng] = (torch.cat([a1, a2]), st.load, st.routed)
+                one, st1 = ref.ref_porc_route(keys[:rag], n, block=blk,
+                                              eps=0.01, engine="strict",
+                                              device=dev)
+                for what, x, y, z in zip(("assign", "load", "routed"),
+                                         out["strict"], out["strict_ref"],
+                                         (one, st1.load, st1.routed)):
+                    err = max(err, _same(f"strict route {sname} n={n} "
+                                         f"block={blk} {what}", x, y))
+                    _same(f"strict split {sname} n={n} block={blk} {what}",
+                          x, z)
+                if blk == 1:
+                    _same(f"strict block 1 {sname} n={n} vs the oracle", one,
+                          power_of_random_choices(keys[:rag], n, eps=0.01,
+                                                  device=dev))
+            log(f"  porc_assign {sname} n_bins={n:>6} block 1/64/128: "
+                "identical (direct, span driver, split == one call; block 1"
+                " == oracle)")
+    return err
+
+
+def check_assign_fallback(keys, dev) -> float:
+    """The leftover fallback: porc_assign with d=1 or 2 and eps=0 from a
+    continuation, against ref_porc_assign, which must show leftovers."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import porc_assign
+    err = 0.0
+    tally = ref._porc_block.tally
+    for n in (100, 60_000):
+        for d in (1, 2):
+            k = keys[:128 * 20].contiguous()
+            load0 = torch.arange(n, device=dev, dtype=torch.float32) % 3
+            m0 = load0.sum()
+            got = porc_assign(k, n, d=d, block=128, eps=0.0, load0=load0,
+                              m0=m0)
+            left0 = tally["leftovers"]
+            want = ref.ref_porc_assign(k, n, d=d, block=128, eps=0.0,
+                                       load0=load0, m0=m0)
+            left = tally["leftovers"] - left0
+            if left < 1:
+                fail(f"fallback n={n} d={d}: the plain version has no "
+                     "leftover")
+            for what, x, y in zip(("assign", "load"), got, want):
+                err = max(err, _same(f"porc_assign fallback n={n} d={d} "
+                                     f"{what}", x, y))
+            log(f"  porc_assign fallback n_bins={n:>6} d={d} eps=0: "
+                f"identical, {left} leftovers")
+    return err
+
+
+def check_multisource_strict(streams: dict, dev) -> float:
+    """porc_multisource_strict vs _porc_multisource_scan(engine="strict"),
+    bit for bit, through the span driver with a ragged sub-S tail and
+    the state carried across two calls, over streams × S {1, 8, 100} ×
+    sync {1, 3} × n_bins {20, 480, 1,000} × block {8, 128}; S=1 at sync 1
+    equals ref_porc_route(engine="strict")."""
+    import torch
+    from repro_torch.kernels import ref
+    err = 0.0
+    fields = ("assign", "base", "delta", "routed", "ticks")
+    for sname, keys in streams.items():
+        for S in (1, 8, 100):
+            for n in (20, 480, 1000):
+                for blk in (8, 128):
+                    for sync in (1, 3):
+                        m = S * blk * 5 + S * 77 + S // 2
+                        split = S * blk * 2 + S * 3 + S // 3
+                        out = {}
+                        for eng in ("strict", "strict_ref"):
+                            a1, st = ref.ref_porc_multisource(
+                                keys[:split], n, S, sync_every=sync,
+                                block=blk, eps=0.01, engine=eng, device=dev)
+                            a2, st = ref.ref_porc_multisource(
+                                keys[split:m], n, S, sync_every=sync,
+                                block=blk, eps=0.01, state=st, engine=eng,
+                                device=dev)
+                            out[eng] = (torch.cat([a1, a2]), st.base,
+                                        st.delta, st.routed, st.ticks)
+                        for what, x, y in zip(fields, out["strict"],
+                                              out["strict_ref"]):
+                            err = max(err, _same(
+                                f"multisource strict {sname} S={S} n={n} "
+                                f"block={blk} sync={sync} {what}", x, y))
+                if S == 1:
+                    m = 128 * 5 + 77
+                    a_r, s_r = ref.ref_porc_route(keys[:m], n, block=128,
+                                                  eps=0.01, engine="strict",
+                                                  device=dev)
+                    a_m, s_m = ref.ref_porc_multisource(
+                        keys[:m], n, 1, block=128, eps=0.01,
+                        engine="strict", device=dev)
+                    _same(f"S=1 strict {sname} n={n} assign", a_r, a_m)
+                    _same(f"S=1 strict {sname} n={n} load", s_r.load,
+                          s_m.base + s_m.delta.sum(0))
+                log(f"  porc_multisource_strict {sname} S={S:>3} "
+                    f"n_bins={n:>5} block 8/128 sync 1/3: identical")
+    return err
+
+
+def strict_work(run) -> dict:
+    """Run the plain strict engine once and read what it walked: source
+    blocks, ranks and bids (each bid one hash, a position and a compare)
+    and leftovers."""
+    from repro_torch.kernels import ref
+    tally = ref._porc_block.tally
+    before = dict(tally)
+    run()
+    return {k: tally[k] - before[k] for k in ("blocks", "ranks", "bids",
+                                              "leftovers")}
+
+
+def time_assign(keys, dev, n: int, slot: int, block: int) -> dict:
+    """porc_assign at the main path's shape (one slot's full blocks),
+    from a state warmed by ten slots of the stream."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import porc_assign
+    M = slot // block * block
+    warm = 10 * slot
+    _, st = ref.ref_porc_route(keys[:warm], n, block=block, eps=0.01,
+                               engine="strict", device=dev)
+    k = keys[warm: warm + M].contiguous()
+    args = dict(block=block, eps=0.01, load0=st.load, m0=st.routed)
+    ms = cuda_ms(lambda: porc_assign(k, n, **args), reps=20)
+    plain_ms = cuda_ms(lambda: ref.ref_porc_assign(k, n, **args), reps=2,
+                       warmup=1)
+    work = strict_work(lambda: ref.ref_porc_assign(k, n, **args))
+    nbytes = 4 * M * 2 + 4 * n * 2 + 4
+    ops = work["bids"] * (OPS_PER_PROBE + 2) + work["ranks"] * block
+    return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                ranks_per_block=work["ranks"] / work["blocks"], **work)
+
+
+def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
+                            block: int) -> dict:
+    """porc_multisource_strict at the Fig 11 shape: ``steps`` steps of S
+    blocks, sync 1, from a state warmed by ten such spans of the
+    stream."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import porc_multisource_strict
+    M = steps * S * block
+    warm = 10 * M
+    _, st = ref.ref_porc_multisource(keys[:warm], n, S, block=block,
+                                     eps=0.01, engine="strict", device=dev)
+    k = keys[warm: warm + M].contiguous()
+    args = (k, n, S, 1, block, 0.01)
+    state = (st.base, st.delta, st.ticks)
+    ms = cuda_ms(lambda: porc_multisource_strict(*args, *state), reps=10)
+
+    def plain():
+        return ref._porc_multisource_scan(*args, 8, "strict", *state)
+
+    plain_ms = cuda_ms(plain, reps=1, warmup=1)
+    work = strict_work(plain)
+    nbytes = 4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
+    ops = (work["bids"] * (OPS_PER_PROBE + 2) + work["ranks"] * block
+           + steps * (S + 1) * n * 2)                 # masses, merges
+    return dict(shape=f"M={M} S={S} n_bins={n} block={block} sync=1", ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                ranks_per_block=work["ranks"] / work["blocks"], **work)
 
 
 def bound(t: dict) -> tuple[float, str]:
@@ -417,23 +675,16 @@ def run_cg(name: str, cfg, keys, caps, frac, dev, kernel: str,
     (summary dict, CGResult)."""
     import torch
     from repro_torch.core import cg, partitioners, simulation
-    from repro_torch.kernels import porc_snapshot as ps
-    ps.porc_snapshot.launches = 0
-    ps.porc_multisource_scan.launches = 0
-    ps.porc_multisource_scan.hh_launches = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    zero_counts()
     t0 = time.perf_counter()
     res = cg.run(cfg, keys, caps, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
-    launches = {"porc_snapshot": ps.porc_snapshot.launches,
-                "porc_multisource_scan": ps.porc_multisource_scan.launches,
-                "porc_multisource_scan_hh":
-                    ps.porc_multisource_scan.hh_launches}
-    if check_launches and launches[kernel] <= 0:
-        fail(f"{name}: the main path never launched {kernel}")
+    launches = read_counts()
+    check_counts(name, launches, kernel, dev, check_launches)
     m = keys.shape[0]
     V = cfg.n_workers * cfg.alpha
     owner = res.state.vw_owner
@@ -498,6 +749,14 @@ def vw_spread(keys, vw, n_vw: int, hot_fraction: float) -> dict:
                 tail_keys=int(tail.sum()))
 
 
+def paper_caps():
+    """Capacities of the paper's simulation setup (§VII, ``PAPER_CG``'s 10
+    workers): y=3 machines 5× faster, at ρ=0.8."""
+    from repro_torch.configs.paper_stream import PAPER_CG, RHO
+    from repro_torch.core import streams
+    return streams.heterogeneous_capacities(PAPER_CG.n_workers, 3, 5.0) / RHO
+
+
 def deployment_config():
     """The Fig 14/15 deployment: (CGConfig, capacities, cpulimit
     fractions) — 24 workers × α=20, slot 5,000, 16 moves, 8 sources,
@@ -516,17 +775,17 @@ def deployment_config():
 
 
 def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
-              check_launches: bool = True, tw_keys=None) -> list[dict]:
+              check_launches: bool = True, tw_keys=None):
     """The two policy-free main-path configurations; ``scale`` < 1 cuts
     the stream for a rehearsal on the CPU. ``tw_keys`` is (b)'s stream,
-    sampled here when not given."""
+    sampled here when not given. Returns (the runs' summaries, (a)'s
+    block-1 VW assignment)."""
     import torch
-    from repro_torch.configs.paper_stream import PAPER_CG, RHO
-    from repro_torch.core import cg, streams
+    from repro_torch.configs.paper_stream import PAPER_CG
+    from repro_torch.core import cg
     runs = []
     # (a) the paper's simulation setup, heterogeneous y=3 z=5 at rho=0.8
-    n = PAPER_CG.n_workers
-    caps = streams.heterogeneous_capacities(n, 3, 5.0) / RHO
+    caps = paper_caps()
     frac = caps / caps.max()
     slot = PAPER_CG.slot_len
     m = int(WP_TABLE1["n_messages"] * scale) // slot * slot
@@ -548,6 +807,7 @@ def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
     log(f"  paper_wp_block1: first {m_or} messages identical to the "
         "per-message oracle (block_size=0, CPU)")
     runs.append(out)
+    block1_vw = res1.vw_assignment
     del res1, oracle
 
     # (b) the Fig 14/15 deployment: 24 workers, two executors at 30%
@@ -559,7 +819,7 @@ def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
     out, _ = run_cg("deployment_tw_sources8", cfg_b, tw_keys[:mb], caps_b,
                     frac_b, dev, "porc_multisource_scan", check_launches)
     runs.append(out)
-    return runs
+    return runs, block1_vw
 
 
 def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
@@ -568,8 +828,7 @@ def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
     deployment with W-Choices on (b)'s stream, (d) the paper's setup at
     block 128 with D-Choices on the prefix (a) block 1 routed. Each run's
     key spread is printed beside its policy-free twin's."""
-    from repro_torch.configs.paper_stream import PAPER_CG, RHO
-    from repro_torch.core import streams
+    from repro_torch.configs.paper_stream import PAPER_CG
     twin = {r["run"]: r for r in base_runs}
     runs = []
     cfg_b, caps_b, frac_b = deployment_config()
@@ -581,8 +840,7 @@ def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
                     check_launches)
     out["policy_free_twin"] = "deployment_tw_sources8"
     runs.append(out)
-    n = PAPER_CG.n_workers
-    caps = streams.heterogeneous_capacities(n, 3, 5.0) / RHO
+    caps = paper_caps()
     m1 = twin["paper_wp_block1"]["messages"]
     cfg_d = PAPER_CG._replace(block_size=128, engine="auto",
                               hh_scheme="DCHOICES")
@@ -603,6 +861,150 @@ def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
     return runs
 
 
+def strict_path(dev, wp_keys, block1_vw, scale: float = 1.0,
+                check_launches: bool = True) -> list[dict]:
+    """(f) the paper's setup of (a) with ``engine="strict"`` (the
+    porc_assign kernel): at block 128 on the whole stream, and at block 1
+    on the prefix (a) routed at block 1, which must give (a)'s block-1
+    assignments (``block1_vw``)."""
+    import torch
+    from repro_torch.configs.paper_stream import PAPER_CG
+    caps = paper_caps()
+    frac = caps / caps.max()
+    slot = PAPER_CG.slot_len
+    m = int(WP_TABLE1["n_messages"] * scale) // slot * slot
+    runs = []
+    cfg = PAPER_CG._replace(block_size=128, engine="strict")
+    out, _ = run_cg("paper_wp_block128_strict", cfg, wp_keys[:m], caps, frac,
+                    dev, "porc_assign", check_launches)
+    runs.append(out)
+    m1 = block1_vw.shape[0]
+    cfg1 = PAPER_CG._replace(block_size=1, engine="strict")
+    out, res = run_cg("paper_wp_block1_strict", cfg1, wp_keys[:m1], caps,
+                      frac, dev, "porc_assign", check_launches)
+    if not torch.equal(res.vw_assignment, block1_vw):
+        fail("(f) strict at block 1 differs from (a)'s block-1 run")
+    out["equals_snapshot_block1"] = m1
+    log(f"  paper_wp_block1_strict: all {m1} assignments identical to "
+        "paper_wp_block1 (the snapshot kernel)")
+    runs.append(out)
+    return runs
+
+
+def fig11_path(dev, wp_keys, scale: float = 1.0,
+               check_launches: bool = True) -> list[dict]:
+    """(g) the Fig 11 point: 100 sources route (a)'s WP stream onto 1,000
+    VWs (100 workers × α=10), ε=0.01, block 128, sync every block —
+    ``partitioners.route("PORC", ..., engine="strict")`` through the
+    strict multisource kernel, then ``engine="auto"`` through the
+    snapshot kernel. Each must keep the max VW load within the envelope
+    of the JAX tests, (1+ε)·m/V + S·sync·block + 1."""
+    import torch
+    from repro_torch.core import metrics, partitioners
+    n_workers, alpha, S, block, eps = 100, 10, 100, 128, 0.01
+    V = n_workers * alpha
+    m = int(WP_TABLE1["n_messages"] * scale)
+    keys = wp_keys[:m]
+    cap = (1 + eps) * m / V
+    envelope = cap + S * 1 * block + 1
+    caps = torch.full((n_workers,), 1.0 / n_workers, device=dev)
+    runs = []
+    for engine, kernel in (("strict", "porc_multisource_strict"),
+                           ("auto", "porc_multisource_scan")):
+        name = f"fig11_sources100_{engine}"
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        vw = partitioners.route("PORC", keys, V, eps=eps, block_size=block,
+                                sources=S, sync_every=1, engine=engine,
+                                device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(name, counts, kernel, dev, check_launches)
+        load = torch.bincount(vw.long(), minlength=V)
+        if vw.shape != (m,) or int(load.sum()) != m or load.shape != (V,):
+            fail(f"{name}: assignment does not cover the stream")
+        workers = vw % n_workers
+        out = dict(
+            run=name, messages=m, seconds=secs, msgs_per_s=m / secs,
+            imbalance_workers=float(metrics.normalized_imbalance(workers,
+                                                                 caps)),
+            memory_workers=distinct_pairs(keys, workers, n_workers),
+            memory_vws=distinct_pairs(keys, vw, V),
+            max_vw_load=int(load.max()), cap_vw=cap, envelope=envelope,
+            launches=counts)
+        if out["max_vw_load"] > envelope:
+            fail(f"{name}: max VW load {out['max_vw_load']} beyond the "
+                 f"envelope {envelope:.1f}")
+        log(f"  {name}: {m} msgs in {secs:.3f} s = {m / secs:,.0f} msgs/s;"
+            f" normalized imbalance over workers "
+            f"{out['imbalance_workers']:.6f}; memory {out['memory_workers']}"
+            f" (key, worker) / {out['memory_vws']} (key, VW) pairs; max VW "
+            f"load {out['max_vw_load']} vs (1+eps)m/V {cap:.1f}, envelope "
+            f"{envelope:.1f}; launches {counts}")
+        runs.append(out)
+    return runs
+
+
+def distinct_pairs(keys, bins, n_bins: int) -> int:
+    """Memory footprint (Table III): the distinct (key, bin) pairs."""
+    import torch
+    return int(torch.unique(keys.long() * n_bins + bins.long()).numel())
+
+
+def schemes_path(dev, wp_keys, m: int = 200_000, ns=(5, 10, 50, 100),
+                 check_launches: bool = True) -> list[dict]:
+    """(h) the Fig 7/8 table at ``benchmarks/bench_schemes_workers.py``'s
+    size: the first ``m`` WP messages over n × α=10 VWs for n in ``ns``,
+    ε=0.01; every scheme of the registry through ``route`` (sequential
+    oracles), plus PKG, PoTC and PoRC blocked at 128 (PoRC with
+    ``engine="strict"``, the porc_assign kernel). VWs map to workers as
+    vw mod n; normalized imbalance and memory over workers."""
+    import torch
+    from repro_torch.core import metrics, partitioners
+    keys = wp_keys[:m]
+    variants = [(s, {}) for s in partitioners.ALL_SCHEMES] + [
+        ("PKG", dict(block_size=128)), ("POTC", dict(block_size=128)),
+        ("PORC", dict(block_size=128, engine="strict"))]
+    rows = []
+    for n in ns:
+        V = n * 10
+        caps = torch.full((n,), 1.0 / n, device=dev)
+        for scheme, kw in variants:
+            label = scheme + ("-b128" if kw else "") + (
+                "-strict" if kw.get("engine") == "strict" else "")
+            zero_counts()
+            t0 = time.perf_counter()
+            vw = partitioners.route(scheme, keys, V, eps=0.01, device=dev,
+                                    **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            check_counts(f"(h) {label} n={n}", counts,
+                         "porc_assign" if "engine" in kw else None, dev,
+                         check_launches)
+            a = vw % n
+            rows.append(dict(
+                n_workers=n, scheme=label, seconds=secs,
+                imbalance=float(metrics.normalized_imbalance(a, caps)),
+                memory=distinct_pairs(keys, a, n),
+                porc_assign_launches=counts["porc_assign"]))
+    labels = list(dict.fromkeys(r["scheme"] for r in rows))
+    log("  normalized imbalance / memory over workers (WP, first "
+        f"{m} messages, α=10, ε=0.01):")
+    log("  " + " ".join(f"{x:>16}" for x in ["workers", *labels]))
+    for n in ns:
+        cells = {r["scheme"]: r for r in rows if r["n_workers"] == n}
+        log("  " + " ".join([f"{n:>16}"] + [
+            f"{cells[x]['imbalance']:>7.4f}/{cells[x]['memory']:>8}"
+            for x in labels]))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: serving with its failure path
 # ---------------------------------------------------------------------------
@@ -617,7 +1019,6 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
     import numpy as np
     import torch
     from repro_torch.core import streams
-    from repro_torch.kernels import porc_snapshot as ps
     from repro_torch.runtime.chaos import ChaosEvent, ChaosSchedule
     from repro_torch.serve import CGRequestRouter, ServingEngine
     W, slow = 24, 0.3
@@ -643,8 +1044,7 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
         return eng.submitted - sum(r.served for r in eng.replicas) \
             - eng.in_flight
 
-    ps.porc_multisource_scan.launches = 0
-    ps.porc_multisource_scan.hh_launches = 0
+    zero_counts()
     marks = []
     t0 = time.perf_counter()
     for tick in range(n_ticks):
@@ -661,7 +1061,7 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
     while eng.in_flight and drain_ticks < 20 * n_ticks:
         eng.step()
         drain_ticks += 1
-    launches = ps.porc_multisource_scan.hh_launches
+    launches = read_counts()["porc_multisource_scan_hh"]
     served = sum(r.served for r in eng.replicas)
     if eng.in_flight or lost() or eng.dropped or served != eng.submitted:
         fail(f"serving: submitted {eng.submitted}, served {served}, in "
@@ -715,6 +1115,24 @@ def sample(spec: dict, seed: int, n_messages: int, dev):
     return keys
 
 
+def build_all(names) -> dict:
+    """Build the kernels' sources at once, one ``nvcc`` each; print what
+    ptxas says of registers, shared memory and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build.build, names)))
+    build_s = time.perf_counter() - t0
+    for name, lib in libs.items():
+        log(f"  built {lib.relative_to(ROOT)}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"  {len(libs)} sources built in {build_s:.1f} s")
+    return dict(build_s=build_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -726,7 +1144,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -738,41 +1155,59 @@ def main() -> int:
     log(card)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     # 2. build
     log("== build")
-    t0 = time.perf_counter()
-    lib = build.build("porc_snapshot")
-    build_s = time.perf_counter() - t0
-    log(f"  built {lib.relative_to(ROOT)} in {build_s:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    built = build_all(["porc_snapshot", "porc_assign"])
 
     # 3. kernels vs plain, on the card
     log("== kernels vs plain (bit for bit, WP and TW streams)")
     wp_keys = sample(WP_TABLE1, args.seed, WP_TABLE1["n_messages"], dev)
     tw_keys = sample(TW_TABLE1, args.seed + 1, TW_TABLE1["n_messages"], dev)
-    err_s = check_snapshot(wp_keys, dev)
-    err_m = check_multisource(wp_keys, dev)
-    err_h = check_multisource_hh({"WP": wp_keys, "TW": tw_keys}, dev)
-    t_s = time_snapshot(wp_keys, dev, n=100, slot=10_000, block=128)
-    t_m = time_multisource(wp_keys, dev, n=480, S=8, slot=5_000, block=128)
-    t_h = time_multisource_hh(tw_keys, dev, n=480, S=8, slot=5_000,
-                              block=128)
-    timing = {"porc_snapshot": t_s, "porc_multisource_scan": t_m,
-              "porc_multisource_scan[HHPolicy]": t_h}
+    streams2 = {"WP": wp_keys, "TW": tw_keys}
+    err = {"porc_snapshot": check_snapshot(wp_keys, dev),
+           "porc_multisource_scan": check_multisource(wp_keys, dev),
+           "porc_multisource_scan[HHPolicy]": check_multisource_hh(streams2,
+                                                                   dev),
+           "porc_assign": max(check_assign(streams2, dev),
+                              check_assign_fallback(wp_keys, dev)),
+           "porc_multisource_strict": check_multisource_strict(streams2,
+                                                               dev)}
+    timing = {
+        "porc_snapshot": time_snapshot(wp_keys, dev, n=100, slot=10_000,
+                                       block=128),
+        "porc_multisource_scan": time_multisource(wp_keys, dev, n=480, S=8,
+                                                  slot=5_000, block=128),
+        "porc_multisource_scan[HHPolicy]": time_multisource_hh(
+            tw_keys, dev, n=480, S=8, slot=5_000, block=128),
+        "porc_assign": time_assign(wp_keys, dev, n=100, slot=10_000,
+                                   block=128),
+        "porc_multisource_strict": time_multisource_strict(
+            wp_keys, dev, n=1000, S=100, steps=10, block=128)}
     for name, t in timing.items():
         b, by = bound(t)
+        extra = (f", {t['ranks_per_block']:.2f} ranks per block"
+                 if "ranks_per_block" in t else "")
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch, "
-            f"plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by})")
+            f"plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
+    log(f"  phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # 4. the main path
     log("== main path: cg.run(engine='auto')")
-    runs = main_path(dev, args.seed, wp_keys, tw_keys=tw_keys)
+    runs, block1_vw = main_path(dev, args.seed, wp_keys, tw_keys=tw_keys)
     log("== heavy-hitter main path: cg.run(hh_scheme=..., engine='auto')")
     runs += hh_path(dev, wp_keys, tw_keys, runs)
-    del wp_keys, tw_keys
+    del tw_keys
+    log("== strict engine: (f) cg.run(engine='strict')")
+    runs += strict_path(dev, wp_keys, block1_vw)
+    del block1_vw
+    log("== strict engine: (g) the Fig 11 point, 100 sources × 1,000 VWs")
+    fig11 = fig11_path(dev, wp_keys)
+    log("== partitioner registry: (h) the Fig 7/8 table")
+    schemes = schemes_path(dev, wp_keys)
+    del wp_keys
+    log(f"  phases 2-4 took {time.perf_counter() - t_start:.1f} s")
 
     # 5. serving with its failure path
     log("== serving: ServingEngine + CGRequestRouter(hh_scheme='w') under "
@@ -780,31 +1215,40 @@ def main() -> int:
     serving = serving_path(dev, args.seed)
 
     # 6. report
-    launches = {k: sum(r["launches"][k] for r in runs)
+    launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
-                          "porc_multisource_scan_hh")}
+                          "porc_multisource_scan_hh", "porc_assign",
+                          "porc_multisource_strict")}
     launches["porc_multisource_scan_hh"] += serving["hh_launches"]
-    src = "src/repro_torch/kernels/csrc/porc_snapshot.cu"
+    launches["porc_assign"] += sum(r["porc_assign_launches"]
+                                   for r in schemes)
+    csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
-    for name, err, count, line in (
-            ("porc_snapshot", err_s, launches["porc_snapshot"], 78),
-            ("porc_multisource_scan", err_m,
-             launches["porc_multisource_scan"], 207),
-            ("porc_multisource_scan[HHPolicy]", err_h,
-             launches["porc_multisource_scan_hh"], 207)):
+    for name, count, src, replaces in (
+            ("porc_snapshot", launches["porc_snapshot"], "porc_snapshot.cu",
+             "src/repro/kernels/porc_snapshot.py:78"),
+            ("porc_multisource_scan", launches["porc_multisource_scan"],
+             "porc_snapshot.cu", "src/repro/kernels/porc_snapshot.py:207"),
+            ("porc_multisource_scan[HHPolicy]",
+             launches["porc_multisource_scan_hh"], "porc_snapshot.cu",
+             "src/repro/kernels/porc_snapshot.py:207"),
+            ("porc_assign", launches["porc_assign"], "porc_assign.cu",
+             "src/repro/kernels/porc_assign.py:99"),
+            ("porc_multisource_strict", launches["porc_multisource_strict"],
+             "porc_assign.cu", "src/repro/kernels/ref.py:420")):
         t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
-            name=name, route="cuda", source=src,
-            replaces=f"src/repro/kernels/porc_snapshot.py:{line}",
-            launches=count, max_abs_err=err, ms=t["ms"],
+            name=name, route="cuda", source=csrc + src, replaces=replaces,
+            launches=count, max_abs_err=err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=None))
+    log(f"  the whole run took {time.perf_counter() - t_start:.1f} s")
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
-            card=card, build_s=build_s, timing=timing, runs=runs,
-            serving=serving, kernels=kernels), indent=1))
+            card=card, **built, timing=timing, runs=runs, fig11=fig11,
+            schemes=schemes, serving=serving, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,9 @@ assignments, owner maps and moves.
 
 ``run`` is a Python loop over slots on device tensors (the reference's
 ``lax.scan``). The block engines route each slot: the plain torch
-engine on the CPU, the CUDA kernels on the card (``engine="auto"``).
-Nothing in the slot loop reads a device value back to the host.
+engine on the CPU, the CUDA kernels on the card (``engine="auto"``, and
+``engine="strict"`` for the rank-sequential engine). Nothing in the slot
+loop on the card reads a device value back to the host.
 
 ``hh_scheme`` turns on the heavy-hitter probe-depth policy (D/W-Choices)
 for the PORC inner scheme: a count-min sketch, carried in
@@ -69,8 +70,11 @@ class CGConfig(NamedTuple):
     engine: str = "auto"          # block engine for the PORC inner
                                   # scheme: "ref" (plain torch), "cuda"
                                   # (the kernel, bit-identical), "auto" =
-                                  # follows the device. The block_size=0
-                                  # oracle and KG/SG ignore it.
+                                  # follows the device; "strict" = the
+                                  # rank-sequential engine (cap held
+                                  # inside a block), which also follows
+                                  # the device. The block_size=0 oracle
+                                  # and KG/SG ignore it.
 
 
 class CGState(NamedTuple):

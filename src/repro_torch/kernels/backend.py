@@ -8,6 +8,11 @@
   ``"snapshot"`` are the plain torch snapshot engine, ``"cuda"`` the
   hand-written CUDA kernel, ``"auto"`` follows the tensors' device —
   the kernel for CUDA tensors, the plain engine for CPU tensors.
+  ``"strict"`` is the rank-sequential engine (Alg. 1 with the cap held
+  inside a block) and follows the device the same way: the plain engine
+  (``"strict"``) on the CPU, the kernel (``"strict_cuda"``) on the card.
+  ``"strict_ref"`` asks for the plain strict engine on any device, the
+  way ``"ref"`` does for the snapshot engine.
 """
 from __future__ import annotations
 
@@ -25,25 +30,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+STRICT_ENGINES = ("strict", "strict_ref", "strict_cuda")
+
+
 def resolve_engine(engine: str, device) -> str:
     """Map an engine knob to the block engine to run on ``device``:
-    ``"snapshot"`` (plain torch) or ``"cuda"`` (the kernel)."""
+    ``"snapshot"`` (plain torch) or ``"cuda"`` (its kernel), ``"strict"``
+    (plain rank-sequential) or ``"strict_cuda"`` (its kernel)."""
     dev = torch.device(device)
     if engine in ("ref", "jnp", "snapshot"):
         return "snapshot"
     if engine == "auto":
         return "cuda" if dev.type == "cuda" else "snapshot"
-    if engine == "cuda":
+    if engine == "strict":
+        return "strict_cuda" if dev.type == "cuda" else "strict"
+    if engine == "strict_ref":
+        return "strict"
+    if engine in ("cuda", "strict_cuda"):
         if dev.type != "cuda":
-            raise ValueError("engine='cuda' needs CUDA tensors; use "
-                             "'auto' or 'ref' on the CPU")
-        return "cuda"
+            raise ValueError(f"engine={engine!r} needs CUDA tensors; use "
+                             "'auto', 'ref' or 'strict' on the CPU")
+        return engine
     if engine == "pallas":
         raise ValueError("engine='pallas' is the TPU kernel of the JAX "
                          "package; the port's kernel engine is 'cuda'")
-    if engine == "strict":
-        raise NotImplementedError(
-            "engine='strict' (rank-sequential porc_assign) is not ported "
-            "yet (ROADMAP Queue 2 item 3)")
     raise ValueError(f"unknown engine {engine!r}: expected 'ref' | 'cuda' "
-                     "| 'auto' (or the internal 'snapshot')")
+                     "| 'auto' | 'strict' (or the internal 'snapshot', "
+                     "'strict_ref', 'strict_cuda')")

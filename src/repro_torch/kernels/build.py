@@ -1,10 +1,12 @@
-"""Build the CUDA kernels of ``csrc/`` at first use, and load them.
+"""Build the CUDA kernels of ``csrc/`` at first use, load them, and
+check what their wrappers pass in.
 
 ``nvcc`` compiles each source into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), which is
 loaded with ``ctypes``. The library goes to ``build/repro_torch_kernels/``
-at the root of the checkout, named by a hash of its source, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs on
+at the root of the checkout, named by a hash of its source and of the
+shared headers ``csrc/*.cuh``, so an edited source is rebuilt and an
+unchanged one is reused. Nothing here runs on
 import: the CPU tests import every module of the package.
 
 The flags never include ``--use_fast_math``: its approximate division
@@ -18,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -37,10 +41,13 @@ def _nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source is
-    already built. Returns the library's path; the compiler's report
-    (registers, shared memory, spills) is kept beside it as ``.log``."""
+    already built (the digest covers the shared headers ``csrc/*.cuh``
+    too). Returns the library's path; the compiler's report (registers,
+    shared memory, spills) is kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
@@ -59,3 +66,32 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     return ctypes.CDLL(str(build(name)))
+
+
+# ctypes types of the launchers' arguments: c_void_p for pointers and the
+# stream, or ctypes would cut them to 32-bit ints
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def device_scalar(x, dtype, device) -> torch.Tensor:
+    """A 0-dim device tensor the kernel reads through a pointer (no
+    host sync when ``x`` already is one)."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1 or x.device != device:
+            raise ValueError(f"expected a scalar on {device}, got shape "
+                             f"{tuple(x.shape)} on {x.device}")
+        return x.reshape(()).to(dtype).contiguous()
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def raise_on(err: int, name: str):
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

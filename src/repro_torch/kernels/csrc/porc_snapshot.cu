@@ -41,105 +41,9 @@
 // C interface (bound with ctypes): each launcher returns the
 // cudaError_t of the launch, 0 on success.
 
-#include <cmath>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "routing.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// repro/core/hashing.py::hash_to_bins for one (key, salt).
-__device__ __forceinline__ int hash_to_bin(uint32_t key, uint32_t salt,
-                                           uint32_t n_bins) {
-  uint32_t h = mix32(key + salt * 0x9E3779B9u);
-  h = mix32(h ^ (salt * 0x7F4A7C15u + 0x165667B1u));
-  return static_cast<int>(h % n_bins);
-}
-
-template <bool kSmem>
-__device__ __forceinline__ float rd(const float* p) {
-  if constexpr (kSmem) {
-    return *p;
-  } else {
-    return __ldcg(p);  // L2: sees the CTA's own atomics after a barrier
-  }
-}
-
-// (value, index) pair that wins: smaller value, then smaller index.
-__device__ __forceinline__ void argmin_merge(float& v, int& i, float v2,
-                                             int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    float v2 = __shfl_xor_sync(0xFFFFFFFFu, v, off);
-    int i2 = __shfl_xor_sync(0xFFFFFFFFu, i, off);
-    argmin_merge(v, i, v2, i2);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
-  return v;
-}
-
-// Block-wide argmin of load[0..n), lowest index on ties. Every thread of
-// the CTA must call it; every thread gets the result.
-template <bool kSmem>
-__device__ int block_argmin(const float* load, int n) {
-  __shared__ float red_v[kWarp];
-  __shared__ int red_i[kWarp];
-  float v = INFINITY;
-  int idx = 0x7FFFFFFF;
-  for (int c = threadIdx.x; c < n; c += blockDim.x)
-    argmin_merge(v, idx, rd<kSmem>(load + c), c);
-  warp_argmin(v, idx);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = idx;
-  }
-  __syncthreads();
-  const int n_warps = (blockDim.x + kWarp - 1) / kWarp;
-  v = lane < n_warps ? red_v[lane] : INFINITY;
-  idx = lane < n_warps ? red_i[lane] : 0x7FFFFFFF;
-  warp_argmin(v, idx);
-  __syncthreads();  // red_* reusable by the next call
-  return idx;
-}
-
-// Block-wide sum (integer-valued f32: exact in any order below 2^24).
-template <bool kSmem>
-__device__ float block_sum(const float* x, int n) {
-  __shared__ float red[kWarp];
-  float acc = 0.0f;
-  for (int c = threadIdx.x; c < n; c += blockDim.x)
-    acc = __fadd_rn(acc, rd<kSmem>(x + c));
-  acc = warp_sum(acc);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  if (lane == 0) red[warp] = acc;
-  __syncthreads();
-  const int n_warps = (blockDim.x + kWarp - 1) / kWarp;
-  acc = warp_sum(lane < n_warps ? red[lane] : 0.0f);
-  __syncthreads();
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // Single source: ref_porc_snapshot
@@ -357,41 +261,6 @@ struct HHParams {
   float hot_fraction, need_scale;
 };
 
-__device__ __forceinline__ uint64_t sort_key(float v, int i) {
-  if (v == 0.0f) v = 0.0f;  // -0 sorts with +0, as torch's argsort
-  uint32_t u = __float_as_uint(v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<uint64_t>(u) << 32) | static_cast<uint32_t>(i);
-}
-
-// Stable ascending order of view[0..n) into order[0..P), P = sort_n a
-// power of two >= n: bitonic network over (value, index) keys, padding
-// sorted last. Every thread of the CTA must call it.
-template <bool kSmem>
-__device__ void sort_view(const float* base, const float* d, int n,
-                          uint64_t* order, int P) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    order[i] = i < n ? sort_key(__fadd_rn(rd<kSmem>(base + i),
-                                          rd<kSmem>(d + i)), i)
-                     : ~0ull;
-  __syncthreads();
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < P; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint64_t a = __ldcg(order + i), b = __ldcg(order + ixj);
-          if ((a > b) == ((i & k) == 0)) {
-            order[i] = b;
-            order[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 template <bool kSmem>
 __global__ void porc_multisource_hh_kernel(
     const int* __restrict__ keys, const float* __restrict__ base0,
@@ -541,7 +410,12 @@ __global__ void porc_multisource_hh_kernel(
     if (hp.spread) {
       for (int s = 0; s < S; ++s) {
         if (!sneed[s]) continue;  // uniform: read after a barrier
-        sort_view<kSmem>(base, delta + s * n_bins, n_bins, order, hp.sort_n);
+        const float* d = delta + s * n_bins;
+        stable_order(
+            [&](int i) {
+              return __fadd_rn(rd<kSmem>(base + i), rd<kSmem>(d + i));
+            },
+            n_bins, order, hp.sort_n);
         for (int k = threadIdx.x; k < block; k += blockDim.x) {
           const int j = k * S + s;
           if (!flags[j]) continue;
@@ -604,18 +478,6 @@ __global__ void porc_multisource_hh_kernel(
       delta_out[c] = delta[c];
   }
   if (threadIdx.x == 0) *ticks_out = (ticks0 + n_steps) % sync_every;
-}
-
-// Largest dynamic shared memory a launch asks for; above it the state
-// lives in the output buffers in global memory.
-constexpr size_t kSmemLimit = 220 * 1024;
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace

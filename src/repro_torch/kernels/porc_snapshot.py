@@ -17,27 +17,22 @@ reference routes it with jnp too.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from . import build
+from .build import F as _F, I as _I, P as _P
+from .build import check, device_scalar, raise_on
 from .blocks import (HHPolicy, cap_scale, hh_budget_ceiling, hh_chunk,
                      hh_need_scale)
 from .ref import _porc_multisource_scan, ref_porc_snapshot
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernels' library, built at first use, with typed entry points
-    (``c_void_p`` for pointers and the stream, or ctypes would cut them
-    to 32-bit ints)."""
+    """The kernels' library, built at first use, with typed entry
+    points."""
     lib = build.load("porc_snapshot")
     lib.porc_snapshot_launch.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
     lib.porc_snapshot_launch.restype = _I
@@ -47,30 +42,6 @@ def _lib() -> ctypes.CDLL:
                                                + [_F] * 4 + [_P])
     lib.porc_multisource_hh_launch.restype = _I
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
-                         f"shape {tuple(shape)} on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-
-
-def _scalar(x, dtype, device) -> torch.Tensor:
-    """A 0-dim device tensor the kernel reads through a pointer (no
-    host sync when ``x`` already is one)."""
-    if isinstance(x, torch.Tensor):
-        if x.numel() != 1 or x.device != device:
-            raise ValueError(f"expected a scalar on {device}, got shape "
-                             f"{tuple(x.shape)} on {x.device}")
-        return x.reshape(()).to(dtype).contiguous()
-    return torch.full((), x, dtype=dtype, device=device)
-
-
-def _raise_on(err: int, name: str):
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
@@ -87,24 +58,24 @@ def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
                                  chunk=chunk, load0=load0, m0=m0)
     dev = keys.device
     M = keys.shape[0]
-    _check(keys, "keys", torch.int32, (M,), dev)
+    check(keys, "keys", torch.int32, (M,), dev)
     if block < 1 or chunk < 1 or n_bins < 1 or M % block or M >= 2**31:
         raise ValueError(f"porc_snapshot: M={M} must be a multiple of "
                          f"block={block} below 2^31; n_bins={n_bins}, "
                          f"chunk={chunk} must be >= 1")
     if load0 is None:
         load0 = torch.zeros(n_bins, dtype=torch.float32, device=dev)
-    _check(load0, "load0", torch.float32, (n_bins,), dev)
+    check(load0, "load0", torch.float32, (n_bins,), dev)
     if M == 0:
         return torch.empty(0, dtype=torch.int32, device=dev), load0.clone()
-    m0 = _scalar(m0, torch.float32, dev)
+    m0 = device_scalar(m0, torch.float32, dev)
     assign = torch.empty(M, dtype=torch.int32, device=dev)
     load = torch.empty(n_bins, dtype=torch.float32, device=dev)
     err = _lib().porc_snapshot_launch(
         keys.data_ptr(), load0.data_ptr(), m0.data_ptr(), assign.data_ptr(),
         load.data_ptr(), M // block, block, n_bins, chunk,
         cap_scale(eps, n_bins), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "porc_snapshot")
+    raise_on(err, "porc_snapshot")
     porc_snapshot.launches += 1
     return assign, load
 
@@ -132,15 +103,15 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     dev = keys.device
     S = n_sources
     M = keys.shape[0]
-    _check(keys, "keys", torch.int32, (M,), dev)
+    check(keys, "keys", torch.int32, (M,), dev)
     if min(block, chunk, n_bins, S, sync_every) < 1 \
             or M % (S * block) or M >= 2**31:
         raise ValueError(f"porc_multisource_scan: M={M} must be a multiple "
                          f"of S*block={S}*{block} below 2^31; n_bins, "
                          "chunk, sync_every must be >= 1")
-    _check(base0, "base0", torch.float32, (n_bins,), dev)
-    _check(delta0, "delta0", torch.float32, (S, n_bins), dev)
-    ticks0 = _scalar(ticks0, torch.int32, dev)
+    check(base0, "base0", torch.float32, (n_bins,), dev)
+    check(delta0, "delta0", torch.float32, (S, n_bins), dev)
+    ticks0 = device_scalar(ticks0, torch.int32, dev)
     if policy is not None:
         return _multisource_hh(keys, n_bins, S, sync_every, block, eps,
                                chunk, base0, delta0, ticks0, skb0, skd0,
@@ -161,7 +132,7 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         n_bins, chunk, sync_every, cap_scale(eps, n_bins),
         float(np.float32(block / S)),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "porc_multisource_scan")
+    raise_on(err, "porc_multisource_scan")
     porc_multisource_scan.launches += 1
     return assign, base, delta, ticks, None, None
 
@@ -179,8 +150,8 @@ def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
     D, W = policy.depth, policy.width
     if policy.scheme not in ("d", "w") or min(D, W) < 1:
         raise ValueError(f"bad HHPolicy {policy}")
-    _check(skb0, "skb0", torch.float32, (D, W), dev)
-    _check(skd0, "skd0", torch.float32, (S, D, W), dev)
+    check(skb0, "skb0", torch.float32, (D, W), dev)
+    check(skd0, "skd0", torch.float32, (S, D, W), dev)
     if M == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
                 delta0.clone(), ticks0 % sync_every, skb0.clone(),
@@ -212,6 +183,6 @@ def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
         float(f32(block / S)), float(f32(policy.hot_fraction)),
         hh_need_scale(policy, n_bins, eps),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "porc_multisource_scan (HHPolicy)")
+    raise_on(err, "porc_multisource_scan (HHPolicy)")
     porc_multisource_scan.hh_launches += 1
     return assign, base, delta, ticks, skb, skd

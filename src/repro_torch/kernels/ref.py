@@ -1,6 +1,6 @@
-"""Plain torch routing engines (port of the snapshot engines of
-``repro.kernels.ref``): the semantic ground truth the CUDA kernels in
-``porc_snapshot`` are held against, and the engines the CPU runs.
+"""Plain torch routing engines (port of ``repro.kernels.ref``): the
+semantic ground truth the CUDA kernels in ``porc_snapshot`` and
+``porc_assign`` are held against, and the engines the CPU runs.
 
 ``jax.lax.scan`` over blocks becomes a Python loop over blocks, ``vmap``
 over sources a leading source dimension (see ``blocks``). The span
@@ -10,7 +10,8 @@ loop never waits on the device to route.
 
 With an ``HHPolicy`` the engines carry the count-min sketch lanes and
 route with per-key probe budgets (D-/W-Choices). The rank-sequential
-``ref_porc_assign`` ("strict" engine) is not ported yet (ROADMAP).
+``ref_porc_assign`` ("strict" engine) resolves in-block contention
+rank by rank and holds the cap inside a block.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.core.hashing import hash_to_bins
 
-from .backend import resolve_device, resolve_engine
+from .backend import STRICT_ENGINES, resolve_device, resolve_engine
 from .blocks import (  # noqa: F401  (re-exports, as the reference's)
     HHPolicy, hh_budgets, hh_chunk, hh_sketch_init, hh_sketch_query,
     hh_sketch_update, lane_sum, neutral_hh_policy, probe_salts,
@@ -28,6 +29,111 @@ from .blocks import (  # noqa: F401  (re-exports, as the reference's)
     snapshot_cap, view_cap)
 
 _HH_NEEDS_SNAPSHOT = "HHPolicy requires the snapshot engine"
+
+
+# ---------------------------------------------------------------------------
+# PoRC, block-synchronous semantics (the rank-sequential "strict" engine)
+# ---------------------------------------------------------------------------
+
+def _porc_block(load, kblk, cap, n_bins: int, d: int):
+    """Assign one block of keys per source against running loads.
+
+    ``load`` [S, n_bins] f32, ``kblk`` [S, B] int32 keys, ``cap`` [S].
+    Rank-sequential, key-vectorized: at rank r every still-unassigned
+    key bids for its salted choice H(key‖r+1); its position is the
+    number of earlier still-unassigned keys of its block that bid the
+    same bin, and it is accepted iff ``load + position < cap`` with the
+    load read before this rank's adds. Ranks run until every key is
+    placed, at most ``d``; leftovers go round-robin, in block order, over
+    the bins in stable ascending order of the load after the ranks.
+
+    Returns (load after the block [S, n], assignment [S, B] int32).
+    """
+    S, B = kblk.shape
+    dev = load.device
+    load = load.to(torch.float32).clone()
+    assign = torch.full((S, B), -1, dtype=torch.int32, device=dev)
+    unassigned = torch.ones((S, B), dtype=torch.bool, device=dev)
+    walked = torch.zeros(S, dtype=torch.int64, device=dev)
+    bids = torch.zeros(S, dtype=torch.int64, device=dev)
+    earlier = torch.ones((B, B), dtype=torch.bool, device=dev).tril(-1)
+    lane = (torch.arange(S, device=dev, dtype=torch.int64) * n_bins)[:, None]
+    chunk = 8               # ranks whose choices are hashed at once
+    r, left = 0, S * B > 0
+    while r < d and left:
+        bidders = unassigned.sum(1)
+        walked += bidders > 0
+        bids += bidders
+        if r % chunk == 0:
+            cand = hash_to_bins(kblk[..., None],
+                                probe_salts(chunk, start=r + 1, device=dev),
+                                n_bins)                        # [S, B, 8]
+        c = cand[..., r % chunk]                               # [S, B]
+        # position among the bidders (accepted or not) of the same bin
+        rival = (c[:, :, None] == c[:, None, :]) & unassigned[:, None, :]
+        pos = (rival & earlier).sum(2).to(torch.float32)
+        accept = unassigned & (load.gather(1, c.long()) + pos < cap[:, None])
+        assign = torch.where(accept, c, assign)
+        load.view(-1).index_add_(0, (lane + c.long()).reshape(-1),
+                                 accept.to(torch.float32).reshape(-1))
+        unassigned &= ~accept
+        r += 1
+        left = bool(unassigned.any())
+    if left:
+        # probe ceiling: spread leftovers over the least-loaded bins
+        order = torch.argsort(load, dim=1, stable=True).to(torch.int32)
+        leftpos = torch.cumsum(unassigned.to(torch.int64), 1) - 1
+        fallback = order.gather(1, leftpos % n_bins)
+        assign = torch.where(unassigned, fallback, assign)
+        load.view(-1).index_add_(0, (lane + fallback.long()).reshape(-1),
+                                 unassigned.to(torch.float32).reshape(-1))
+    tally = _porc_block.tally
+    ranks, n_bids, n_left = torch.stack(
+        [walked.sum(), bids.sum(), unassigned.sum()]).tolist()
+    tally["blocks"] += S
+    tally["ranks"] += ranks
+    tally["bids"] += n_bids
+    tally["leftovers"] += n_left
+    tally["cuda_calls"] += dev.type == "cuda"
+    return load, assign
+
+
+# What the plain engine walked, summed over calls (source blocks, the
+# ranks each walked, bids, forced leftovers) and its calls on CUDA
+# tensors: ``chip_smoke.py`` reads the work of the kernels' inputs here,
+# and checks that its main path makes no call on the card.
+_porc_block.tally = dict(blocks=0, ranks=0, bids=0, leftovers=0,
+                         cuda_calls=0)
+
+
+def ref_porc_assign(keys: torch.Tensor, n_bins: int, *, d: int | None = None,
+                    block: int = 128, eps: float = 0.05,
+                    load0: torch.Tensor | None = None, m0=0.0):
+    """Rank-sequential strict-cap PoRC (the block-synchronous Alg. 1),
+    the plain engine: each block of ``block`` keys runs ``_porc_block``
+    against the running loads with the cap (1+eps)·m_t/n at the block's
+    end. ``d`` is the probe ceiling (default 4·n_bins, the sequential
+    oracle's). ``m0`` is a float or a 0-dim f32 tensor on the keys'
+    device. Returns (assignment [M] int32, final load [n_bins] f32).
+    """
+    if d is None:
+        d = 4 * n_bins
+    M = keys.shape[0]
+    if M % block:
+        raise ValueError(f"{M} % {block} != 0")
+    dev = keys.device
+    nb = M // block
+    kb = keys.reshape(nb, block)
+    load = (torch.zeros(n_bins, dtype=torch.float32, device=dev)
+            if load0 is None else load0)[None]      # _porc_block copies it
+    m0 = torch.as_tensor(m0, dtype=torch.float32, device=dev)
+    assign = torch.empty((nb, block), dtype=torch.int32, device=dev)
+    bs = torch.arange(nb, dtype=torch.float32, device=dev)
+    for b in range(nb):
+        cap = snapshot_cap(eps, n_bins, m0, bs[b], block).reshape(1)
+        load, a = _porc_block(load, kb[b][None], cap, n_bins, d)
+        assign[b] = a[0]
+    return assign.reshape(-1), load[0]
 
 
 # ---------------------------------------------------------------------------
@@ -144,9 +250,13 @@ def ref_porc_route(keys, n_bins: int, *, block: int = 128,
 
     ``engine="snapshot"`` runs the plain engine ``ref_porc_snapshot``;
     ``"cuda"`` the CUDA kernel ``porc_snapshot.porc_snapshot``
-    (bit-identical); ``"auto"`` follows ``device``. A trailing partial
-    block is routed as power-of-two sub-blocks (``block_spans``). With
-    ``block=1`` both engines are bit-identical to the sequential oracle
+    (bit-identical); ``"auto"`` follows ``device``. ``"strict"`` runs the
+    rank-sequential engine, which never exceeds the (1+eps) cap inside a
+    block: the kernel ``porc_assign.porc_assign`` on CUDA tensors, the
+    plain ``ref_porc_assign`` on CPU tensors (``"strict_ref"``: the
+    plain engine on any device). A trailing partial block is routed as
+    power-of-two sub-blocks (``block_spans``). With ``block=1`` every
+    engine is bit-identical to the sequential oracle
     ``partitioners.power_of_random_choices``.
 
     ``policy`` turns on heavy-hitter-aware probe depths (D/W-Choices)
@@ -159,7 +269,7 @@ def ref_porc_route(keys, n_bins: int, *, block: int = 128,
 
     Returns (assignment [M] int32, new PorcState).
     """
-    if policy is not None and engine == "strict":
+    if policy is not None and engine in STRICT_ENGINES:
         raise ValueError(_HH_NEEDS_SNAPSHOT)
     keys = _as_keys(keys, device)
     dev = keys.device
@@ -186,8 +296,11 @@ def ref_porc_route(keys, n_bins: int, *, block: int = 128,
                                  + lane_sum(ms.sketch_delta))
     if engine == "cuda":
         from .porc_snapshot import porc_snapshot as eng
+    elif engine == "strict_cuda":
+        from .porc_assign import porc_assign as eng
     else:
-        eng = ref_porc_snapshot
+        eng = {"snapshot": ref_porc_snapshot,
+               "strict": ref_porc_assign}[engine]
 
     def step(sub, blk, carry):
         load, routed = carry
@@ -255,18 +368,24 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     ``base + delta[s]`` with the capacity of its local-view mass; every
     ``sync_every`` steps (phase from ``ticks0``) the deltas merge.
 
-    With a ``policy`` each source also classifies its block against its
-    local sketch view ``skb + skd[s]`` at the block boundary, routes with
-    per-key budgets (``snapshot_block_hh``) over a chain of
-    ``hh_chunk`` candidates hashed per block, and adds the block to its
-    sketch lane afterwards; the lanes merge with the loads.
+    ``engine="strict"`` routes each source's block with the
+    rank-sequential ``_porc_block`` against its view instead, the probe
+    ceiling 4·n_bins.
+
+    With a ``policy`` (snapshot engine only) each source also classifies
+    its block against its local sketch view ``skb + skd[s]`` at the block
+    boundary, routes with per-key budgets (``snapshot_block_hh``) over a
+    chain of ``hh_chunk`` candidates hashed per block, and adds the block
+    to its sketch lane afterwards; the lanes merge with the loads.
 
     Returns (assign [M] in stream order, base, delta, ticks, skb, skd);
     ``skb``/``skd`` are None without a policy.
     """
-    if engine != "snapshot":
-        raise ValueError(f"plain multisource engine is 'snapshot', got "
-                         f"{engine!r}")
+    if engine not in ("snapshot", "strict"):
+        raise ValueError(f"plain multisource engine is 'snapshot' or "
+                         f"'strict', got {engine!r}")
+    if policy is not None and engine == "strict":
+        raise ValueError(_HH_NEEDS_SNAPSHOT)
     S = n_sources
     M = keys.shape[0]
     if M % (S * block):
@@ -275,7 +394,9 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     nb = M // (S * block)
     # [nb, S, block]: element [b, s, k] = keys[(b·block + k)·S + s]
     kb = keys.reshape(nb, block, S).permute(0, 2, 1)
-    if policy is None:
+    if engine == "strict":
+        skb = skd = None
+    elif policy is None:
         cand0 = hash_to_bins(kb[..., None], probe_salts(chunk, device=dev),
                              n_bins)                      # [nb, S, block, C]
         skb = skd = None
@@ -295,7 +416,9 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         mass = base.sum() + delta.sum(1)                  # [S]
         cap = view_cap(eps, n_bins, mass, block / S)
         views = base[None, :] + delta                     # [S, n_bins]
-        if policy is None:
+        if engine == "strict":
+            a = _porc_block(views, kb[b], cap, n_bins, 4 * n_bins)[1]
+        elif policy is None:
             a = snapshot_block(views, cap, kb[b], cand0[b], n_bins, block,
                                chunk)
         else:
@@ -369,9 +492,15 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
     own delta``, and the deltas merge into the base every ``sync_every``
     blocks. ``engine`` is ``"snapshot"`` (plain), ``"cuda"`` (the kernel
     ``porc_snapshot.porc_multisource_scan``, bit-identical) or
-    ``"auto"``; the span driver and the ragged tail stay torch ops, as
-    they stay jnp in the reference. With ``n_sources=1, sync_every=1``
-    the result equals ``ref_porc_route``.
+    ``"auto"``; ``"strict"`` resolves each source's in-block contention
+    rank by rank (``_porc_block``; on CUDA tensors the kernel
+    ``porc_assign.porc_multisource_strict``, ``"strict_ref"`` the plain
+    engine on any device) — use it where per-bin loads are a handful of
+    messages, e.g. Fig 11's 100-source / 1000-VW point. The span driver
+    and the ragged tail stay torch ops, as they stay jnp in the
+    reference; the sub-S tail routes with the snapshot engine whatever
+    ``engine`` says, as the reference's does. With ``n_sources=1,
+    sync_every=1`` the result equals ``ref_porc_route``.
 
     ``policy`` turns on heavy-hitter-aware probe depths: each source
     classifies keys against its local sketch view and probes with
@@ -381,7 +510,7 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
     Returns (assignment [M] int32 in stream order, new
     MultiSourcePorcState).
     """
-    if policy is not None and engine == "strict":
+    if policy is not None and engine in STRICT_ENGINES:
         raise ValueError(_HH_NEEDS_SNAPSHOT)
     keys = _as_keys(keys, device)
     dev = keys.device
@@ -405,6 +534,10 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
             a, base, delta, ticks, skb, skd = porc_multisource_scan(
                 span, n_bins, S, sync_every, blk, eps, chunk,
                 base, delta, ticks, skb, skd, policy)
+        elif engine == "strict_cuda":
+            from .porc_assign import porc_multisource_strict
+            a, base, delta, ticks = porc_multisource_strict(
+                span, n_bins, S, sync_every, blk, eps, base, delta, ticks)
         else:
             a, base, delta, ticks, skb, skd = _porc_multisource_scan(
                 span, n_bins, S, sync_every, blk, eps, chunk, engine,

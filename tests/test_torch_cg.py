@@ -151,8 +151,16 @@ def test_route_matches_jax(scheme, kw):
 
 
 def test_route_rejects_unported_schemes():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpart.route("PKG", np.zeros(8, np.int32), 4, device="cpu")
+    """Every scheme of the reference's registry is ported; a name that
+    is not in it raises as in the reference."""
+    keys = keys_for(1, seed=6)[:300]
+    for scheme in jpart.ALL_SCHEMES:
+        same(jpart.route(scheme, jnp.asarray(keys), 24, eps=0.05),
+             tpart.route(scheme, keys, 24, eps=0.05, device="cpu"))
+    with pytest.raises(ValueError, match="unknown scheme"):
+        jpart.route("GREEDY", jnp.asarray(keys), 4)
+    with pytest.raises(ValueError, match="unknown scheme"):
+        tpart.route("GREEDY", keys, 4, device="cpu")
 
 
 def test_simulators_match_jax():

@@ -27,7 +27,7 @@ from repro.kernels.porc_snapshot import porc_multisource_scan as pallas_scan
 from repro_torch.core import cg as tcg
 from repro_torch.core import partitioners as tpart
 from repro_torch.kernels import blocks as tblocks
-from repro_torch.kernels import porc_snapshot as tps
+from repro_torch.kernels.porc_snapshot import porc_multisource_scan
 from repro_torch.kernels import ref as tref
 
 CPU = "cpu"
@@ -250,12 +250,12 @@ def test_scan_wrapper_on_cpu_matches_pallas_interpret():
                         jnp.asarray(base), jnp.asarray(delta), 1,
                         jnp.asarray(skb), jnp.asarray(skd), pj,
                         interpret=True)
-    before = tps.porc_multisource_scan.hh_launches
-    out_t = tps.porc_multisource_scan(t(keys), n, S, 2, block, 0.05, 8,
+    before = porc_multisource_scan.hh_launches
+    out_t = porc_multisource_scan(t(keys), n, S, 2, block, 0.05, 8,
                                       t(base), t(delta),
                                       torch.tensor(1, dtype=torch.int32),
                                       t(skb), t(skd), pt)
-    assert tps.porc_multisource_scan.hh_launches == before
+    assert porc_multisource_scan.hh_launches == before
     for x, y in zip(out_j, out_t):
         same(x, y)
 

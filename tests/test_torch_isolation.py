@@ -24,7 +24,8 @@ import numpy as np
 from repro_torch import convert
 from repro_torch.checkpoint import checkpointer
 from repro_torch.core import cg
-from repro_torch.kernels import porc_snapshot, build
+from repro_torch.core import partitioners
+from repro_torch.kernels import build, ops, porc_assign, porc_snapshot
 from repro_torch.runtime import chaos, fault_tolerance
 from repro_torch.serve import CGRequestRouter, ServingEngine
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
@@ -32,6 +33,13 @@ res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
                          hh_scheme="w"), keys,
              np.full(4, 0.3125, np.float32), device="cpu")
 assert res.assignment.shape == (4000,)
+res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
+                         engine="strict", n_sources=2), keys,
+             np.full(4, 0.3125, np.float32), device="cpu")
+assert res.assignment.shape == (4000,)
+for scheme in partitioners.ALL_SCHEMES:
+    assert partitioners.route(scheme, keys[:500], 16,
+                              device="cpu").shape == (500,)
 eng = ServingEngine([lambda b: b] * 3,
                     CGRequestRouter(3, hh_scheme="w", device="cpu"),
                     chaos=chaos.ChaosSchedule.kill_one(1, at=2))
@@ -56,7 +64,10 @@ def test_subprocess_run_imports_no_jax_or_repro():
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.build",
                                     "repro_torch.serve",
-                                    "repro_torch.core.cg"])
+                                    "repro_torch.core.cg",
+                                    "repro_torch.kernels.porc_assign",
+                                    "repro_torch.kernels.ops",
+                                    "repro_torch.core.partitioners"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -77,6 +88,9 @@ def _imports(path: Path):
 def test_ast_scan_finds_no_jax_or_repro_imports():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(files) >= 15
+    names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files}
+    assert {"kernels/porc_assign.py", "kernels/ops.py",
+            "core/partitioners.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -107,8 +121,11 @@ def test_engine_names():
     assert backend.resolve_engine("cuda", gpu) == "cuda"
     with pytest.raises(ValueError, match="'cuda'"):
         backend.resolve_engine("pallas", cpu)
-    with pytest.raises(NotImplementedError):
-        backend.resolve_engine("strict", cpu)
+    assert backend.resolve_engine("strict", cpu) == "strict"
+    assert backend.resolve_engine("strict", gpu) == "strict_cuda"
+    assert backend.resolve_engine("strict_ref", gpu) == "strict"
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        backend.resolve_engine("strict_cuda", cpu)
     with pytest.raises(ValueError):
         backend.resolve_engine("bogus", cpu)
 
@@ -135,14 +152,27 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_unported_paths_say_so():
+    """The strict engine and every scheme of the registry are ported now:
+    on the CPU they route (the plain engines) and ``cg.run`` runs the
+    strict engine; what is still missing, the mesh tier, says so."""
     keys = np.arange(256, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ref.ref_porc_route(keys, 8, engine="strict", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partitioners.route("PKG", keys, 8, device="cpu")
+    a, st = ref.ref_porc_route(keys, 8, engine="strict", device="cpu")
+    assert a.shape == (256,) and float(st.routed) == 256.0
+    a, st = ref.ref_porc_multisource(keys, 8, 3, engine="strict",
+                                     device="cpu")
+    assert a.shape == (256,) and float(st.routed) == 256.0
+    for scheme in partitioners.ALL_SCHEMES + partitioners.HH_SCHEMES:
+        a = partitioners.route(scheme, keys, 8, device="cpu")
+        assert a.shape == (256,) and int(a.min()) >= 0 and int(a.max()) < 8
+    for scheme in partitioners.BLOCKED_SCHEMES:
+        a = partitioners.route(scheme, keys, 8, block_size=64, device="cpu")
+        assert a.shape == (256,)
     cfg = cg.CGConfig(n_workers=2, alpha=2, slot_len=128, engine="strict")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg.run(cfg, keys, np.ones(2), device="cpu")
+    res = cg.run(cfg, keys, np.ones(2), device="cpu")
+    assert res.assignment.shape == (256,)
+    from repro_torch.core import delegation
+    with pytest.raises(NotImplementedError):
+        delegation.VersionedOwnerMap([0], mesh=object(), device="cpu")
 
 
 def test_chip_smoke_main_path_rehearses_on_cpu():
@@ -158,13 +188,14 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
         sys.path.remove(str(root))
     dev = torch.device("cpu")
     wp = chip_smoke.sample(chip_smoke.WP_TABLE1, 0, 44_000, dev)
-    runs = chip_smoke.main_path(dev, 0, wp, scale=0.002,
-                                check_launches=False)
+    runs, block1_vw = chip_smoke.main_path(dev, 0, wp, scale=0.002,
+                                           check_launches=False)
     assert [r["run"] for r in runs] == ["paper_wp_block128",
                                         "paper_wp_block1",
                                         "deployment_tw_sources8"]
     assert all(r["vw_conserved"] and r["moves"] > 0 for r in runs)
     assert runs[1]["oracle_prefix_identical"] == 20_000
+    assert block1_vw.shape == (20_000,)
 
 
 # every module of the port, for the walk over its public functions
@@ -174,6 +205,7 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.core.metrics", "repro_torch.core.partitioners",
             "repro_torch.core.simulation", "repro_torch.core.streams",
             "repro_torch.kernels.backend", "repro_torch.kernels.blocks",
+            "repro_torch.kernels.ops", "repro_torch.kernels.porc_assign",
             "repro_torch.kernels.porc_snapshot", "repro_torch.kernels.ref",
             "repro_torch.runtime.chaos",
             "repro_torch.runtime.fault_tolerance",
@@ -247,3 +279,37 @@ def test_chip_smoke_hh_and_serving_phases_rehearse_on_cpu():
     assert sv["lost"] == 0 and sv["dropped"] == 0
     assert sv["served"] == sv["submitted"] == 40 * 256
     assert sv["evacuations"] == 1
+
+
+def test_chip_smoke_strict_and_registry_phases_rehearse_on_cpu():
+    """``chip_smoke.py``'s phases (f)-(h) at a tiny scale with the plain
+    engines: (f) the strict engine in ``cg.run`` at block 128 and at block
+    1 (equal to the snapshot engine's block-1 run), (g) the Fig 11 point
+    through the registry with both engines inside the envelope, and (h)
+    every scheme of the registry on the Fig 7/8 table's axes."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    dev = torch.device("cpu")
+    wp = chip_smoke.sample(chip_smoke.WP_TABLE1, 0, 44_000, dev)
+    from repro_torch.configs.paper_stream import PAPER_CG
+    block1 = cg.run(PAPER_CG._replace(block_size=1, engine="auto"),
+                    wp[:10_000], chip_smoke.paper_caps(), device="cpu")
+    runs = chip_smoke.strict_path(dev, wp, block1.vw_assignment,
+                                  scale=0.002, check_launches=False)
+    assert [r["run"] for r in runs] == ["paper_wp_block128_strict",
+                                        "paper_wp_block1_strict"]
+    assert runs[1]["equals_snapshot_block1"] == 10_000
+    assert all(r["vw_conserved"] for r in runs)
+    fig11 = chip_smoke.fig11_path(dev, wp, scale=0.0006,
+                                  check_launches=False)
+    assert [r["run"] for r in fig11] == ["fig11_sources100_strict",
+                                         "fig11_sources100_auto"]
+    assert all(r["max_vw_load"] <= r["envelope"] for r in fig11)
+    rows = chip_smoke.schemes_path(dev, wp, m=3_000, ns=(5, 10),
+                                   check_launches=False)
+    assert len(rows) == 2 * 9
+    assert {r["scheme"] for r in rows} >= set(partitioners.ALL_SCHEMES)

@@ -1,4 +1,6 @@
-"""The CUDA routing kernels against the plain torch engines, on the card.
+"""The CUDA routing kernels against the plain torch engines, on the card:
+the snapshot kernels (``porc_snapshot.cu``) and the rank-sequential
+strict kernels (``porc_assign.cu``).
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels
 build with ``nvcc`` at first use); without a card they skip. The file
@@ -10,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import porc_snapshot as ps
 from repro_torch.kernels import ref
+from repro_torch.kernels.porc_assign import (porc_assign,
+                                             porc_multisource_strict)
+from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
+                                               porc_snapshot)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,10 +59,10 @@ def test_snapshot_kernel_direct_continuation(dev):
     keys = zipf_keys(128 * 20, dev, seed=2)
     load0 = torch.arange(100, device=dev, dtype=torch.float32) % 5
     m0 = load0.sum()
-    before = ps.porc_snapshot.launches
-    a, l = ps.porc_snapshot(keys, 100, block=128, eps=0.05, load0=load0,
+    before = porc_snapshot.launches
+    a, l = porc_snapshot(keys, 100, block=128, eps=0.05, load0=load0,
                             m0=m0)
-    assert ps.porc_snapshot.launches == before + 1
+    assert porc_snapshot.launches == before + 1
     a_p, l_p = ref.ref_porc_snapshot(keys, 100, block=128, eps=0.05,
                                      load0=load0, m0=m0)
     assert torch.equal(a, a_p) and torch.equal(l, l_p)
@@ -89,11 +94,11 @@ def test_multisource_kernel_matches_plain(dev, n_sources, n_bins,
 def test_wrappers_check_their_inputs(dev):
     keys = zipf_keys(256, dev)
     with pytest.raises(ValueError):
-        ps.porc_snapshot(keys.long(), 16, block=128)
+        porc_snapshot(keys.long(), 16, block=128)
     with pytest.raises(ValueError):
-        ps.porc_snapshot(keys[:200], 16, block=128)
+        porc_snapshot(keys[:200], 16, block=128)
     with pytest.raises(ValueError):
-        ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8,
+        porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8,
                                  torch.zeros(16, device=dev),
                                  torch.zeros(3, 16, device=dev), 0)
 
@@ -168,11 +173,11 @@ def test_multisource_hh_kernel_direct_continuation(dev):
         np.float32)).to(dev)
     args = (keys, n, S, 3, block, 0.05, 8, base0, delta0,
             torch.tensor(1, dtype=torch.int32, device=dev), skb0, skd0, pol)
-    before = (ps.porc_multisource_scan.launches,
-              ps.porc_multisource_scan.hh_launches)
-    got = ps.porc_multisource_scan(*args)
-    assert (ps.porc_multisource_scan.launches,
-            ps.porc_multisource_scan.hh_launches) == (before[0],
+    before = (porc_multisource_scan.launches,
+              porc_multisource_scan.hh_launches)
+    got = porc_multisource_scan(*args)
+    assert (porc_multisource_scan.launches,
+            porc_multisource_scan.hh_launches) == (before[0],
                                                       before[1] + 1)
     want = ref._porc_multisource_scan(*args[:7], "snapshot", *args[7:])
     for x, y in zip(got, want):
@@ -184,10 +189,107 @@ def test_hh_wrapper_checks_its_inputs(dev):
     pol = ref.HHPolicy(width=64)
     base, delta = torch.zeros(16, device=dev), torch.zeros(2, 16, device=dev)
     with pytest.raises(ValueError):       # sketch lanes of the wrong width
-        ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
+        porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
                                  torch.zeros(4, 32, device=dev),
                                  torch.zeros(2, 4, 32, device=dev), pol)
     with pytest.raises(ValueError):       # lanes without a policy
-        ps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
+        porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, base, delta, 0,
                                  torch.zeros(4, 64, device=dev),
                                  torch.zeros(2, 4, 64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the strict engine: porc_assign and porc_multisource_strict
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_bins", [8, 100, 480, 1000, 60_000])
+@pytest.mark.parametrize("block", [1, 64, 128])
+def test_assign_kernel_matches_plain(dev, n_bins, block):
+    """Through the span driver: ragged length, the state carried across
+    two calls, and split at a block boundary == one call; 60,000 bins
+    keep the load in global memory; block 1 == the per-message oracle."""
+    keys = zipf_keys(1000 if block == 1 else 128 * 30 + 77, dev)
+    split = 256
+    out = {}
+    for eng in ("strict", "strict_ref"):
+        a1, st = ref.ref_porc_route(keys[:split], n_bins, block=block,
+                                    eps=0.01, engine=eng, device=dev)
+        a2, st = ref.ref_porc_route(keys[split:], n_bins, block=block,
+                                    eps=0.01, state=st, engine=eng,
+                                    device=dev)
+        out[eng] = (torch.cat([a1, a2]), st.load, st.routed)
+    one, st1 = ref.ref_porc_route(keys, n_bins, block=block, eps=0.01,
+                                  engine="strict", device=dev)
+    for x, y, z in zip(out["strict"], out["strict_ref"],
+                       (one, st1.load, st1.routed)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    if block == 1:
+        from repro_torch.core.partitioners import power_of_random_choices
+        assert torch.equal(one, power_of_random_choices(keys, n_bins,
+                                                        eps=0.01, device=dev))
+
+
+@pytest.mark.parametrize("n_bins", [100, 60_000])
+@pytest.mark.parametrize("d", [1, 2])
+def test_assign_kernel_leftover_fallback(dev, n_bins, d):
+    """eps=0 and d ranks leave keys unassigned: the stable-order spread,
+    from a (load0, m0) continuation."""
+    keys = zipf_keys(128 * 12, dev, seed=5)
+    load0 = torch.arange(n_bins, device=dev, dtype=torch.float32) % 3
+    m0 = load0.sum()
+    tally = ref._porc_block.tally
+    left0 = tally["leftovers"]
+    before = porc_assign.launches
+    a, l = porc_assign(keys, n_bins, d=d, block=128, eps=0.0, load0=load0,
+                       m0=m0)
+    assert porc_assign.launches == before + 1
+    a_p, l_p = ref.ref_porc_assign(keys, n_bins, d=d, block=128, eps=0.0,
+                                   load0=load0, m0=m0)
+    assert tally["leftovers"] > left0
+    assert torch.equal(a, a_p) and torch.equal(l, l_p)
+
+
+@pytest.mark.parametrize("n_sources,n_bins,block", [
+    (1, 20, 8), (8, 480, 128), (8, 20, 128), (100, 1000, 8),
+    (100, 1000, 128)])
+@pytest.mark.parametrize("sync_every", [1, 3])
+def test_multisource_strict_kernel_matches_plain(dev, n_sources, n_bins,
+                                                 block, sync_every):
+    """Ragged sub-S tail, the state carried across two calls; (100, 1000,
+    128) keeps base, delta and the bids in global memory."""
+    keys = zipf_keys(n_sources * block * 4 + n_sources * 9 + 1, dev)
+    split = n_sources * block + n_sources // 2 + 1
+    out = {}
+    for eng in ("strict", "strict_ref"):
+        a1, st = ref.ref_porc_multisource(
+            keys[:split], n_bins, n_sources, sync_every=sync_every,
+            block=block, eps=0.01, engine=eng, device=dev)
+        a2, st = ref.ref_porc_multisource(
+            keys[split:], n_bins, n_sources, sync_every=sync_every,
+            block=block, eps=0.01, state=st, engine=eng, device=dev)
+        out[eng] = (torch.cat([a1, a2]), st.base, st.delta, st.routed,
+                    st.ticks)
+    for x, y in zip(out["strict"], out["strict_ref"]):
+        assert torch.equal(x, y)
+
+
+def test_multisource_strict_s1_equals_assign_kernel(dev):
+    keys = zipf_keys(128 * 9 + 5, dev, seed=6)
+    a_m, s_m = ref.ref_porc_multisource(keys, 100, 1, block=128, eps=0.01,
+                                        engine="strict", device=dev)
+    a_r, s_r = ref.ref_porc_route(keys, 100, block=128, eps=0.01,
+                                  engine="strict", device=dev)
+    assert torch.equal(a_m, a_r)
+    assert torch.equal(s_m.base + s_m.delta.sum(0), s_r.load)
+
+
+def test_strict_wrappers_check_their_inputs(dev):
+    keys = zipf_keys(256, dev)
+    with pytest.raises(ValueError):
+        porc_assign(keys.long(), 16, block=128)
+    with pytest.raises(ValueError):
+        porc_assign(keys[:200], 16, block=128)
+    with pytest.raises(ValueError):
+        porc_multisource_strict(keys, 16, 2, 1, 64, 0.05,
+                                torch.zeros(16, device=dev),
+                                torch.zeros(3, 16, device=dev), 0)

@@ -19,7 +19,7 @@ from repro.kernels.porc_snapshot import porc_multisource_scan as pallas_scan
 from repro.kernels.porc_snapshot import porc_snapshot as pallas_snapshot
 from repro.kernels import ref as jref
 from repro_torch.core import partitioners as TP
-from repro_torch.kernels import porc_snapshot as tps
+from repro_torch.kernels.porc_snapshot import porc_multisource_scan, porc_snapshot
 from repro_torch.kernels import ref as tref
 
 
@@ -57,7 +57,7 @@ def test_wrapper_on_cpu_matches_pallas_interpret(n_bins, block):
     keys = zipf_keys(512 if block == 1 else 2048, seed=5)
     a_ref, l_ref = pallas_snapshot(jnp.asarray(keys), n_bins, block=block,
                                      eps=0.05, interpret=True)
-    a, l = tps.porc_snapshot(t(keys), n_bins, block=block, eps=0.05)
+    a, l = porc_snapshot(t(keys), n_bins, block=block, eps=0.05)
     same(a_ref, a)
     same(l_ref, l)
 
@@ -100,8 +100,8 @@ def test_continuation_equals_jax_one_shot():
     n = 32
     keys = zipf_keys(2048, n_keys=500, z=1.2, seed=3)
     a_full, l_full = jref.ref_porc_snapshot(jnp.asarray(keys), n, eps=0.05)
-    a1, l1 = tps.porc_snapshot(t(keys[:1024]), n, eps=0.05)
-    a2, l2 = tps.porc_snapshot(t(keys[1024:]), n, eps=0.05, load0=l1,
+    a1, l1 = porc_snapshot(t(keys[:1024]), n, eps=0.05)
+    a2, l2 = porc_snapshot(t(keys[1024:]), n, eps=0.05, load0=l1,
                                m0=torch.tensor(1024.0))
     same(a_full, torch.cat([a1, a2]))
     same(l_full, l2)
@@ -198,7 +198,7 @@ def test_multisource_scan_wrapper_matches_pallas_interpret():
     a_r, b_r, d_r, k_r, _, _ = pallas_scan(
         jnp.asarray(keys), n_bins, S, 2, block, 0.05, 8, jnp.asarray(base),
         jnp.asarray(delta), 1, interpret=True)
-    a, b, d, k, skb, skd = tps.porc_multisource_scan(
+    a, b, d, k, skb, skd = porc_multisource_scan(
         t(keys), n_bins, S, 2, block, 0.05, 8, t(base), t(delta),
         torch.tensor(1, dtype=torch.int32))
     same(a_r, a)
@@ -220,10 +220,10 @@ def test_multisource_merge_matches_jax():
 
 
 def test_cpu_wrappers_launch_no_kernel():
-    before = (tps.porc_snapshot.launches, tps.porc_multisource_scan.launches)
+    before = (porc_snapshot.launches, porc_multisource_scan.launches)
     keys = t(zipf_keys(256))
-    tps.porc_snapshot(keys, 16, block=64)
-    tps.porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, torch.zeros(16),
+    porc_snapshot(keys, 16, block=64)
+    porc_multisource_scan(keys, 16, 2, 1, 64, 0.05, 8, torch.zeros(16),
                               torch.zeros(2, 16), 0)
-    assert (tps.porc_snapshot.launches,
-            tps.porc_multisource_scan.launches) == before
+    assert (porc_snapshot.launches,
+            porc_multisource_scan.launches) == before

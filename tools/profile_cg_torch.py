@@ -3,11 +3,12 @@
 
     python3 tools/profile_cg_torch.py [--slots 200] [--out profile.json]
 
-Runs three main-path configurations of ``chip_smoke.py`` (the paper's
-setup at block 128, single-source kernel; the Fig 14/15 deployment with
-8 sources, multi-source kernel; the same deployment with W-Choices, the
-HHPolicy kernel) over a window of ``--slots`` slots, after one warm-up
-slot:
+Runs four main-path configurations of ``chip_smoke.py`` (the paper's
+setup at block 128, single-source kernel; the same with
+``engine="strict"``, the rank-sequential ``porc_assign`` kernel; the Fig
+14/15 deployment with 8 sources, multi-source kernel; the same
+deployment with W-Choices, the HHPolicy kernel) over a window of
+``--slots`` slots, after one warm-up slot:
 - once without the profiler: wall time, messages/s, host ms per slot;
 - once under ``torch.profiler``: the device's busy share (kernel time
   over wall time), kernel launches per slot, and the ops that take the
@@ -30,25 +31,19 @@ sys.path.insert(0, str(ROOT))
 
 def configs():
     """(name, CGConfig, capacities, trace spec) of the main paths."""
-    import numpy as np
     import chip_smoke
-    from repro_torch.configs.paper_stream import (CPULIMIT_FRACTION, PAPER_CG,
-                                                  RHO, STORM_SOURCES,
-                                                  STORM_WORKERS)
-    from repro_torch.core import cg, streams
-    caps_a = streams.heterogeneous_capacities(PAPER_CG.n_workers, 3, 5.0) / RHO
-    W = STORM_WORKERS
-    frac = np.concatenate([[CPULIMIT_FRACTION] * 2, np.ones(W - 2)])
-    cfg_b = cg.CGConfig(n_workers=W, alpha=20, eps=0.01, slot_len=5_000,
-                        max_moves_per_slot=16, n_sources=STORM_SOURCES,
-                        engine="auto")
+    from repro_torch.configs.paper_stream import PAPER_CG
+    caps_a = chip_smoke.paper_caps()
+    cfg_b, caps_b, _ = chip_smoke.deployment_config()
     return [("paper_wp_block128", PAPER_CG._replace(block_size=128,
                                                     engine="auto"),
              caps_a, chip_smoke.WP_TABLE1),
-            ("deployment_tw_sources8", cfg_b, frac / frac.sum() / RHO,
-             chip_smoke.TW_TABLE1),
+            ("paper_wp_block128_strict",
+             PAPER_CG._replace(block_size=128, engine="strict"), caps_a,
+             chip_smoke.WP_TABLE1),
+            ("deployment_tw_sources8", cfg_b, caps_b, chip_smoke.TW_TABLE1),
             ("deployment_tw_sources8_wchoices",
-             cfg_b._replace(hh_scheme="WCHOICES"), frac / frac.sum() / RHO,
+             cfg_b._replace(hh_scheme="WCHOICES"), caps_b,
              chip_smoke.TW_TABLE1)]
 
 
