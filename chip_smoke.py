@@ -7,13 +7,15 @@ Phases:
   1. device: requires CUDA; prints the card's name and power limit
      (nvidia-smi);
   2. build: compiles the CUDA kernels from the checkout's sources
-     (``src/repro_torch/kernels/csrc``: ``porc_snapshot.cu`` and
-     ``porc_assign.cu``, one ``nvcc`` each, started together) into
-     ``build/repro_torch_kernels/``;
+     (``src/repro_torch/kernels/csrc``: ``porc_snapshot.cu``,
+     ``porc_assign.cu`` and ``cg_dispatch.cu``, one ``nvcc`` each,
+     started together) into ``build/repro_torch_kernels/``;
   3. kernels: holds ``porc_snapshot``, ``porc_multisource_scan`` and its
      HHPolicy branch, ``porc_assign`` and ``porc_multisource_strict``
      against their plain torch versions on the card, bit for bit, on WP-
-     and TW-profile streams, and times each at the main path's shapes;
+     and TW-profile streams, and ``cg_dispatch`` over the JAX tests' grid
+     and the MoE path's prefill and decode shapes; times each at the main
+     path's shapes;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -42,7 +44,17 @@ Phases:
      schedule (replicas 0 and 1 at 30% from tick 1, replica 3 crashed at
      tick 200 and back at 350), 2,048 TW-profile requests per tick for
      500 ticks, then drained: nothing may be lost;
-  6. prints the ``{"kernels": [...]}`` line and, last, the device line.
+  6. MoE: qwen3-moe-235b-a22b at full width (d 4096, 64 query / 4 KV
+     heads, 128 experts top-8, vocab 151,936) with its depth cut from 94
+     to 8 layers (the reduction: 41 GB of bf16 weights on the 80 GB
+     card), random weights from a seeded ``torch.Generator``:
+     ``prefill_step`` on 8 × 1,024 tokens and 32 ``decode_step``s with
+     router "cg" and with "topk" (prefill tokens/s, decode ms/step,
+     ``drop_frac``, ``max_load_frac``); then ``launch/serve.py``'s
+     ``ServingEngine`` with 4 replicas of the model, one slow, serving
+     64 requests; then the smoke config in f32 on the card against the
+     same weights on the CPU;
+  7. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -50,6 +62,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -78,8 +91,10 @@ def log(*a):
 
 def counters() -> dict:
     """(object, attribute) of every kernel's launch counter, and of the
-    plain strict engine's tally of calls on CUDA tensors."""
+    plain strict engine's and plain dispatch's tallies of calls on CUDA
+    tensors."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.cg_dispatch import cg_dispatch
     from repro_torch.kernels.porc_assign import (porc_assign,
                                                  porc_multisource_strict)
     from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
@@ -91,7 +106,10 @@ def counters() -> dict:
             "porc_assign": (porc_assign, "launches"),
             "porc_multisource_strict": (porc_multisource_strict,
                                         "launches"),
-            "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls")}
+            "cg_dispatch": (cg_dispatch, "launches"),
+            "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls"),
+            "plain_dispatch_on_cuda": (ref.ref_cg_dispatch.tally,
+                                       "cuda_calls")}
 
 
 def zero_counts():
@@ -110,11 +128,13 @@ def read_counts() -> dict:
 def check_counts(name: str, counts: dict, kernel: str | None, dev,
                  check_launches: bool):
     """A main-path run launched its kernel (when it names one), and never
-    ran the plain strict engine on the card."""
+    ran the plain strict engine or the plain dispatch on the card."""
     if check_launches and kernel and counts[kernel] <= 0:
         fail(f"{name}: the main path never launched {kernel}")
     if dev.type == "cuda" and counts["plain_strict_on_cuda"]:
         fail(f"{name}: the plain strict engine ran on CUDA tensors")
+    if dev.type == "cuda" and counts["plain_dispatch_on_cuda"]:
+        fail(f"{name}: the plain cg_dispatch ran on CUDA tensors")
 
 
 def fail(msg: str):
@@ -657,6 +677,142 @@ def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
                 ranks_per_block=work["ranks"] / work["blocks"], **work)
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the MoE dispatch: cg_dispatch
+# ---------------------------------------------------------------------------
+
+def dispatch_inputs(G: int, T: int, E: int, D: int, skew: float, dev,
+                    seed: int):
+    """pref/gates as the router makes them, made on the card: softmax of
+    normal logits with a per-expert bias of scale ``skew`` per group,
+    experts in stable descending order of probability."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((G, T, E), generator=gen, device=dev) \
+        + skew * torch.randn((G, 1, E), generator=gen, device=dev)
+    gates, pref = torch.sort(torch.softmax(logits, -1), dim=-1,
+                             descending=True, stable=True)
+    return (pref[..., :D].to(torch.int32).contiguous(),
+            gates[..., :D].contiguous())
+
+
+def skewed_caps(E: int, base: int, ratio: float = 4.0) -> tuple:
+    """The capacity vector of ``tests/test_cg_dispatch_properties.py``."""
+    w = [ratio ** (-i / max(E - 1, 1)) for i in range(E)]
+    return tuple(max(1, int(round(E * base * wi / sum(w)))) for wi in w)
+
+
+def dispatch_grid():
+    """(label, G, T, E, k, D, block, skew, capacity kwargs): the JAX
+    tests' grid (``tests/test_kernels_dispatch.py``, the scalar and
+    vector sweeps of ``tests/test_cg_dispatch_properties.py``) on three
+    groups, the slice's shapes — prefill G=8 × T=1,024 and decode G=1 ×
+    T=8 over E=128, k=8, D=12, with uniform and ``capacity_skew`` caps —
+    and two that stress the kernel's layout: blocks wider than a CTA
+    (2,048 tokens) and E=16,384 experts (shared memory above 48 KB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.moe.router import expert_capacity_vector
+    moe = get_config("qwen3-moe-235b-a22b").moe
+    skew3 = dataclasses.replace(moe, capacity_skew=3.0)
+    grid = []
+    for T, E, k, D in ((256, 8, 1, 4), (512, 16, 2, 6), (1024, 128, 8, 16),
+                       (128, 4, 2, 4)):
+        grid.append((f"JAX T={T} E={E} k={k} D={D}", 3, T, E, k, D, 128, 2.0,
+                     dict(capacity=max(1, int(1.25 * T * k / E)))))
+    for E, k, cf, block in ((4, 1, 1.0, 64), (8, 2, 1.25, 128),
+                            (16, 2, 1.25, 64), (16, 4, 1.5, 128),
+                            (32, 2, 1.1, 256), (64, 8, 1.25, 128)):
+        grid.append((f"scalar E={E} k={k} cf={cf} block={block}", 3, 512, E,
+                     k, min(E, k + 4), block, 2.0,
+                     dict(capacity=max(1, int(cf * 512 * k / E)))))
+    for E, k, block in ((8, 2, 64), (16, 2, 128), (16, 4, 64), (32, 8, 128)):
+        grid.append((f"vector E={E} k={k} block={block}", 3, 512, E, k,
+                     min(E, k + 4), block, 2.0,
+                     dict(capacities=skewed_caps(
+                         E, max(1, int(1.25 * 512 * k / E))))))
+    for label, G, T in (("prefill", 8, 1024), ("decode", 1, 8)):
+        for skew, caps in ((0.0, expert_capacity_vector(moe, T)),
+                           (2.0, expert_capacity_vector(moe, T)),
+                           (2.0, expert_capacity_vector(skew3, T))):
+            kw = (dict(capacity=caps[0]) if len(set(caps)) == 1
+                  else dict(capacities=caps))
+            grid.append((f"{label} G={G} T={T} skew={skew} "
+                         f"{'uniform' if 'capacity' in kw else 'skewed'}",
+                         G, T, 128, 8, 12, min(128, T), skew, kw))
+    grid.append(("block 2048", 2, 4096, 64, 4, 8, 2048, 2.0,
+                 dict(capacity=int(1.25 * 4096 * 4 / 64))))
+    grid.append(("E=16384", 2, 256, 16384, 2, 6, 128, 1.0, dict(capacity=1)))
+    return grid
+
+
+def check_dispatch(dev) -> float:
+    """cg_dispatch vs ref_cg_dispatch on the card, bit for bit (assign,
+    slot, weights, load) over ``dispatch_grid``; the group axis equals
+    per-group calls."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cg_dispatch import cg_dispatch
+    err = 0.0
+    for i, (label, G, T, E, k, D, block, skew, kw) in enumerate(
+            dispatch_grid()):
+        pref, gates = dispatch_inputs(G, T, E, D, skew, dev, seed=i)
+        args = dict(n_experts=E, k=k, block=block, **kw)
+        got = cg_dispatch(pref, gates, **args)
+        want = ref.ref_cg_dispatch(pref, gates, **args)
+        for what, x, y in zip(("assign", "slot", "weights", "load"), got,
+                              want):
+            err = max(err, _same(f"cg_dispatch {label} {what}", x, y))
+        one = cg_dispatch(pref[-1], gates[-1], **args)
+        for what, x, y in zip(("assign", "slot", "weights", "load"), one,
+                              got):
+            _same(f"cg_dispatch {label} last group alone {what}", x, y[-1])
+        drop = float((got[0] < 0).float().mean())
+        log(f"  cg_dispatch {label}: identical (G={G}, drop frac "
+            f"{drop:.4f})")
+    return err
+
+
+def dispatch_bids(pref, assign, k: int) -> int:
+    """Bids the dispatch makes on these inputs: a token bids at every
+    rank up to the one that gives it its k-th slot, or at all D ranks."""
+    import torch
+    last = assign[..., k - 1:k]
+    at = (pref == last).to(torch.int32).argmax(-1) + 1
+    return int(torch.where(last[..., 0] >= 0, at,
+                           torch.full_like(at, pref.shape[-1])).sum())
+
+
+def time_dispatch(dev, G: int, T: int, skew: float = 0.0) -> dict:
+    """cg_dispatch at a main-path shape of qwen3-moe-235b-a22b (E=128,
+    k=8, D=12, capacity from the router's formula), on router-like
+    inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cg_dispatch import cg_dispatch
+    from repro_torch.moe.router import uniform_capacity
+    moe = get_config("qwen3-moe-235b-a22b").moe
+    E, k = moe.n_experts, moe.top_k
+    D = k + moe.overflow_depth
+    C = uniform_capacity(moe.capacity_factor, T, k, E)
+    pref, gates = dispatch_inputs(G, T, E, D, skew, dev, seed=99)
+    args = dict(n_experts=E, k=k, capacity=C, block=min(128, T))
+    ms = cuda_ms(lambda: cg_dispatch(pref, gates, **args), reps=50)
+    plain_ms = cuda_ms(lambda: ref.ref_cg_dispatch(pref, gates, **args),
+                       reps=3, warmup=1)
+    assign = cg_dispatch(pref, gates, **args)[0]
+    bids = dispatch_bids(pref, assign, k)
+    placed = int((assign >= 0).sum())
+    # pref read at the ranks bid, gates at the bids accepted, caps once;
+    # assign, slot and weights written, the load written per group
+    nbytes = 4 * (bids + placed) + 4 * E + 12 * G * T * k + 4 * G * E
+    # per bid: its position, a load read, an add, a compare, three
+    # writes and the load's add; per token the k-term sum and k divisions
+    ops = bids * 8 + G * T * 2 * k
+    return dict(shape=f"G={G} T={T} E={E} k={k} D={D} C={C} skew={skew}",
+                ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops, bids=bids,
+                drop_frac=float((assign < 0).float().mean()))
+
+
 def bound(t: dict) -> tuple[float, str]:
     by_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     by_ops = t["ops"] / OPS_PER_S * 1e3
@@ -1105,6 +1261,232 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serving a CG-routed MoE model
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def moe_config(n_layers: int | None, smoke: bool = False, router="cg"):
+    """qwen3-moe-235b-a22b at full width with its depth cut to
+    ``n_layers`` (or its smoke config), with ``router`` "cg" or "topk"."""
+    from repro_torch import configs
+    cfg = (configs.get_smoke_config(MOE_ARCH) if smoke
+           else configs.get_config(MOE_ARCH))
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, router=router))
+
+
+def moe_run(model, cfg, tokens, decode_steps: int, dev,
+            check_launches: bool = True) -> dict:
+    """One main-path run: ``prefill_step`` on ``tokens`` [B, S], then
+    ``decode_steps`` greedy ``decode_step``s, with the launch counts
+    zeroed just before and read just after; then (outside the counted
+    window) the prefill's routing telemetry from ``hidden_states``.
+    Checks shapes, finiteness, the cache position and the telemetry's
+    bounds."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe_transformer as mt
+    from repro_torch.models.lm_common import embed_tokens
+    B, S = tokens.shape
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = zoo.prefill_step(model, cfg, {"tokens": tokens},
+                                     pad_to=S + decode_steps)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    first = logits
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms, generated = [], [tok]
+    for _ in range(decode_steps):
+        t0 = time.perf_counter()
+        logits, cache = zoo.decode_step(model, cfg, cache, tok)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(tok)
+    counts = read_counts()
+    name = f"moe {cfg.moe.router} {cfg.n_layers}L B={B} S={S}"
+    check_counts(name, counts, "cg_dispatch", dev, check_launches)
+    ids = torch.cat(generated, dim=1)
+    if first.shape != (B, cfg.vocab) or logits.shape != (B, cfg.vocab) \
+            or not bool(first.isfinite().all()) \
+            or not bool(logits.isfinite().all()):
+        fail(f"{name}: logits not finite of shape {(B, cfg.vocab)}")
+    if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab \
+            or int(cache["pos"]) != S + decode_steps \
+            or cache["k"].shape[2] != S + decode_steps:
+        fail(f"{name}: tokens or cache out of range")
+    with torch.no_grad():
+        x = embed_tokens(model.embed, tokens, cfg.d_model)
+        positions = torch.arange(S, device=dev).expand(B, S)
+        _, aux, z, rm = mt.hidden_states(model, cfg, x, positions)
+        del x
+    drop, maxl = float(rm["drop_frac"]), float(rm["max_load_frac"])
+    placed = float(rm["load"].sum())
+    k = cfg.moe.top_k
+    if not (0.0 <= drop <= 1.0 and 0.0 < maxl <= 1.0) \
+            or abs(placed - S * k * (1 - drop)) > 1e-3 * S * k:
+        fail(f"{name}: routing telemetry out of bounds: drop {drop}, "
+             f"max load frac {maxl}, placed {placed}")
+    steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
+    out = dict(run=name, router=cfg.moe.router, n_layers=cfg.n_layers,
+               batch=B, seq=S, prefill_s=prefill_s,
+               prefill_tokens_per_s=B * S / prefill_s,
+               decode_steps=decode_steps, decode_ms_first=step_ms[0],
+               decode_ms_mean=sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+               decode_ms_median=steady[len(steady) // 2],
+               drop_frac=drop, max_load_frac=maxl, aux_loss=float(aux),
+               z_loss=float(z), launches=counts, generated=ids.cpu())
+    log(f"  {name}: prefill {B}x{S} in {prefill_s:.3f} s = "
+        f"{out['prefill_tokens_per_s']:,.0f} tokens/s; decode "
+        f"{out['decode_ms_mean']:.2f} ms/step mean, "
+        f"{out['decode_ms_median']:.2f} median (first "
+        f"{out['decode_ms_first']:.2f}); prefill drop_frac {drop:.4f}, "
+        f"max_load_frac {maxl:.4f}; cg_dispatch launches "
+        f"{counts['cg_dispatch']}")
+    return out
+
+
+def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
+             seq: int = 1024, decode_steps: int = 32, smoke: bool = False,
+             check_launches: bool = True) -> dict:
+    """(i) qwen3-moe-235b-a22b at full width (d 4096, 64/4 heads, 128
+    experts top-8, vocab 151,936) cut to ``n_layers``, random bf16
+    weights from a seeded ``torch.Generator``: ``moe_run`` with
+    router="cg" and router="topk" (the same weights and tokens); CG must
+    drop no more slots than top-k. (ii) ``launch/serve.py``'s
+    ``ServingEngine`` over the same model with 4 replicas, one slow,
+    serving 64 requests. ``smoke`` takes the smoke config instead, for a
+    rehearsal on the CPU. Returns the report."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    cfg = moe_config(n_layers, smoke)
+    if dev.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = zoo.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_params = zoo.count_params(model)
+    log(f"  {cfg.arch_id}{' (smoke)' if smoke else ''}: {cfg.n_layers} "
+        f"layers, {n_params:,} params ({n_params * 2 / 1e9:.2f} GB bf16) "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    # warm-up (library handles, the allocator's pools), not timed: a
+    # prefill of the same shape and two decode steps
+    _, cache = zoo.prefill_step(model, cfg, {"tokens": tokens}, pad_to=seq + 2)
+    for _ in range(2):
+        _, cache = zoo.decode_step(model, cfg, cache, tokens[:, :1])
+    del cache
+    runs = [moe_run(model, moe_config(n_layers, smoke, router=r), tokens,
+                    decode_steps, dev, check_launches)
+            for r in ("cg", "topk")]
+    if runs[0]["drop_frac"] > runs[1]["drop_frac"]:
+        fail(f"moe: CG dropped more than top-k ({runs[0]['drop_frac']} > "
+             f"{runs[1]['drop_frac']})")
+    log(f"  drop_frac CG {runs[0]['drop_frac']:.4f} vs top-k "
+        f"{runs[1]['drop_frac']:.4f}")
+
+    # (ii) serving: 4 replicas of the model, one slow, 64 requests
+    zero_counts()
+    sv = serve.serve(cfg, model, requests=64, decode_steps=8, replicas=4,
+                     hetero=True, device=dev, seed=seed)
+    counts = read_counts()
+    check_counts("moe serving", counts, "cg_dispatch", dev, check_launches)
+    check_counts("moe serving", counts, "porc_multisource_scan", dev,
+                 check_launches)
+    eng = sv["engine"]
+    served = sum(r.served for r in eng.replicas)
+    if sv["served"] != 64 or served != eng.submitted or eng.in_flight \
+            or sorted(sv["outputs"]) != list(range(64)):
+        fail(f"moe serving: submitted {eng.submitted}, served {served}, "
+             f"in flight {eng.in_flight}")
+    if any(o.shape != (8,) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
+           for o in sv["outputs"].values()):
+        fail("moe serving: generated ids out of range")
+    serving = dict(requests=64, replicas=4, seconds=sv["seconds"],
+                   requests_per_s=sv["requests_per_s"],
+                   latency_mean_s=sv["latency_mean_s"],
+                   latency_p99_s=sv["latency_p99_s"],
+                   per_replica=[r.served for r in eng.replicas],
+                   moves=eng.router.moves, launches=counts)
+    log(f"  serving: 64 requests on 4 replicas (replica 0 slow) in "
+        f"{sv['seconds']:.2f} s = {sv['requests_per_s']:.1f} req/s; "
+        f"latency mean {sv['latency_mean_s'] * 1e3:.1f} ms, p99 "
+        f"{sv['latency_p99_s'] * 1e3:.1f} ms; per replica "
+        f"{serving['per_replica']}; cg_dispatch launches "
+        f"{counts['cg_dispatch']}, router kernel launches "
+        f"{counts['porc_multisource_scan']}")
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+    for r in runs:
+        r.pop("generated")
+    return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, params=n_params,
+                peak_gb=peak, runs=runs, serving=serving)
+
+
+def moe_reference_check(dev, seed: int) -> dict:
+    """The port's path on the card against the same path on the CPU, on
+    a small input: the smoke config in f32 with the same weights, a
+    prefill of [2, 64] tokens and 4 greedy decode steps. The logits
+    agree within 1e-4 relative to their largest magnitude (f32 matmuls
+    round differently on the two devices; TF32 is off), the greedy
+    tokens and the prefill's routing telemetry are equal."""
+    import copy
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe_transformer as mt
+    from repro_torch.models.lm_common import embed_tokens
+    cfg = moe_config(None, smoke=True).replace(dtype="float32")
+    cpu = torch.device("cpu")
+    host = zoo.init_params(cfg, seed, device=cpu)
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32)
+    out = {}
+    for where, model in ((cpu, host), (dev, card)):
+        t = tokens.to(where)
+        logits, cache = zoo.prefill_step(model, cfg, {"tokens": t},
+                                         pad_to=68)
+        seq = [logits]
+        for _ in range(4):
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            logits, cache = zoo.decode_step(model, cfg, cache, tok)
+            seq.append(logits)
+        with torch.no_grad():
+            x = embed_tokens(model.embed, t, cfg.d_model)
+            _, _, _, rm = mt.hidden_states(model, cfg, x, torch.arange(
+                64, device=where).expand(2, 64))
+        out[where.type] = ([x.cpu() for x in seq],
+                           {k: v.cpu() for k, v in rm.items()})
+    err = 0.0
+    for a, b in zip(out["cpu"][0], out[dev.type][0]):
+        rel = float((a - b).abs().max() / a.abs().max())
+        err = max(err, rel)
+        if rel > 1e-4 or not torch.equal(a.argmax(-1), b.argmax(-1)):
+            fail(f"moe reference: the card's logits differ from the CPU's "
+                 f"(max rel {rel})")
+    for name, v in out["cpu"][1].items():
+        if not torch.equal(v, out[dev.type][1][name]):
+            fail(f"moe reference: routing telemetry {name} differs")
+    log(f"  smoke config in f32, card vs CPU: logits max rel err {err:.2e} "
+        "over prefill + 4 decode steps; greedy tokens and routing "
+        "telemetry equal")
+    return dict(max_rel_err=err)
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -1147,6 +1529,7 @@ def main() -> int:
 
     # 1. device
     dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False      # f32 stays f32
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1159,7 +1542,7 @@ def main() -> int:
 
     # 2. build
     log("== build")
-    built = build_all(["porc_snapshot", "porc_assign"])
+    built = build_all(["porc_snapshot", "porc_assign", "cg_dispatch"])
 
     # 3. kernels vs plain, on the card
     log("== kernels vs plain (bit for bit, WP and TW streams)")
@@ -1173,7 +1556,8 @@ def main() -> int:
            "porc_assign": max(check_assign(streams2, dev),
                               check_assign_fallback(wp_keys, dev)),
            "porc_multisource_strict": check_multisource_strict(streams2,
-                                                               dev)}
+                                                               dev),
+           "cg_dispatch": check_dispatch(dev)}
     timing = {
         "porc_snapshot": time_snapshot(wp_keys, dev, n=100, slot=10_000,
                                        block=128),
@@ -1184,11 +1568,15 @@ def main() -> int:
         "porc_assign": time_assign(wp_keys, dev, n=100, slot=10_000,
                                    block=128),
         "porc_multisource_strict": time_multisource_strict(
-            wp_keys, dev, n=1000, S=100, steps=10, block=128)}
+            wp_keys, dev, n=1000, S=100, steps=10, block=128),
+        "cg_dispatch": time_dispatch(dev, G=8, T=1024),
+        "cg_dispatch[decode]": time_dispatch(dev, G=1, T=8)}
     for name, t in timing.items():
         b, by = bound(t)
         extra = (f", {t['ranks_per_block']:.2f} ranks per block"
-                 if "ranks_per_block" in t else "")
+                 if "ranks_per_block" in t else
+                 f", {t['bids']} bids, drop frac {t['drop_frac']:.4f}"
+                 if "bids" in t else "")
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch, "
             f"plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
     log(f"  phases 2-3 took {time.perf_counter() - t_start:.1f} s")
@@ -1214,7 +1602,15 @@ def main() -> int:
         "chaos")
     serving = serving_path(dev, args.seed)
 
-    # 6. report
+    # 6. serving a CG-routed MoE model
+    log(f"== MoE: {MOE_ARCH} at full width, 8 of 94 layers: prefill_step "
+        "+ decode_step (router cg and topk), then launch/serve.py's "
+        "ServingEngine")
+    moe = moe_path(dev, args.seed)
+    moe["reference"] = moe_reference_check(dev, args.seed)
+    log(f"  peak device memory {moe['peak_gb']:.1f} GB")
+
+    # 7. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -1222,6 +1618,8 @@ def main() -> int:
     launches["porc_multisource_scan_hh"] += serving["hh_launches"]
     launches["porc_assign"] += sum(r["porc_assign_launches"]
                                    for r in schemes)
+    launches["cg_dispatch"] = sum(r["launches"]["cg_dispatch"]
+                                  for r in moe["runs"] + [moe["serving"]])
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -1235,7 +1633,9 @@ def main() -> int:
             ("porc_assign", launches["porc_assign"], "porc_assign.cu",
              "src/repro/kernels/porc_assign.py:99"),
             ("porc_multisource_strict", launches["porc_multisource_strict"],
-             "porc_assign.cu", "src/repro/kernels/ref.py:420")):
+             "porc_assign.cu", "src/repro/kernels/ref.py:420"),
+            ("cg_dispatch", launches["cg_dispatch"], "cg_dispatch.cu",
+             "src/repro/kernels/cg_dispatch.py:81")):
         t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
@@ -1248,7 +1648,8 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
-            schemes=schemes, serving=serving, kernels=kernels), indent=1))
+            schemes=schemes, serving=serving, moe=moe, kernels=kernels),
+            indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

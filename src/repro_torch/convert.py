@@ -9,6 +9,8 @@ into the port's state on ``device``, heavy-hitter sketch lanes included
 — so a run begun in one package continues in the other.
 ``router_snapshot`` and ``load_router`` do the same for a serving
 router's whole routing, delegation and controller state.
+``moe_params_from_jax`` loads an MoE model's weights from the JAX
+pytree, so both packages compute the same model.
 """
 from __future__ import annotations
 
@@ -121,3 +123,36 @@ def load_router(router, tree: dict) -> None:
     if router._controller is not None:
         router._controller.state = _from_tree(ControllerState,
                                               tree["controller"], dev)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ``numpy.asarray`` of a
+    JAX bf16 array gives them) as a tensor on ``device``."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def moe_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``MoETransformer`` from the reference's MoE parameter
+    pytree (as nested dicts of numpy arrays): ``embed``, the stacked
+    ``layers/*`` leaves (one [L, ...] array each) and ``final_norm``."""
+    from repro_torch.models.moe_transformer import MoETransformer
+    dev = resolve_device(device)
+    model = MoETransformer(cfg, dev)
+    layers = params_np["layers"]
+    with torch.no_grad():
+        model.embed.copy_(_tensor(params_np["embed"], dev))
+        model.final_norm.scale.copy_(
+            _tensor(params_np["final_norm"]["scale"], dev))
+        for i, block in enumerate(model.layers):
+            for name in ("attn_norm", "attn", "mlp_norm", "moe"):
+                mod, tree = getattr(block, name), layers[name]
+                for pname, param in mod.named_parameters():
+                    leaf = tree
+                    for part in pname.split("."):
+                        leaf = leaf[part]
+                    param.copy_(_tensor(np.asarray(leaf)[i], dev))
+    return model

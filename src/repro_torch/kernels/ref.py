@@ -1,6 +1,8 @@
 """Plain torch routing engines (port of ``repro.kernels.ref``): the
 semantic ground truth the CUDA kernels in ``porc_snapshot`` and
-``porc_assign`` are held against, and the engines the CPU runs.
+``porc_assign`` are held against, and the engines the CPU runs; and
+the MoE dispatch ``ref_cg_dispatch``, which ``cg_dispatch`` is held
+against.
 
 ``jax.lax.scan`` over blocks becomes a Python loop over blocks, ``vmap``
 over sources a leading source dimension (see ``blocks``). The span
@@ -575,3 +577,115 @@ def multisource_merge(state: MultiSourcePorcState) -> MultiSourcePorcState:
         ticks=torch.zeros_like(state.ticks),
         sketch_base=None if skb is None else skb + lane_sum(skd),
         sketch_delta=None if skd is None else torch.zeros_like(skd))
+
+
+# ---------------------------------------------------------------------------
+# CG MoE dispatch
+# ---------------------------------------------------------------------------
+
+def _capacity_vector(capacity, capacities, n_experts: int, dev):
+    """The [E] f32 capacities of a dispatch: ``full(E, capacity)`` or
+    ``capacities``; exactly one must be given. A tuple of equal
+    capacities is made on ``dev`` with ``torch.full`` too: a host-to-device
+    copy of a list would wait for the device's stream at every layer."""
+    if (capacity is None) == (capacities is None):
+        raise ValueError("pass exactly one of capacity / capacities")
+    if capacities is None:
+        return torch.full((n_experts,), capacity, dtype=torch.float32,
+                          device=dev)
+    if isinstance(capacities, (tuple, list)) and len(set(capacities)) == 1:
+        return torch.full((len(capacities),), float(capacities[0]),
+                          dtype=torch.float32, device=dev)
+    return torch.as_tensor(capacities, dtype=torch.float32, device=dev)
+
+
+def _renormalize(wts: torch.Tensor) -> torch.Tensor:
+    """``wts / max(Σ_k wts, 1e-9)`` with the k entries summed left to
+    right, the order the CUDA kernel sums them in."""
+    denom = wts[..., 0]
+    for j in range(1, wts.shape[-1]):
+        denom = denom + wts[..., j]
+    return wts / torch.clamp(denom, min=1e-9)[..., None]
+
+
+def ref_cg_dispatch(pref: torch.Tensor, gates: torch.Tensor, *,
+                    n_experts: int, k: int, capacity: int | None = None,
+                    capacities=None, block: int = 128):
+    """Oracle for ``kernels.cg_dispatch`` (port of the reference's
+    ``ref_cg_dispatch``): capacity-bounded MoE assignment with CG
+    overflow.
+
+    Args:
+      pref: [T, D] or [G, T, D] int32 experts per token sorted by gate
+        desc (D ≥ k gives the overflow depth); a leading group axis routes
+        G independent token groups at once (the reference's ``vmap``).
+        Entries must lie in [0, E).
+      gates: matching f32 gate scores (softmax probs).
+      capacity: uniform per-expert buffer size C (bit-identical to
+        ``capacities=full(E, C)``); capacities: [E] per-expert sizes.
+        Exactly one must be given.
+      block: tokens per block; T must be a multiple of it.
+
+    Per group, blocks run in sequence with the per-expert ``load`` [E]
+    carried. Within a block, rank by rank (r < D): every token with
+    fewer than k accepted slots bids ``pref[t, r]``; its position is the
+    count of earlier tokens of the block that still want a slot and bid
+    the same expert, accepted or not; the bid is accepted iff
+    ``load[e] + pos < cap[e]``, with the load read before this rank's
+    adds, and writes the expert, the slot ``load[e] + pos`` and the gate
+    to column ``nacc``. Weights are renormalized over the placed slots
+    (:func:`_renormalize`).
+
+    Returns (assign [.., T, k] int32, -1 = unplaced; slot [.., T, k]
+    int32; weights [.., T, k] f32; load [.., E] f32).
+    """
+    squeeze = pref.dim() == 2
+    if squeeze:
+        pref, gates = pref[None], gates[None]
+    G, T, D = pref.shape
+    if block < 1 or T % block:
+        raise ValueError(f"T={T} must be a multiple of block={block}")
+    dev = pref.device
+    cap_vec = _capacity_vector(capacity, capacities, n_experts, dev)
+    ref_cg_dispatch.tally["cuda_calls"] += dev.type == "cuda"
+    E = n_experts
+    experts = torch.arange(E, device=dev)
+    cols = torch.arange(k, device=dev)
+    load = torch.zeros((G, E), dtype=torch.float32, device=dev)
+    outs = []
+    for b in range(T // block):
+        p = pref[:, b * block:(b + 1) * block].long()            # [G, B, D]
+        g = gates[:, b * block:(b + 1) * block].to(torch.float32)
+        assign = torch.full((G, block, k), -1, dtype=torch.int32, device=dev)
+        slot = torch.full((G, block, k), -1, dtype=torch.int32, device=dev)
+        wts = torch.zeros((G, block, k), dtype=torch.float32, device=dev)
+        nacc = torch.zeros((G, block), dtype=torch.int64, device=dev)
+        for r in range(D):
+            c = p[:, :, r]                                       # [G, B]
+            want = nacc < k
+            onehot = ((c[..., None] == experts) & want[..., None]).long()
+            pos = torch.cumsum(onehot, dim=1) - onehot
+            mypos = pos.gather(2, c[..., None])[..., 0]
+            myload = load.gather(1, c) + mypos.to(torch.float32)
+            accept = want & (myload < cap_vec[c])
+            col = (cols == nacc[..., None]) & accept[..., None]  # [G, B, k]
+            assign = torch.where(col, c[..., None].to(torch.int32), assign)
+            slot = torch.where(col, myload.to(torch.int32)[..., None], slot)
+            wts = torch.where(col, g[:, :, r, None], wts)
+            load = load + (onehot * accept[..., None]).sum(1).to(torch.float32)
+            nacc = nacc + accept.long()
+        outs.append((assign, slot, _renormalize(wts)))
+    if outs:
+        assign, slot, wts = (torch.cat(x, dim=1) for x in zip(*outs))
+    else:
+        assign = torch.empty((G, 0, k), dtype=torch.int32, device=dev)
+        slot = torch.empty_like(assign)
+        wts = torch.empty((G, 0, k), dtype=torch.float32, device=dev)
+    if squeeze:
+        return assign[0], slot[0], wts[0], load[0]
+    return assign, slot, wts, load
+
+
+# calls on CUDA tensors: the kernel's comparisons make them; a main path
+# must make none
+ref_cg_dispatch.tally = dict(cuda_calls=0)

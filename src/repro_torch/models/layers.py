@@ -1,0 +1,208 @@
+"""Shared neural building blocks, forward only (port of
+``repro.models.layers``).
+
+Plain functions on tensors, and the ``Attention`` module that holds the
+attention sub-layer's weights under the names of the JAX package's
+``attn_params`` dict (``wq``, ``wk``, ``wv``, ``wo``); the functions read
+a module's weights as attributes.
+
+Only what the MoE archs run is here. Left out: ``shard_act`` and the
+activation-sharding rules, which are the identity on one device (the
+port runs on one device; the mesh tier is ROADMAP Queue 1 item 7); the
+``rmsnorm`` custom VJP, which comes with training (ROADMAP Queue 1
+item 8b) — here the norm is a forward function; ``chunked_attention``,
+which ``attention`` would take above ``cfg.attn_chunk_threshold`` and
+which also waits for item 8b: ``attention`` raises there rather than
+take the dense path. ``layernorm``, biases, the sliding window and its
+local/global flag, a query offset, a decode window's lower bound and
+cross-attention's precomputed k/v belong to the dense, audio and VLM
+families (ROADMAP Queue 1 item 10) and come with them.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+_RMS_EPS = 1e-6
+_NEG = -1e30            # the reference's mask value: finite, not -inf
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``cfg.dtype`` ("bfloat16", "float32", ..) as a torch dtype."""
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm with a zero-centred scale, ``(1 + scale)``, in f32 and
+    cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + _RMS_EPS) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device="cuda") -> torch.Tensor:
+    """1 / theta^(2i/d_head) in f32 (theta enters the power as a scalar:
+    no host-to-device copy)."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: [..., S] int. Split halves (not
+    interleaved), in f32, cast back."""
+    d_head = x.shape[-1]
+    inv = rope_freqs(d_head, theta, x.device)              # [Dh/2]
+    ang = positions[..., None].to(torch.float32) * inv     # [..., S, Dh/2]
+    cos = torch.cos(ang)[..., None, :]                     # [..., S, 1, Dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, KV, Dh] -> [B, S, H, Dh] by group repeat."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _scale(d_head: int) -> torch.Tensor:
+    return 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=torch.float32))
+
+
+def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Materialized-scores attention for short sequences.
+
+    q: [B, Sq, H, Dh]; k, v: [B, Sk, KV, Dh]. Returns [B, Sq, H, Dh].
+    """
+    H = q.shape[2]
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * _scale(q.shape[-1])
+    if causal:
+        dev = q.device
+        iq = torch.arange(q.shape[1], device=dev)[:, None]
+        jk = torch.arange(k.shape[1], device=dev)[None, :]
+        s.masked_fill_(iq < jk, _NEG)  # in place: s is this call's own
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid_len) -> torch.Tensor:
+    """Single-position attention against a (padded) KV cache.
+
+    q: [B, 1, H, Dh]; caches: [B, S, KV, Dh]; valid_len: current length
+    (an int or a 0-dim tensor; entries at position ≥ valid_len are
+    masked).
+    """
+    H = q.shape[2]
+    k = _expand_kv(k_cache, H)
+    v = _expand_kv(v_cache, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * _scale(q.shape[-1])
+    idx = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    s.masked_fill_(idx >= valid_len, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+
+def linear(x, w):
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(key: torch.Generator, shape, dtype, scale=None,
+               device="cuda") -> torch.Tensor:
+    """Normal(0, 1) · scale in f32, cast to ``dtype``; the scale defaults
+    to 1/√shape[0], as in the reference (for the stacked expert weights
+    [E, d, f] that is 1/√E). ``key`` is a ``torch.Generator`` on
+    ``device``: it does not give the reference's numbers from the same
+    seed."""
+    if scale is None:
+        scale = shape[0] ** -0.5
+    x = torch.randn(shape, generator=key, dtype=torch.float32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    """The attention sub-layer's weights; ``forward`` is :func:`attention`.
+
+    Built with ``key`` (a ``torch.Generator``) the weights are drawn as
+    ``attn_params`` draws them; without, they are left uninitialized for
+    a caller to load (``repro_torch.convert``).
+    """
+
+    def __init__(self, cfg, dtype, device="cuda", key=None):
+        super().__init__()
+        self.cfg = cfg
+        d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        for name, shape in (("wq", (d, H * Dh)), ("wk", (d, KV * Dh)),
+                            ("wv", (d, KV * Dh)), ("wo", (H * Dh, d))):
+            w = (dense_init(key, shape, dtype, device=device) if key is not None
+                 else torch.empty(shape, dtype=dtype, device=device))
+            self.register_parameter(name, _param(w))
+
+    def forward(self, x, *, positions, causal=True, return_kv=False):
+        return attention(x, self, self.cfg, positions=positions,
+                         causal=causal, return_kv=return_kv)
+
+
+def attn_params(key, cfg, dtype, device="cuda") -> Attention:
+    return Attention(cfg, dtype, device, key=key)
+
+
+def attention(x, p, cfg, *, positions, causal=True, return_kv=False):
+    """Full attention sub-layer: proj → rope → attend → out-proj.
+
+    p: an :class:`Attention`. return_kv: also return the (roped) k/v for
+    KV-cache priming. Returns output [B, S, D] (or (out, (k, v))).
+    """
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if S > cfg.attn_chunk_threshold:
+        raise NotImplementedError(
+            f"sequence {S} > attn_chunk_threshold "
+            f"{cfg.attn_chunk_threshold}: chunked_attention is not ported "
+            "yet (ROADMAP Queue 1 item 8b)")
+    q = linear(x, p.wq).reshape(B, S, H, Dh)
+    k = linear(x, p.wk).reshape(B, S, KV, Dh)
+    v = linear(x, p.wv).reshape(B, S, KV, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = dense_attention(q, k, v, causal=causal)
+    out = linear(out.reshape(B, S, H * Dh), p.wo)
+    if return_kv:
+        return out, (k, v)
+    return out

@@ -1,0 +1,68 @@
+"""Shared LM machinery, forward only: norms, embeddings, the tied
+logits head and KV-cache plumbing (port of ``repro.models.lm_common``).
+
+``chunked_xent`` and ``shift_labels`` come with training (ROADMAP
+Queue 1 item 8b); LayerNorm (``norm_kind="ln"``) with the families that
+use it (item 10): the MoE archs use RMSNorm.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import rmsnorm
+
+
+class Norm(nn.Module):
+    """An RMSNorm's weights: ``scale``, zeros for its ``1 + scale``."""
+
+    def __init__(self, cfg, dtype, device="cuda"):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
+                                              device=device),
+                                  requires_grad=False)
+
+
+def norm(x, p: Norm, cfg):
+    return rmsnorm(x, p.scale)
+
+
+def norm_params(cfg, dtype, device="cuda") -> Norm:
+    return Norm(cfg, dtype, device)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 d_model: int) -> torch.Tensor:
+    """Rows of the table, scaled by √d_model (an f32 square root) in the
+    activation dtype."""
+    x = embed[tokens.long()]
+    root = torch.sqrt(torch.tensor(float(d_model), dtype=torch.float32))
+    return x * root.to(x.dtype)
+
+
+def last_logits(x_last: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Decode-step logits from the tied embedding, in f32:
+    x_last [B, D] → [B, V]."""
+    return x_last.to(torch.float32) @ embed.to(torch.float32).T
+
+
+def pad_cache_seq(kv: torch.Tensor, pad_to: int | None, axis: int = 2):
+    """Zero-pad a stacked KV cache [..., S, KV, Dh] along seq to pad_to
+    (headroom for decode continuation)."""
+    if pad_to is None or kv.shape[axis] >= pad_to:
+        return kv
+    shape = list(kv.shape)
+    shape[axis] = pad_to - kv.shape[axis]
+    return torch.cat([kv, kv.new_zeros(shape)], dim=axis)
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
+    """Write [B, n, KV, Dh] at position ``pos`` (an int or a 0-dim
+    tensor) of [B, S, KV, Dh], into new tensors. As the reference's
+    ``dynamic_update_slice``, the start is clamped to [0, S - n]."""
+    S, n = k_cache.shape[1], k_new.shape[1]
+    start = torch.clamp(torch.as_tensor(pos, device=k_cache.device), 0, S - n)
+    idx = start.long() + torch.arange(n, device=k_cache.device)
+    k_cache = k_cache.index_copy(1, idx, k_new.to(k_cache.dtype))
+    v_cache = v_cache.index_copy(1, idx, v_new.to(v_cache.dtype))
+    return k_cache, v_cache

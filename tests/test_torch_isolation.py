@@ -26,8 +26,13 @@ from repro_torch.checkpoint import checkpointer
 from repro_torch.core import cg
 from repro_torch.core import partitioners
 from repro_torch.kernels import build, ops, porc_assign, porc_snapshot
+from repro_torch.kernels.cg_dispatch import cg_dispatch
 from repro_torch.runtime import chaos, fault_tolerance
 from repro_torch.serve import CGRequestRouter, ServingEngine
+from repro_torch import configs
+from repro_torch.launch import serve
+from repro_torch.models import model_zoo, moe_transformer
+from repro_torch.moe import route
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
 res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
                          hh_scheme="w"), keys,
@@ -47,6 +52,16 @@ for _ in range(4):
     eng.submit_batch(keys[:64], list(keys[:64]))
     eng.step()
 assert eng.submitted == sum(r.served for r in eng.replicas) + eng.in_flight
+cfg = configs.get_smoke_config("phi3.5-moe-42b-a6.6b")
+model = model_zoo.init_params(cfg, 0, device="cpu")
+logits, cache = model_zoo.prefill_step(model, cfg,
+                                       {"tokens": keys[:64].reshape(2, 32)},
+                                       pad_to=33)
+logits, cache = model_zoo.decode_step(model, cfg, cache,
+                                      logits.argmax(-1)[:, None])
+assert logits.shape == (2, cfg.vocab) and int(cache["pos"]) == 33
+out = serve.serve(cfg, model, requests=8, decode_steps=2, device="cpu")
+assert out["served"] == 8 and cg_dispatch.launches == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -67,7 +82,15 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.core.cg",
                                     "repro_torch.kernels.porc_assign",
                                     "repro_torch.kernels.ops",
-                                    "repro_torch.core.partitioners"])
+                                    "repro_torch.core.partitioners",
+                                    "repro_torch.kernels.cg_dispatch",
+                                    "repro_torch.moe",
+                                    "repro_torch.moe.layer",
+                                    "repro_torch.models.moe_transformer",
+                                    "repro_torch.models.model_zoo",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.configs",
+                                    "repro_torch.convert"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -90,7 +113,13 @@ def test_ast_scan_finds_no_jax_or_repro_imports():
     assert len(files) >= 15
     names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files}
     assert {"kernels/porc_assign.py", "kernels/ops.py",
-            "core/partitioners.py"} <= names
+            "core/partitioners.py", "kernels/cg_dispatch.py",
+            "configs/base.py", "configs/qwen3_moe_235b_a22b.py",
+            "configs/phi35_moe_42b_a6_6b.py", "models/layers.py",
+            "models/lm_common.py", "models/sp_decode.py",
+            "models/transformer.py", "models/moe_transformer.py",
+            "models/model_zoo.py", "moe/router.py", "moe/layer.py",
+            "launch/serve.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -135,8 +164,12 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device is present")
     keys = np.arange(256, dtype=np.int32)
     cfg = cg.CGConfig(n_workers=2, alpha=2, slot_len=128)
+    from repro_torch import configs
     from repro_torch.core import controller, delegation, streams
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo, moe_transformer
     from repro_torch.serve import CGRequestRouter
+    moe_cfg = configs.get_smoke_config("qwen3-moe-235b-a22b")
     for call in (lambda: cg.run(cfg, keys, np.ones(2)),
                  lambda: ref.ref_porc_route(keys, 8),
                  lambda: ref.ref_porc_multisource(keys, 8, 2),
@@ -146,7 +179,12 @@ def test_cuda_device_without_cuda_raises():
                  lambda: delegation.init_queues(4),
                  lambda: controller.init_controller(
                      controller.ControllerConfig(n_workers=4)),
-                 lambda: streams.sample_zipf_stream(0, 10, 5, 1.1)):
+                 lambda: streams.sample_zipf_stream(0, 10, 5, 1.1),
+                 lambda: model_zoo.init_params(moe_cfg, 0),
+                 lambda: moe_transformer.init_params(moe_cfg, 0),
+                 lambda: model_zoo.init_cache(moe_cfg, 2, 16),
+                 lambda: model_zoo.metric_zeros(moe_cfg),
+                 lambda: serve.main(["--requests", "4"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -209,7 +247,12 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.kernels.porc_snapshot", "repro_torch.kernels.ref",
             "repro_torch.runtime.chaos",
             "repro_torch.runtime.fault_tolerance",
-            "repro_torch.serve.engine")
+            "repro_torch.serve.engine", "repro_torch.kernels.cg_dispatch",
+            "repro_torch.models.layers", "repro_torch.models.lm_common",
+            "repro_torch.models.transformer",
+            "repro_torch.models.moe_transformer",
+            "repro_torch.models.model_zoo", "repro_torch.moe.layer",
+            "repro_torch.moe.router", "repro_torch.launch.serve")
 
 
 def _public_callables():
@@ -248,7 +291,13 @@ def test_no_public_entry_point_defaults_to_the_cpu():
                  "repro_torch.core.delegation.init_state",
                  "repro_torch.core.streams.sample_trace",
                  "repro_torch.serve.engine.CGRequestRouter",
-                 "repro_torch.core.controller.DelegationController"):
+                 "repro_torch.core.controller.DelegationController",
+                 "repro_torch.models.moe_transformer.init_params",
+                 "repro_torch.models.moe_transformer.MoETransformer",
+                 "repro_torch.models.model_zoo.init_cache",
+                 "repro_torch.models.layers.Attention",
+                 "repro_torch.moe.layer.MoEFFN",
+                 "repro_torch.launch.serve.serve"):
         assert must in with_device, must
 
 

@@ -1,6 +1,7 @@
 """The CUDA routing kernels against the plain torch engines, on the card:
-the snapshot kernels (``porc_snapshot.cu``) and the rank-sequential
-strict kernels (``porc_assign.cu``).
+the snapshot kernels (``porc_snapshot.cu``), the rank-sequential
+strict kernels (``porc_assign.cu``) and the MoE dispatch
+(``cg_dispatch.cu``).
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels
 build with ``nvcc`` at first use); without a card they skip. The file
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.cg_dispatch import cg_dispatch
 from repro_torch.kernels.porc_assign import (porc_assign,
                                              porc_multisource_strict)
 from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
@@ -293,3 +295,98 @@ def test_strict_wrappers_check_their_inputs(dev):
         porc_multisource_strict(keys, 16, 2, 1, 64, 0.05,
                                 torch.zeros(16, device=dev),
                                 torch.zeros(3, 16, device=dev), 0)
+
+
+# ---------------------------------------------------------------------------
+# cg_dispatch
+# ---------------------------------------------------------------------------
+
+def routing(G, T, E, D, skew, dev, seed=0):
+    """Router-like pref/gates made on the card (stable descending order
+    of softmax probabilities with a per-expert bias of scale skew)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((G, T, E), generator=gen, device=dev) \
+        + skew * torch.randn((G, 1, E), generator=gen, device=dev)
+    gates, pref = torch.sort(torch.softmax(logits, -1), dim=-1,
+                             descending=True, stable=True)
+    return (pref[..., :D].to(torch.int32).contiguous(),
+            gates[..., :D].contiguous())
+
+
+@pytest.mark.parametrize("G,T,E,k,D,block,cf", [
+    (1, 256, 8, 1, 4, 128, 1.25), (3, 512, 16, 2, 6, 64, 1.25),
+    (2, 1024, 128, 8, 16, 128, 1.25), (3, 128, 4, 2, 4, 128, 1.0),
+    (2, 512, 32, 2, 6, 256, 1.1), (8, 1024, 128, 8, 12, 128, 1.25),
+    (1, 8, 128, 8, 12, 8, 1.25), (2, 4096, 64, 4, 8, 2048, 1.25),
+    (2, 256, 16384, 2, 6, 128, 1.0)])
+@pytest.mark.parametrize("skew", [0.0, 2.0])
+def test_dispatch_kernel_matches_plain(dev, G, T, E, k, D, block, cf, skew):
+    """Bit for bit, scalar capacity: the JAX tests' shapes, the MoE path's
+    prefill (8 × 1,024) and decode (1 × 8) shapes over 128 experts, a
+    block wider than a CTA and E=16,384 (shared memory above 48 KB)."""
+    pref, gates = routing(G, T, E, D, skew, dev, seed=G + T + E)
+    kw = dict(n_experts=E, k=k, block=block,
+              capacity=max(1, int(cf * T * k / E)))
+    before = cg_dispatch.launches
+    got = cg_dispatch(pref, gates, **kw)
+    assert cg_dispatch.launches == before + 1
+    want = ref.ref_cg_dispatch(pref, gates, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("E,k,ratio", [(8, 2, 4.0), (16, 4, 4.0),
+                                       (128, 8, 4.0), (128, 8, 1.5)])
+def test_dispatch_kernel_capacity_vector(dev, E, k, ratio):
+    """Per-expert capacities (the skewed profile of the JAX tests), on a
+    group axis and without one; the scalar path equals a uniform
+    vector."""
+    T, D = 512, min(E, k + 4)
+    base = max(1, int(1.25 * T * k / E))
+    w = [ratio ** (-i / (E - 1)) for i in range(E)]
+    caps = tuple(max(1, int(round(E * base * wi / sum(w)))) for wi in w)
+    pref, gates = routing(3, T, E, D, 2.0, dev, seed=E)
+    got = cg_dispatch(pref, gates, n_experts=E, k=k, capacities=caps)
+    want = ref.ref_cg_dispatch(pref, gates, n_experts=E, k=k,
+                               capacities=caps)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    one = cg_dispatch(pref[1], gates[1], n_experts=E, k=k, capacities=caps)
+    for x, y in zip(one, got):
+        assert torch.equal(x, y[1])
+    a = cg_dispatch(pref, gates, n_experts=E, k=k, capacity=base)
+    b = cg_dispatch(pref, gates, n_experts=E, k=k,
+                    capacities=torch.full((E,), float(base), device=dev))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_moe_route_launches_the_dispatch_kernel(dev):
+    """The router on CUDA tensors goes through the kernel, once per call
+    for all groups, and never through the plain version."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.moe.router import route
+    moe = get_smoke_config("qwen3-moe-235b-a22b").moe
+    x = torch.randn((4, 128, 64), device=dev)
+    w = torch.randn((64, moe.n_experts), device=dev) * 0.3
+    launches, plain = cg_dispatch.launches, ref.ref_cg_dispatch.tally[
+        "cuda_calls"]
+    r = route(x, w, moe)
+    assert cg_dispatch.launches == launches + 1
+    assert ref.ref_cg_dispatch.tally["cuda_calls"] == plain
+    r_cpu = route(x.cpu(), w.cpu(), moe)
+    for f in ("assign", "slot", "load"):
+        assert torch.equal(getattr(r, f).cpu(), getattr(r_cpu, f))
+
+
+def test_dispatch_wrapper_checks_its_inputs(dev):
+    pref, gates = routing(2, 256, 16, 6, 1.0, dev)
+    with pytest.raises(ValueError):
+        cg_dispatch(pref.long(), gates, n_experts=16, k=2, capacity=8)
+    with pytest.raises(ValueError):
+        cg_dispatch(pref[:, :200], gates[:, :200], n_experts=16, k=2,
+                    capacity=8)
+    with pytest.raises(ValueError, match="exactly one"):
+        cg_dispatch(pref, gates, n_experts=16, k=2)
+    with pytest.raises(ValueError):
+        cg_dispatch(pref, gates, n_experts=40_000, k=2, capacity=8)
