@@ -8,14 +8,18 @@ Phases:
      (nvidia-smi);
   2. build: compiles the CUDA kernels from the checkout's sources
      (``src/repro_torch/kernels/csrc``: ``porc_snapshot.cu``,
-     ``porc_assign.cu`` and ``cg_dispatch.cu``, one ``nvcc`` each,
-     started together) into ``build/repro_torch_kernels/``;
+     ``porc_assign.cu``, ``cg_dispatch.cu`` and ``ssd_scan.cu``, one
+     ``nvcc`` each, started together) into
+     ``build/repro_torch_kernels/``;
   3. kernels: holds ``porc_snapshot``, ``porc_multisource_scan`` and its
      HHPolicy branch, ``porc_assign`` and ``porc_multisource_strict``
      against their plain torch versions on the card, bit for bit, on WP-
-     and TW-profile streams, and ``cg_dispatch`` over the JAX tests' grid
-     and the MoE path's prefill and decode shapes; times each at the main
-     path's shapes;
+     and TW-profile streams, ``cg_dispatch`` over the JAX tests' grid
+     and the MoE path's prefill and decode shapes, and ``ssd_scan`` (y
+     and the final state) against the sequential ``ref_ssd_scan`` and
+     the plain ``ssd_chunked`` within the JAX tests' tolerances, over
+     their grid, chunk invariance, C ≡ 0 and both Mamba-2 models'
+     prefill shapes; times each at the main path's shapes;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -54,7 +58,19 @@ Phases:
      ``ServingEngine`` with 4 replicas of the model, one slow, serving
      64 requests; then the smoke config in f32 on the card against the
      same weights on the CPU;
-  7. prints the ``{"kernels": [...]}`` line and, last, the device line.
+  7. Mamba-2: (k) zamba2-2.7b at full size (54 Mamba-2 layers in 9
+     groups, d 2,560, 80 SSD heads of 64, N 64, a shared attention block
+     of 32 heads × 80 and d_ff 10,240, vocab 32,000) and (l) mamba2-130m
+     at full size (24 layers, d 768, 24 heads, N 128), random bf16
+     weights from a seeded ``torch.Generator``: ``prefill_step`` on 8
+     prompts of 1,024 (k) or 4,096 (l) tokens and 32 greedy
+     ``decode_step``s, one ``ssd_scan`` launch per SSM layer, and
+     ``prefill(prompt[:-1])`` + ``decode(last)`` against
+     ``prefill(prompt)``; (m) ``launch/serve.py``'s ``ServingEngine``
+     over (k)'s model with 4 replicas, one slow, serving 64 requests;
+     (n) both smoke configs in f32 on the card against the same weights
+     on the CPU;
+  8. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -91,10 +107,12 @@ def log(*a):
 
 def counters() -> dict:
     """(object, attribute) of every kernel's launch counter, and of the
-    plain strict engine's and plain dispatch's tallies of calls on CUDA
-    tensors."""
+    plain strict engine's, plain dispatch's and plain SSD scan's tallies
+    of calls on CUDA tensors."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cg_dispatch import cg_dispatch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
     from repro_torch.kernels.porc_assign import (porc_assign,
                                                  porc_multisource_strict)
     from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
@@ -107,9 +125,11 @@ def counters() -> dict:
             "porc_multisource_strict": (porc_multisource_strict,
                                         "launches"),
             "cg_dispatch": (cg_dispatch, "launches"),
+            "ssd_scan": (ssd_scan, "launches"),
             "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls"),
             "plain_dispatch_on_cuda": (ref.ref_cg_dispatch.tally,
-                                       "cuda_calls")}
+                                       "cuda_calls"),
+            "plain_ssd_on_cuda": (ssd_chunked.tally, "cuda_calls")}
 
 
 def zero_counts():
@@ -128,13 +148,16 @@ def read_counts() -> dict:
 def check_counts(name: str, counts: dict, kernel: str | None, dev,
                  check_launches: bool):
     """A main-path run launched its kernel (when it names one), and never
-    ran the plain strict engine or the plain dispatch on the card."""
+    ran the plain strict engine, the plain dispatch or the plain SSD scan
+    on the card."""
     if check_launches and kernel and counts[kernel] <= 0:
         fail(f"{name}: the main path never launched {kernel}")
     if dev.type == "cuda" and counts["plain_strict_on_cuda"]:
         fail(f"{name}: the plain strict engine ran on CUDA tensors")
     if dev.type == "cuda" and counts["plain_dispatch_on_cuda"]:
         fail(f"{name}: the plain cg_dispatch ran on CUDA tensors")
+    if dev.type == "cuda" and counts["plain_ssd_on_cuda"]:
+        fail(f"{name}: the plain ssd_chunked ran on CUDA tensors")
 
 
 def fail(msg: str):
@@ -813,6 +836,160 @@ def time_dispatch(dev, G: int, T: int, skew: float = 0.0) -> dict:
                 drop_frac=float((assign < 0).float().mean()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 3, the Mamba-2 scan: ssd_scan
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels_ssd.py's bounds on max|a - b| / max|a|: against the
+# sequential recurrence in f32, against the plain chunked scan in f32,
+# and in bf16 (both rounded to bf16 at the end)
+SSD_TOL = {"ref": 1e-4, "chunked": 1e-5, "bf16": 3e-2}
+
+
+def ssd_inputs(B: int, L: int, H: int, P: int, G: int, N: int, dev,
+               dtype=None, seed: int = 0):
+    """The inputs of ``tests/test_kernels_ssd.py::_inputs``, drawn on the
+    card: x normal; dt = softplus(normal)·0.1 (f32); A = −exp(0.5·normal);
+    B, C normal/√N; x, B and C in ``dtype`` (f32 by default)."""
+    import torch
+    dtype = dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(B, L, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(normal(B, L, H)) * 0.1
+    A = -torch.exp(normal(H) * 0.5)
+    Bm = (normal(B, L, G, N) / N ** 0.5).to(dtype)
+    Cm = (normal(B, L, G, N) / N ** 0.5).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def relerr(a, b) -> float:
+    """max|a − b| / max|a|, the tests' measure."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (a.abs().max() + 1e-9))
+
+
+def ssd_model_shapes():
+    """(arch, B, L, H, P, G, N, Q) of the SSD scan in phase 7's prefills:
+    zamba2-2.7b on 8 × 1,024 tokens, mamba2-130m on 8 × 4,096."""
+    from repro_torch.configs import get_config
+    shapes = []
+    for arch, L in (("zamba2-2.7b", 1024), ("mamba2-130m", 4096)):
+        cfg = get_config(arch)
+        s = cfg.ssm
+        H = s.expand * cfg.d_model // s.head_dim
+        shapes.append((arch, 8, L, H, s.head_dim, s.n_groups, s.d_state,
+                       s.chunk))
+    return shapes
+
+
+def check_ssd(dev, model_shapes=None) -> dict:
+    """ssd_scan (y and the final state) against ``ref_ssd_scan``, the
+    exact sequential recurrence, and against the plain ``ssd_chunked``,
+    on the card, within ``SSD_TOL``: the JAX tests' grid
+    (``tests/test_kernels_ssd.py``) in f32 and bf16, chunk invariance
+    Q ∈ {16, 32, 64, 128}, C ≡ 0 (y exactly 0), a chunk that divides
+    neither 16 nor 128 (Q = 93, as ``pick_chunk`` gives a 1,023-token
+    prompt), and the two models' prefill shapes in f32 and bf16. Returns
+    the largest absolute and relative errors against the plain version."""
+    import torch
+    from repro_torch.kernels.ref import ref_ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    bf16 = torch.bfloat16
+    worst = dict(max_abs_err=0.0, max_rel_err=0.0)
+
+    def hold(label, inputs, Q, against_ref=True):
+        x = inputs[0]
+        before = ssd_scan.launches
+        y, h = ssd_scan(*inputs, chunk=Q, return_state=True)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        if not (bool(y.isfinite().all()) and bool(h.isfinite().all())):
+            fail(f"ssd_scan {label}: not finite")
+        if not torch.equal(ssd_scan(*inputs, chunk=Q), y):
+            fail(f"ssd_scan {label}: y differs without return_state")
+        if x.is_cuda and ssd_scan.launches != before + 2:
+            fail(f"ssd_scan {label}: the kernel did not launch")
+        yc, hc = ssd_chunked(*inputs, Q, return_state=True)
+        tol = SSD_TOL["chunked" if x.dtype == torch.float32 else "bf16"]
+        errs = [relerr(yc, y), relerr(hc, h)]
+        worst["max_abs_err"] = max(worst["max_abs_err"],
+                                   float((yc.float() - y.float()).abs().max()),
+                                   float((hc - h).abs().max()))
+        worst["max_rel_err"] = max(worst["max_rel_err"], *errs)
+        msg = f"vs ssd_chunked y {errs[0]:.2e} h {errs[1]:.2e}"
+        if max(errs) >= tol:
+            fail(f"ssd_scan {label}: {msg} (bound {tol})")
+        if against_ref:
+            yr, hr = ref_ssd_scan(*inputs, return_state=True)
+            tol = SSD_TOL["ref" if x.dtype == torch.float32 else "bf16"]
+            ref_errs = [relerr(yr, y), relerr(hr, h)]
+            msg += f"; vs ref_ssd_scan y {ref_errs[0]:.2e} h {ref_errs[1]:.2e}"
+            if max(ref_errs) >= tol:
+                fail(f"ssd_scan {label}: {msg} (bound {tol})")
+        log(f"  ssd_scan {label}: {msg}")
+        return y
+
+    grid = [(2, 128, 4, 32, 1, 64, 32), (1, 256, 8, 64, 2, 128, 64),
+            (1, 256, 6, 16, 3, 32, 128)]
+    for i, (B, L, H, P, G, N, Q) in enumerate(grid):
+        hold(f"JAX grid B={B} L={L} H={H} P={P} G={G} N={N} Q={Q}",
+             ssd_inputs(B, L, H, P, G, N, dev, seed=i), Q)
+    inputs = ssd_inputs(1, 128, 4, 16, 1, 32, dev, seed=5)
+    y128 = ssd_scan(*inputs, chunk=128)
+    for Q in (16, 32, 64, 128):
+        yq = hold(f"chunk invariance Q={Q}", inputs, Q)
+        if relerr(y128, yq) >= SSD_TOL["ref"]:
+            fail(f"ssd_scan: chunk {Q} differs from chunk 128 "
+                 f"({relerr(y128, yq):.2e})")
+    hold("bf16 B=1 L=128 H=4 P=32 N=64 Q=64",
+         ssd_inputs(1, 128, 4, 32, 1, 64, dev, bf16, seed=6), 64)
+    hold("Q=93 L=1023 H=8 P=64 N=64",
+         ssd_inputs(2, 1023, 8, 64, 1, 64, dev, seed=7), 93)
+    x, dt, A, Bm, Cm = ssd_inputs(1, 64, 2, 8, 1, 16, dev, seed=8)
+    y, h = ssd_scan(x, dt, A, Bm, torch.zeros_like(Cm), chunk=16,
+                    return_state=True)
+    if float(y.abs().max()) != 0.0 or float(h.abs().max()) == 0.0:
+        fail("ssd_scan: C ≡ 0 must give y exactly 0 (and a state)")
+    log("  ssd_scan C ≡ 0: y exactly 0")
+    for arch, B, L, H, P, G, N, Q in model_shapes or ssd_model_shapes():
+        for dtype in (torch.float32, bf16):
+            hold(f"{arch} prefill B={B} L={L} H={H} P={P} N={N} Q={Q} "
+                 f"{str(dtype).split('.')[1]}",
+                 ssd_inputs(B, L, H, P, G, N, dev, dtype, seed=9), Q)
+    return worst
+
+
+def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
+             N: int, Q: int) -> dict:
+    """ssd_scan at a prefill shape of the main path, bf16 as the model
+    runs it, with the final state (as ``prefill_step`` asks); the plain
+    ``ssd_chunked`` on the same inputs."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=11)
+    ms = cuda_ms(lambda: ssd_scan(*inputs, chunk=Q, return_state=True),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: ssd_chunked(*inputs, Q, return_state=True),
+                       reps=3, warmup=1)
+    # x, B, C in bf16 and dt, A in f32 read once; y in bf16 and the
+    # final state in f32 written once
+    nbytes = (2 * B * L * H * P + 4 * B * L * H + 4 * H
+              + 2 * 2 * B * L * G * N + 2 * B * L * H * P + 4 * B * H * P * N)
+    # per chunk: C·Bᵀ over N and the weights times x over P, each on the
+    # Q(Q+1)/2 entries of the causal lower triangle with its diagonal
+    # (the rest is masked to 0 and needs no work); C·h0ᵀ [Q, P] over N
+    # and the state update [P, N] over Q
+    ops = B * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
+    return dict(shape=f"{arch} B={B} L={L} H={H} P={P} G={G} N={N} Q={Q} "
+                "bf16", ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+
+
 def bound(t: dict) -> tuple[float, str]:
     by_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     by_ops = t["ops"] / OPS_PER_S * 1e3
@@ -1279,18 +1456,15 @@ def moe_config(n_layers: int | None, smoke: bool = False, router="cg"):
     return cfg.replace(moe=dataclasses.replace(cfg.moe, router=router))
 
 
-def moe_run(model, cfg, tokens, decode_steps: int, dev,
-            check_launches: bool = True) -> dict:
-    """One main-path run: ``prefill_step`` on ``tokens`` [B, S], then
-    ``decode_steps`` greedy ``decode_step``s, with the launch counts
-    zeroed just before and read just after; then (outside the counted
-    window) the prefill's routing telemetry from ``hidden_states``.
-    Checks shapes, finiteness, the cache position and the telemetry's
-    bounds."""
+def timed_run(name: str, model, cfg, tokens, decode_steps: int,
+              dev) -> dict:
+    """``prefill_step`` on ``tokens`` [B, S] (with room for the decode
+    steps in a KV cache), then ``decode_steps`` greedy ``decode_step``s,
+    with the launch counts zeroed just before and read just after; each
+    step ends in a synchronize. Checks the logits' shape and finiteness,
+    the generated ids and the cache position."""
     import torch
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.models import moe_transformer as mt
-    from repro_torch.models.lm_common import embed_tokens
     B, S = tokens.shape
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
@@ -1311,8 +1485,6 @@ def moe_run(model, cfg, tokens, decode_steps: int, dev,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         generated.append(tok)
     counts = read_counts()
-    name = f"moe {cfg.moe.router} {cfg.n_layers}L B={B} S={S}"
-    check_counts(name, counts, "cg_dispatch", dev, check_launches)
     ids = torch.cat(generated, dim=1)
     if first.shape != (B, cfg.vocab) or logits.shape != (B, cfg.vocab) \
             or not bool(first.isfinite().all()) \
@@ -1320,8 +1492,35 @@ def moe_run(model, cfg, tokens, decode_steps: int, dev,
         fail(f"{name}: logits not finite of shape {(B, cfg.vocab)}")
     if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab \
             or int(cache["pos"]) != S + decode_steps \
-            or cache["k"].shape[2] != S + decode_steps:
+            or ("k" in cache and cache["k"].shape[2] != S + decode_steps):
         fail(f"{name}: tokens or cache out of range")
+    steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
+    out = dict(run=name, n_layers=cfg.n_layers, batch=B, seq=S,
+               prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
+               decode_steps=decode_steps, decode_ms_first=step_ms[0],
+               decode_ms_mean=sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+               decode_ms_median=steady[len(steady) // 2], launches=counts)
+    log(f"  {name}: prefill {B}x{S} in {prefill_s:.3f} s = "
+        f"{out['prefill_tokens_per_s']:,.0f} tokens/s; decode "
+        f"{out['decode_ms_mean']:.2f} ms/step mean, "
+        f"{out['decode_ms_median']:.2f} median (first "
+        f"{out['decode_ms_first']:.2f})")
+    return out
+
+
+def moe_run(model, cfg, tokens, decode_steps: int, dev,
+            check_launches: bool = True) -> dict:
+    """One main-path run (``timed_run``) with router ``cfg.moe.router``;
+    then, outside the counted window, the prefill's routing telemetry
+    from ``hidden_states``, held to its bounds."""
+    import torch
+    from repro_torch.models import moe_transformer as mt
+    from repro_torch.models.lm_common import embed_tokens
+    B, S = tokens.shape
+    name = f"moe {cfg.moe.router} {cfg.n_layers}L B={B} S={S}"
+    out = timed_run(name, model, cfg, tokens, decode_steps, dev)
+    counts = out["launches"]
+    check_counts(name, counts, "cg_dispatch", dev, check_launches)
     with torch.no_grad():
         x = embed_tokens(model.embed, tokens, cfg.d_model)
         positions = torch.arange(S, device=dev).expand(B, S)
@@ -1334,23 +1533,50 @@ def moe_run(model, cfg, tokens, decode_steps: int, dev,
             or abs(placed - S * k * (1 - drop)) > 1e-3 * S * k:
         fail(f"{name}: routing telemetry out of bounds: drop {drop}, "
              f"max load frac {maxl}, placed {placed}")
-    steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
-    out = dict(run=name, router=cfg.moe.router, n_layers=cfg.n_layers,
-               batch=B, seq=S, prefill_s=prefill_s,
-               prefill_tokens_per_s=B * S / prefill_s,
-               decode_steps=decode_steps, decode_ms_first=step_ms[0],
-               decode_ms_mean=sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
-               decode_ms_median=steady[len(steady) // 2],
-               drop_frac=drop, max_load_frac=maxl, aux_loss=float(aux),
-               z_loss=float(z), launches=counts, generated=ids.cpu())
-    log(f"  {name}: prefill {B}x{S} in {prefill_s:.3f} s = "
-        f"{out['prefill_tokens_per_s']:,.0f} tokens/s; decode "
-        f"{out['decode_ms_mean']:.2f} ms/step mean, "
-        f"{out['decode_ms_median']:.2f} median (first "
-        f"{out['decode_ms_first']:.2f}); prefill drop_frac {drop:.4f}, "
-        f"max_load_frac {maxl:.4f}; cg_dispatch launches "
-        f"{counts['cg_dispatch']}")
+    out.update(router=cfg.moe.router, drop_frac=drop, max_load_frac=maxl,
+               aux_loss=float(aux), z_loss=float(z))
+    log(f"  {name}: prefill drop_frac {drop:.4f}, max_load_frac "
+        f"{maxl:.4f}; cg_dispatch launches {counts['cg_dispatch']}")
     return out
+
+
+def serve_model(name: str, cfg, model, dev, seed: int, kernels,
+                check_launches: bool = True) -> dict:
+    """``launch/serve.py``'s ``serve`` over ``model``: 4 replicas (replica
+    0 sleeps 0.05 s per batch, Fig 15), a ``CGRequestRouter`` on the
+    card, 64 zipf(1.3)-keyed one-token prompts, 8 greedy decode steps
+    each, with the launch counts zeroed just before and read just after;
+    every request must be served once with 8 ids in the vocabulary, and
+    each of ``kernels`` must have launched."""
+    from repro_torch.launch import serve
+    zero_counts()
+    sv = serve.serve(cfg, model, requests=64, decode_steps=8, replicas=4,
+                     hetero=True, device=dev, seed=seed)
+    counts = read_counts()
+    for kernel in kernels:
+        check_counts(f"{name} serving", counts, kernel, dev, check_launches)
+    eng = sv["engine"]
+    served = sum(r.served for r in eng.replicas)
+    if sv["served"] != 64 or served != eng.submitted or eng.in_flight \
+            or sorted(sv["outputs"]) != list(range(64)):
+        fail(f"{name} serving: submitted {eng.submitted}, served {served}, "
+             f"in flight {eng.in_flight}")
+    if any(o.shape != (8,) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
+           for o in sv["outputs"].values()):
+        fail(f"{name} serving: generated ids out of range")
+    serving = dict(requests=64, replicas=4, seconds=sv["seconds"],
+                   requests_per_s=sv["requests_per_s"],
+                   latency_mean_s=sv["latency_mean_s"],
+                   latency_p99_s=sv["latency_p99_s"],
+                   per_replica=[r.served for r in eng.replicas],
+                   moves=eng.router.moves, launches=counts)
+    log(f"  serving: 64 requests on 4 replicas (replica 0 slow) in "
+        f"{sv['seconds']:.2f} s = {sv['requests_per_s']:.1f} req/s; "
+        f"latency mean {sv['latency_mean_s'] * 1e3:.1f} ms, p99 "
+        f"{sv['latency_p99_s'] * 1e3:.1f} ms; per replica "
+        f"{serving['per_replica']}; launches "
+        + ", ".join(f"{k} {counts[k]}" for k in kernels))
+    return serving
 
 
 def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
@@ -1365,7 +1591,6 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
     serving 64 requests. ``smoke`` takes the smoke config instead, for a
     rehearsal on the CPU. Returns the report."""
     import torch
-    from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
     cfg = moe_config(n_layers, smoke)
     if dev.type == "cuda":
@@ -1399,41 +1624,28 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
         f"{runs[1]['drop_frac']:.4f}")
 
     # (ii) serving: 4 replicas of the model, one slow, 64 requests
-    zero_counts()
-    sv = serve.serve(cfg, model, requests=64, decode_steps=8, replicas=4,
-                     hetero=True, device=dev, seed=seed)
-    counts = read_counts()
-    check_counts("moe serving", counts, "cg_dispatch", dev, check_launches)
-    check_counts("moe serving", counts, "porc_multisource_scan", dev,
-                 check_launches)
-    eng = sv["engine"]
-    served = sum(r.served for r in eng.replicas)
-    if sv["served"] != 64 or served != eng.submitted or eng.in_flight \
-            or sorted(sv["outputs"]) != list(range(64)):
-        fail(f"moe serving: submitted {eng.submitted}, served {served}, "
-             f"in flight {eng.in_flight}")
-    if any(o.shape != (8,) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab
-           for o in sv["outputs"].values()):
-        fail("moe serving: generated ids out of range")
-    serving = dict(requests=64, replicas=4, seconds=sv["seconds"],
-                   requests_per_s=sv["requests_per_s"],
-                   latency_mean_s=sv["latency_mean_s"],
-                   latency_p99_s=sv["latency_p99_s"],
-                   per_replica=[r.served for r in eng.replicas],
-                   moves=eng.router.moves, launches=counts)
-    log(f"  serving: 64 requests on 4 replicas (replica 0 slow) in "
-        f"{sv['seconds']:.2f} s = {sv['requests_per_s']:.1f} req/s; "
-        f"latency mean {sv['latency_mean_s'] * 1e3:.1f} ms, p99 "
-        f"{sv['latency_p99_s'] * 1e3:.1f} ms; per replica "
-        f"{serving['per_replica']}; cg_dispatch launches "
-        f"{counts['cg_dispatch']}, router kernel launches "
-        f"{counts['porc_multisource_scan']}")
+    serving = serve_model("moe", cfg, model, dev, seed,
+                          ("cg_dispatch", "porc_multisource_scan"),
+                          check_launches)
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else 0.0)
-    for r in runs:
-        r.pop("generated")
     return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, params=n_params,
                 peak_gb=peak, runs=runs, serving=serving)
+
+
+def greedy_logits(model, cfg, tokens, steps: int = 4) -> list:
+    """The last logits of ``prefill_step`` on ``tokens`` and of ``steps``
+    greedy ``decode_step``s after it, copied to the host."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    logits, cache = zoo.prefill_step(model, cfg, {"tokens": tokens},
+                                     pad_to=tokens.shape[1] + steps)
+    seq = [logits]
+    for _ in range(steps):
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        logits, cache = zoo.decode_step(model, cfg, cache, tok)
+        seq.append(logits)
+    return [x.cpu() for x in seq]
 
 
 def moe_reference_check(dev, seed: int) -> dict:
@@ -1458,18 +1670,11 @@ def moe_reference_check(dev, seed: int) -> dict:
     out = {}
     for where, model in ((cpu, host), (dev, card)):
         t = tokens.to(where)
-        logits, cache = zoo.prefill_step(model, cfg, {"tokens": t},
-                                         pad_to=68)
-        seq = [logits]
-        for _ in range(4):
-            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-            logits, cache = zoo.decode_step(model, cfg, cache, tok)
-            seq.append(logits)
         with torch.no_grad():
             x = embed_tokens(model.embed, t, cfg.d_model)
             _, _, _, rm = mt.hidden_states(model, cfg, x, torch.arange(
                 64, device=where).expand(2, 64))
-        out[where.type] = ([x.cpu() for x in seq],
+        out[where.type] = (greedy_logits(model, cfg, t),
                            {k: v.cpu() for k, v in rm.items()})
     err = 0.0
     for a, b in zip(out["cpu"][0], out[dev.type][0]):
@@ -1485,6 +1690,159 @@ def moe_reference_check(dev, seed: int) -> dict:
         "over prefill + 4 decode steps; greedy tokens and routing "
         "telemetry equal")
     return dict(max_rel_err=err)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serving Mamba-2 and the zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+# the prompt length of each model's prefill: a chat-length prompt for the
+# hybrid, long prompts for the SSM, whose decode state does not grow
+SSM_PROMPTS = {"zamba2-2.7b": 1024, "mamba2-130m": 4096}
+# prefill(prompt) against prefill(prompt[:-1]) + decode(prompt[-1]), on
+# the last logits, max|a − b| / max|a|: in bf16 the bound of
+# tests/test_models_smoke.py::test_prefill_then_decode_consistency; in
+# f32, where the two paths differ only in the order of their sums. The
+# f32 check is the one meant to fail on a fault of the cache: at full
+# width the bf16 gap is mostly the rounding of the residual adds in bf16
+# and comes close to its bound, so the bf16 check catches only a gross
+# fault
+CONSISTENCY_TOL = 5e-2
+CONSISTENCY_TOL_F32 = 1e-4
+
+
+def prefill_decode_gap(model, cfg, tokens) -> float:
+    """max|a − b| / max|a| between the last logits of ``prefill(prompt)``
+    and of ``prefill(prompt[:-1])`` + ``decode(prompt[-1])``."""
+    from repro_torch.models import model_zoo as zoo
+    S = tokens.shape[1]
+    full, _ = zoo.prefill_step(model, cfg, {"tokens": tokens})
+    _, cache = zoo.prefill_step(model, cfg, {"tokens": tokens[:, :-1]},
+                                pad_to=S)
+    inc, _ = zoo.decode_step(model, cfg, cache, tokens[:, -1:])
+    return relerr(full, inc)
+
+
+def ssm_run(model, cfg, tokens, decode_steps: int, dev,
+            check_launches: bool = True) -> dict:
+    """One main-path run (``timed_run``): one ``ssd_scan`` launch per SSM
+    layer, and no plain ``ssd_chunked`` on the card; then, outside the
+    counted window, ``prefill(prompt[:-1])`` + ``decode(prompt[-1])``
+    against ``prefill(prompt)``."""
+    B, S = tokens.shape
+    name = f"{cfg.arch_id} {cfg.n_layers}L B={B} S={S}"
+    out = timed_run(name, model, cfg, tokens, decode_steps, dev)
+    counts = out["launches"]
+    check_counts(name, counts, "ssd_scan", dev, check_launches)
+    if check_launches and counts["ssd_scan"] != cfg.n_layers:
+        fail(f"{name}: {counts['ssd_scan']} ssd_scan launches, expected one "
+             f"per SSM layer ({cfg.n_layers})")
+    consistency = prefill_decode_gap(model, cfg, tokens)
+    if not consistency < CONSISTENCY_TOL:
+        fail(f"{name}: prefill(prompt[:-1]) + decode(last) differs from "
+             f"prefill(prompt) by {consistency:.3e} relative")
+    out.update(arch=cfg.arch_id, consistency_rel_err=consistency)
+    log(f"  {name}: ssd_scan launches {counts['ssd_scan']}; "
+        f"prefill(prompt[:-1]) + decode(last) vs prefill(prompt): "
+        f"{consistency:.3e} relative")
+    return out
+
+
+def ssm_path(dev, seed: int, arch: str, batch: int = 8,
+             seq: int | None = None, decode_steps: int = 32,
+             smoke: bool = False, serving: bool = False,
+             check_launches: bool = True) -> dict:
+    """``arch`` (zamba2-2.7b or mamba2-130m) at its full config, random
+    bf16 weights from a seeded ``torch.Generator`` and
+    ``use_pallas="auto"``: ``ssm_run`` on ``batch`` random prompts of
+    ``seq`` tokens (``SSM_PROMPTS``) after a warm-up of the same shape;
+    with ``serving``, ``launch/serve.py``'s ``serve`` over the same
+    model; then the prefill/decode consistency of the same config in f32
+    (new weights from the same generator) on two of the prompts, where
+    no bf16 rounding hides a fault of the cache. ``smoke`` takes the
+    smoke config instead, for a rehearsal on the CPU. Returns the
+    report."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else configs.get_config(arch))
+    seq = seq or SSM_PROMPTS[arch]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = zoo.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_params = zoo.count_params(model)
+    log(f"  {arch}{' (smoke)' if smoke else ''}: {cfg.n_layers} layers, "
+        f"{n_params:,} params ({n_params * 2 / 1e9:.2f} GB bf16) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # warm-up (library handles, the allocator's pools), not timed
+    _, cache = zoo.prefill_step(model, cfg, {"tokens": tokens},
+                                pad_to=seq + 2)
+    for _ in range(2):
+        _, cache = zoo.decode_step(model, cfg, cache, tokens[:, :1])
+    del cache
+    out = dict(arch=arch, n_layers=cfg.n_layers, params=n_params,
+               run=ssm_run(model, cfg, tokens, decode_steps, dev,
+                           check_launches))
+    if serving:
+        out["serving"] = serve_model(arch, cfg, model, dev, seed,
+                                     ("porc_multisource_scan",),
+                                     check_launches)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                      if dev.type == "cuda" else 0.0)
+    log(f"  peak device memory {out['peak_gb']:.2f} GB")
+    del model
+    cfg32 = cfg.replace(dtype="float32")
+    gap = prefill_decode_gap(zoo.init_params(cfg32, gen, device=dev), cfg32,
+                             tokens[:2])
+    if not gap < CONSISTENCY_TOL_F32:
+        fail(f"{arch} f32: prefill(prompt[:-1]) + decode(last) differs "
+             f"from prefill(prompt) by {gap:.3e} relative")
+    out["consistency_f32_rel_err"] = gap
+    log(f"  {arch} in f32, 2 x {seq} tokens: prefill(prompt[:-1]) + "
+        f"decode(last) vs prefill(prompt): {gap:.3e} relative")
+    return out
+
+
+def ssm_reference_check(dev, seed: int) -> dict:
+    """The port's path on the card against the same path on the CPU: both
+    smoke configs in f32 with the same weights (the kernel on the card,
+    the plain ``ssd_chunked`` on the CPU), a prefill of [2, 64] tokens
+    and 4 greedy decode steps. The logits agree within 1e-4 relative to
+    their largest magnitude (f32 matmuls round differently on the two
+    devices; TF32 is off) and the greedy tokens are equal."""
+    import copy
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    cpu = torch.device("cpu")
+    errs = {}
+    for arch in SSM_PROMPTS:
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        host = zoo.init_params(cfg, seed, device=cpu)
+        card = copy.deepcopy(host).to(dev)
+        tokens = torch.randint(0, cfg.vocab, (2, 64),
+                               generator=torch.Generator().manual_seed(seed),
+                               dtype=torch.int32)
+        err = 0.0
+        for a, b in zip(greedy_logits(host, cfg, tokens),
+                        greedy_logits(card, cfg, tokens.to(dev))):
+            err = max(err, relerr(a, b))
+            if not relerr(a, b) <= 1e-4 \
+                    or not torch.equal(a.argmax(-1), b.argmax(-1)):
+                fail(f"{arch} reference: the card's logits differ from the "
+                     f"CPU's (max rel {relerr(a, b)})")
+        errs[arch] = err
+        log(f"  {arch} smoke config in f32, card vs CPU: logits max rel err "
+            f"{err:.2e} over prefill + 4 decode steps; greedy tokens equal")
+    return dict(max_rel_err=errs)
 
 
 def sample(spec: dict, seed: int, n_messages: int, dev):
@@ -1542,7 +1900,8 @@ def main() -> int:
 
     # 2. build
     log("== build")
-    built = build_all(["porc_snapshot", "porc_assign", "cg_dispatch"])
+    built = build_all(["porc_snapshot", "porc_assign", "cg_dispatch",
+                       "ssd_scan"])
 
     # 3. kernels vs plain, on the card
     log("== kernels vs plain (bit for bit, WP and TW streams)")
@@ -1558,6 +1917,8 @@ def main() -> int:
            "porc_multisource_strict": check_multisource_strict(streams2,
                                                                dev),
            "cg_dispatch": check_dispatch(dev)}
+    ssd_err = check_ssd(dev)
+    err["ssd_scan"] = ssd_err["max_abs_err"]
     timing = {
         "porc_snapshot": time_snapshot(wp_keys, dev, n=100, slot=10_000,
                                        block=128),
@@ -1571,6 +1932,9 @@ def main() -> int:
             wp_keys, dev, n=1000, S=100, steps=10, block=128),
         "cg_dispatch": time_dispatch(dev, G=8, T=1024),
         "cg_dispatch[decode]": time_dispatch(dev, G=1, T=8)}
+    zamba2, mamba2 = ssd_model_shapes()
+    timing["ssd_scan"] = time_ssd(dev, *zamba2)
+    timing["ssd_scan[mamba2]"] = time_ssd(dev, *mamba2)
     for name, t in timing.items():
         b, by = bound(t)
         extra = (f", {t['ranks_per_block']:.2f} ranks per block"
@@ -1610,7 +1974,17 @@ def main() -> int:
     moe["reference"] = moe_reference_check(dev, args.seed)
     log(f"  peak device memory {moe['peak_gb']:.1f} GB")
 
-    # 7. report
+    # 7. serving Mamba-2 and the zamba2 hybrid
+    log("== Mamba-2: (k) zamba2-2.7b and (l) mamba2-130m at full size: "
+        "prefill_step + decode_step; (m) launch/serve.py's ServingEngine "
+        "over (k); (n) the smoke configs, card vs CPU")
+    t7 = time.perf_counter()
+    ssm = [ssm_path(dev, args.seed, "zamba2-2.7b", serving=True),
+           ssm_path(dev, args.seed, "mamba2-130m")]
+    ssm_ref = ssm_reference_check(dev, args.seed)
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    # 8. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -1620,6 +1994,7 @@ def main() -> int:
                                    for r in schemes)
     launches["cg_dispatch"] = sum(r["launches"]["cg_dispatch"]
                                   for r in moe["runs"] + [moe["serving"]])
+    launches["ssd_scan"] = sum(r["run"]["launches"]["ssd_scan"] for r in ssm)
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -1635,7 +2010,9 @@ def main() -> int:
             ("porc_multisource_strict", launches["porc_multisource_strict"],
              "porc_assign.cu", "src/repro/kernels/ref.py:420"),
             ("cg_dispatch", launches["cg_dispatch"], "cg_dispatch.cu",
-             "src/repro/kernels/cg_dispatch.py:81")):
+             "src/repro/kernels/cg_dispatch.py:81"),
+            ("ssd_scan", launches["ssd_scan"], "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:66")):
         t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
@@ -1648,7 +2025,8 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
-            schemes=schemes, serving=serving, moe=moe, kernels=kernels),
+            schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
+            ssm=ssm, ssm_reference=ssm_ref, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ into the port's state on ``device``, heavy-hitter sketch lanes included
 — so a run begun in one package continues in the other.
 ``router_snapshot`` and ``load_router`` do the same for a serving
 router's whole routing, delegation and controller state.
-``moe_params_from_jax`` loads an MoE model's weights from the JAX
-pytree, so both packages compute the same model.
+``moe_params_from_jax``, ``mamba2_params_from_jax`` and
+``hybrid_params_from_jax`` load a model's weights from the JAX pytree,
+so both packages compute the same model.
 """
 from __future__ import annotations
 
@@ -135,24 +136,63 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _load(module: torch.nn.Module, tree: dict, device, index=()):
+    """Copy every parameter of ``module`` from the leaf of ``tree`` at its
+    dotted name (``attn.wq`` → ``tree["attn"]["wq"]``), taking ``index``
+    into the leaf's leading (stacked) axes."""
+    for pname, param in module.named_parameters():
+        leaf = tree
+        for part in pname.split("."):
+            leaf = leaf[part]
+        leaf = np.asarray(leaf)
+        if index:
+            leaf = leaf[index]
+        param.copy_(_tensor(leaf, device))
+
+
+def _load_model(model, params_np: dict, device, layer_index):
+    """``embed``, ``final_norm``, the ``shared`` block where the model has
+    one, and every layer from the stacked ``layers/*`` leaves at the
+    index ``layer_index`` gives it. Returns ``model``."""
+    with torch.no_grad():
+        model.embed.copy_(_tensor(params_np["embed"], device))
+        _load(model.final_norm, params_np["final_norm"], device)
+        if "shared" in params_np:
+            _load(model.shared, params_np["shared"], device)
+        for index, layer in layer_index(model):
+            _load(layer, params_np["layers"], device, index)
+    return model
+
+
+def _flat_layers(model):
+    return (((i,), layer) for i, layer in enumerate(model.layers))
+
+
 def moe_params_from_jax(params_np: dict, cfg, device="cuda"):
     """The port's ``MoETransformer`` from the reference's MoE parameter
     pytree (as nested dicts of numpy arrays): ``embed``, the stacked
     ``layers/*`` leaves (one [L, ...] array each) and ``final_norm``."""
     from repro_torch.models.moe_transformer import MoETransformer
     dev = resolve_device(device)
-    model = MoETransformer(cfg, dev)
-    layers = params_np["layers"]
-    with torch.no_grad():
-        model.embed.copy_(_tensor(params_np["embed"], dev))
-        model.final_norm.scale.copy_(
-            _tensor(params_np["final_norm"]["scale"], dev))
-        for i, block in enumerate(model.layers):
-            for name in ("attn_norm", "attn", "mlp_norm", "moe"):
-                mod, tree = getattr(block, name), layers[name]
-                for pname, param in mod.named_parameters():
-                    leaf = tree
-                    for part in pname.split("."):
-                        leaf = leaf[part]
-                    param.copy_(_tensor(np.asarray(leaf)[i], dev))
-    return model
+    return _load_model(MoETransformer(cfg, dev), params_np, dev,
+                       _flat_layers)
+
+
+def mamba2_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``Mamba2`` from the reference's Mamba-2 parameter pytree
+    (nested dicts of numpy arrays, bf16 ones included): ``embed``, the
+    stacked ``layers/*`` leaves ([L, ...] each) and ``final_norm``."""
+    from repro_torch.models.mamba2 import Mamba2
+    dev = resolve_device(device)
+    return _load_model(Mamba2(cfg, dev), params_np, dev, _flat_layers)
+
+
+def hybrid_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``Hybrid`` from the reference's hybrid parameter pytree:
+    ``embed``, the ``layers/*`` leaves stacked [n_groups, per_group, ...],
+    the ``shared`` block and ``final_norm``."""
+    from repro_torch.models.hybrid import Hybrid
+    dev = resolve_device(device)
+    return _load_model(Hybrid(cfg, dev), params_np, dev, lambda model: (
+        ((g, k), layer) for g, group in enumerate(model.layers)
+        for k, layer in enumerate(group)))

@@ -13,6 +13,10 @@
   (``"strict"``) on the CPU, the kernel (``"strict_cuda"``) on the card.
   ``"strict_ref"`` asks for the plain strict engine on any device, the
   way ``"ref"`` does for the snapshot engine.
+* ``use_kernel`` — the models' kernel knob ``cfg.use_pallas`` (the
+  reference's name): ``"auto"`` follows the tensors' device the same
+  way, ``"never"`` takes the plain torch version anywhere, ``"always"``
+  the kernel, and raises on CPU tensors.
 """
 from __future__ import annotations
 
@@ -57,3 +61,21 @@ def resolve_engine(engine: str, device) -> str:
     raise ValueError(f"unknown engine {engine!r}: expected 'ref' | 'cuda' "
                      "| 'auto' | 'strict' (or the internal 'snapshot', "
                      "'strict_ref', 'strict_cuda')")
+
+
+def use_kernel(use_pallas: str, device) -> bool:
+    """Whether a model op runs its CUDA kernel (True) or its plain torch
+    version (False) on tensors on ``device``, by ``cfg.use_pallas``."""
+    on_card = torch.device(device).type == "cuda"
+    if use_pallas == "auto":
+        return on_card
+    if use_pallas == "never":
+        return False
+    if use_pallas == "always":
+        if not on_card:
+            raise ValueError("use_pallas='always' needs CUDA tensors (the "
+                             "kernels have no CPU mode); use 'auto' or "
+                             "'never' on the CPU")
+        return True
+    raise ValueError(f"unknown use_pallas {use_pallas!r}: expected 'auto' "
+                     "| 'never' | 'always'")

@@ -2,7 +2,8 @@
 semantic ground truth the CUDA kernels in ``porc_snapshot`` and
 ``porc_assign`` are held against, and the engines the CPU runs; and
 the MoE dispatch ``ref_cg_dispatch``, which ``cg_dispatch`` is held
-against.
+against; and the sequential Mamba-2 recurrence ``ref_ssd_scan``, the
+gold semantics of ``ssd_scan``.
 
 ``jax.lax.scan`` over blocks becomes a Python loop over blocks, ``vmap``
 over sources a leading source dimension (see ``blocks``). The span
@@ -689,3 +690,45 @@ def ref_cg_dispatch(pref: torch.Tensor, gates: torch.Tensor, *,
 # calls on CUDA tensors: the kernel's comparisons make them; a main path
 # must make none
 ref_cg_dispatch.tally = dict(cuda_calls=0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+
+def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 return_state: bool = False):
+    """Exact sequential SSD recurrence (the gold semantics).
+
+    h_t = exp(dt_t·A_h)·h_{t-1} + dt_t·(x_t ⊗ B_t);  y_t = h_t·C_t
+
+    Args:
+      x:  [B, L, H, P] inputs per head.
+      dt: [B, L, H] positive step sizes.
+      A:  [H] negative decay rates.
+      Bm: [B, L, G, N] input projections (G groups, H % G == 0).
+      Cm: [B, L, G, N] output projections.
+    Returns y [B, L, H, P] in x's dtype, computed in f32; with
+    ``return_state`` also the final state h_L [B, H, P, N] f32 (which the
+    reference's function computes and drops).
+    """
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    f32 = torch.float32
+    Bh = torch.repeat_interleave(Bm, rep, dim=2).to(f32)     # [B, L, H, N]
+    Ch = torch.repeat_interleave(Cm, rep, dim=2).to(f32)
+    xf, dtf, Af = x.to(f32), dt.to(f32), A.to(f32)
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(L):
+        dtt = dtf[:, t]                                       # [B, H]
+        decay = torch.exp(dtt * Af[None, :])[..., None, None]
+        h = decay * h + (dtt[..., None] * xf[:, t])[..., None] \
+            * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = (torch.stack(ys, 1) if ys
+         else torch.zeros((Bsz, 0, H, P), dtype=f32, device=x.device))
+    y = y.to(x.dtype)
+    return (y, h) if return_state else y

@@ -1,12 +1,13 @@
 """Shared neural building blocks, forward only (port of
 ``repro.models.layers``).
 
-Plain functions on tensors, and the ``Attention`` module that holds the
+Plain functions on tensors, the ``Attention`` module that holds the
 attention sub-layer's weights under the names of the JAX package's
-``attn_params`` dict (``wq``, ``wk``, ``wv``, ``wo``); the functions read
-a module's weights as attributes.
+``attn_params`` dict (``wq``, ``wk``, ``wv``, ``wo``) and the ``MLP``
+module of its ``mlp_params`` dict (``w1``, ``w3``, ``w2``); the functions
+read a module's weights as attributes.
 
-Only what the MoE archs run is here. Left out: ``shard_act`` and the
+Only what the MoE, Mamba-2 and hybrid archs run is here. Left out: ``shard_act`` and the
 activation-sharding rules, which are the identity on one device (the
 port runs on one device; the mesh tier is ROADMAP Queue 1 item 7); the
 ``rmsnorm`` custom VJP, which comes with training (ROADMAP Queue 1
@@ -135,6 +136,13 @@ def linear(x, w):
     return x @ w
 
 
+def swiglu_mlp(x, p):
+    """LLaMA-style gated MLP: w1 (gate), w3 (up), w2 (down); ``p`` an
+    :class:`MLP`."""
+    h = torch.nn.functional.silu(x @ p.w1) * (x @ p.w3)
+    return h @ p.w2
+
+
 # ---------------------------------------------------------------------------
 # Init helpers
 # ---------------------------------------------------------------------------
@@ -156,6 +164,23 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def drawn_param(key, shape, dtype, device, scale=None) -> nn.Parameter:
+    """A weight held without gradients: drawn as :func:`dense_init` draws
+    it with ``key`` (a ``torch.Generator``), or left uninitialized without
+    one, for a caller to load (``repro_torch.convert``)."""
+    return _param(dense_init(key, shape, dtype, scale, device)
+                  if key is not None
+                  else torch.empty(shape, dtype=dtype, device=device))
+
+
+def as_generator(key, device) -> torch.Generator:
+    """``key`` if it is a ``torch.Generator``, else one on ``device``
+    seeded with the int ``key``."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
 class Attention(nn.Module):
     """The attention sub-layer's weights; ``forward`` is :func:`attention`.
 
@@ -170,9 +195,8 @@ class Attention(nn.Module):
         d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         for name, shape in (("wq", (d, H * Dh)), ("wk", (d, KV * Dh)),
                             ("wv", (d, KV * Dh)), ("wo", (H * Dh, d))):
-            w = (dense_init(key, shape, dtype, device=device) if key is not None
-                 else torch.empty(shape, dtype=dtype, device=device))
-            self.register_parameter(name, _param(w))
+            self.register_parameter(name,
+                                    drawn_param(key, shape, dtype, device))
 
     def forward(self, x, *, positions, causal=True, return_kv=False):
         return attention(x, self, self.cfg, positions=positions,
@@ -206,3 +230,21 @@ def attention(x, p, cfg, *, positions, causal=True, return_kv=False):
     if return_kv:
         return out, (k, v)
     return out
+
+
+class MLP(nn.Module):
+    """The gated MLP's weights ``w1``, ``w3`` [d_model, d_ff] and ``w2``
+    [d_ff, d_model]; ``forward`` is :func:`swiglu_mlp`. Drawn as
+    ``mlp_params`` draws them with ``key``, else left uninitialized."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device="cuda",
+                 key=None):
+        super().__init__()
+        for name, shape in (("w1", (d_model, d_ff)), ("w3", (d_model, d_ff)),
+                            ("w2", (d_ff, d_model))):
+            self.register_parameter(name,
+                                    drawn_param(key, shape, dtype, device))
+
+    def forward(self, x):
+        return swiglu_mlp(x, self)
+

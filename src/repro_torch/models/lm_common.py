@@ -1,5 +1,6 @@
 """Shared LM machinery, forward only: norms, embeddings, the tied
-logits head and KV-cache plumbing (port of ``repro.models.lm_common``).
+logits head, the SSD chunk choice and cache plumbing (port of
+``repro.models.lm_common``).
 
 ``chunked_xent`` and ``shift_labels`` come with training (ROADMAP
 Queue 1 item 8b); LayerNorm (``norm_kind="ln"``) with the families that
@@ -54,6 +55,21 @@ def pad_cache_seq(kv: torch.Tensor, pad_to: int | None, axis: int = 2):
     shape = list(kv.shape)
     shape[axis] = pad_to - kv.shape[axis]
     return torch.cat([kv, kv.new_zeros(shape)], dim=axis)
+
+
+def pick_chunk(seq: int, target: int) -> int:
+    """Largest divisor of ``seq`` that is ≤ target (SSD chunk picking)."""
+    c = min(target, seq)
+    while seq % c != 0:
+        c -= 1
+    return c
+
+
+def zeros_from_spec(spec: dict, device) -> dict:
+    """A cache of zeros on ``device`` with the shapes and dtypes of a
+    ``cache_spec`` (meta tensors)."""
+    return {name: torch.zeros(sp.shape, dtype=sp.dtype, device=device)
+            for name, sp in spec.items()}
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):

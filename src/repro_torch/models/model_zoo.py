@@ -1,5 +1,6 @@
 """Family dispatcher: one API over the ported architectures (port of
-``repro.models.model_zoo``; the MoE family, forward and serving).
+``repro.models.model_zoo``; the MoE, Mamba-2 ("ssm") and hybrid
+families, forward and serving).
 
 API:
   init_params(cfg, key, device)           → the family's weights module
@@ -19,16 +20,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 
-from . import moe_transformer
+from . import hybrid, mamba2, moe_transformer
+from .lm_common import zeros_from_spec
 
-_FAMS = {"moe": moe_transformer}
+_FAMS = {"moe": moe_transformer, "ssm": mamba2, "hybrid": hybrid}
 
 _NOT_PORTED = {
     "dense": "item 10 (dense transformer)",
     "vlm": "item 10 (VLM)",
     "audio": "item 10 (encoder-decoder)",
-    "ssm": "item 9 (Mamba-2)",
-    "hybrid": "item 9 (hybrid)",
 }
 
 
@@ -69,9 +69,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    dev = resolve_device(device)
-    return {name: torch.zeros(sp.shape, dtype=sp.dtype, device=dev)
-            for name, sp in cache_spec(cfg, batch, max_len).items()}
+    return zeros_from_spec(cache_spec(cfg, batch, max_len),
+                           resolve_device(device))
 
 
 def count_params(params) -> int:

@@ -16,8 +16,8 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.moe.layer import MoEFFN, moe_ffn
 
-from .layers import Attention, apply_rope, attention, dense_init, linear
-from .layers import torch_dtype
+from .layers import (Attention, apply_rope, as_generator, attention,
+                     drawn_param, linear, torch_dtype)
 from .lm_common import (Norm, embed_tokens, last_logits, norm, pad_cache_seq)
 from .sp_decode import seqpar_update_and_attend
 from .transformer import cache_spec, init_cache  # noqa: F401 (reuse)
@@ -53,12 +53,8 @@ class MoETransformer(nn.Module):
                 "item 10)")
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
-        shape = (cfg.vocab, cfg.d_model)
-        self.embed = nn.Parameter(
-            dense_init(key, shape, dtype, scale=0.02, device=dev)
-            if key is not None else torch.empty(shape, dtype=dtype,
-                                                device=dev),
-            requires_grad=False)
+        self.embed = drawn_param(key, (cfg.vocab, cfg.d_model), dtype, dev,
+                                 scale=0.02)
         self.layers = nn.ModuleList(MoEBlock(cfg, dtype, dev, key)
                                     for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg, dtype, dev)
@@ -68,9 +64,7 @@ def init_params(cfg, key, device="cuda") -> MoETransformer:
     """Random weights from ``key``: a ``torch.Generator`` on ``device``,
     or an int seed for one."""
     dev = resolve_device(device)
-    if not isinstance(key, torch.Generator):
-        key = torch.Generator(device=dev).manual_seed(int(key))
-    return MoETransformer(cfg, dev, key=key)
+    return MoETransformer(cfg, dev, key=as_generator(key, dev))
 
 
 def hidden_states(params: MoETransformer, cfg, x, positions,

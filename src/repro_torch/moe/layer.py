@@ -42,10 +42,7 @@ class MoEFFN(nn.Module):
         d, f, E = cfg.d_model, moe.d_ff_expert, moe.n_experts
 
         def weight(shape, dt):
-            t = (_layers().dense_init(key, shape, dt, device=device)
-                 if key is not None
-                 else torch.empty(shape, dtype=dt, device=device))
-            return nn.Parameter(t, requires_grad=False)
+            return _layers().drawn_param(key, shape, dt, device)
 
         self.router = weight((d, E), torch.float32)
         self.w1 = weight((E, d, f), dtype)

@@ -62,6 +62,16 @@ logits, cache = model_zoo.decode_step(model, cfg, cache,
 assert logits.shape == (2, cfg.vocab) and int(cache["pos"]) == 33
 out = serve.serve(cfg, model, requests=8, decode_steps=2, device="cpu")
 assert out["served"] == 8 and cg_dispatch.launches == 0
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import hybrid, mamba2
+cfg = configs.get_smoke_config("mamba2-130m")
+model = model_zoo.init_params(cfg, 0, device="cpu")
+logits, cache = model_zoo.prefill_step(model, cfg,
+                                       {"tokens": keys[:64].reshape(2, 32)})
+logits, cache = model_zoo.decode_step(model, cfg, cache,
+                                      logits.argmax(-1)[:, None])
+assert logits.shape == (2, cfg.vocab) and int(cache["pos"]) == 33
+assert ssd_scan.launches == 0 and mamba2.ssd_chunked.tally["cuda_calls"] == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -90,7 +100,10 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.models.model_zoo",
                                     "repro_torch.launch.serve",
                                     "repro_torch.configs",
-                                    "repro_torch.convert"])
+                                    "repro_torch.convert",
+                                    "repro_torch.kernels.ssd_scan",
+                                    "repro_torch.models.mamba2",
+                                    "repro_torch.models.hybrid"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -119,7 +132,9 @@ def test_ast_scan_finds_no_jax_or_repro_imports():
             "models/lm_common.py", "models/sp_decode.py",
             "models/transformer.py", "models/moe_transformer.py",
             "models/model_zoo.py", "moe/router.py", "moe/layer.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py", "kernels/ssd_scan.py", "models/mamba2.py",
+            "models/hybrid.py", "configs/mamba2_130m.py",
+            "configs/zamba2_2_7b.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -170,6 +185,9 @@ def test_cuda_device_without_cuda_raises():
     from repro_torch.models import model_zoo, moe_transformer
     from repro_torch.serve import CGRequestRouter
     moe_cfg = configs.get_smoke_config("qwen3-moe-235b-a22b")
+    ssm_cfg = configs.get_smoke_config("mamba2-130m")
+    hybrid_cfg = configs.get_smoke_config("zamba2-2.7b")
+    from repro_torch.models import hybrid, mamba2
     for call in (lambda: cg.run(cfg, keys, np.ones(2)),
                  lambda: ref.ref_porc_route(keys, 8),
                  lambda: ref.ref_porc_multisource(keys, 8, 2),
@@ -184,6 +202,13 @@ def test_cuda_device_without_cuda_raises():
                  lambda: moe_transformer.init_params(moe_cfg, 0),
                  lambda: model_zoo.init_cache(moe_cfg, 2, 16),
                  lambda: model_zoo.metric_zeros(moe_cfg),
+                 lambda: model_zoo.init_params(ssm_cfg, 0),
+                 lambda: mamba2.init_params(ssm_cfg, 0),
+                 lambda: hybrid.init_params(hybrid_cfg, 0),
+                 lambda: model_zoo.init_cache(hybrid_cfg, 2, 16),
+                 lambda: model_zoo.init_cache(ssm_cfg, 2, 16),
+                 lambda: serve.main(["--arch", "zamba2-2.7b",
+                                     "--requests", "4"]),
                  lambda: serve.main(["--requests", "4"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -252,7 +277,9 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.models.transformer",
             "repro_torch.models.moe_transformer",
             "repro_torch.models.model_zoo", "repro_torch.moe.layer",
-            "repro_torch.moe.router", "repro_torch.launch.serve")
+            "repro_torch.moe.router", "repro_torch.launch.serve",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+            "repro_torch.models.hybrid")
 
 
 def _public_callables():
@@ -297,7 +324,14 @@ def test_no_public_entry_point_defaults_to_the_cpu():
                  "repro_torch.models.model_zoo.init_cache",
                  "repro_torch.models.layers.Attention",
                  "repro_torch.moe.layer.MoEFFN",
-                 "repro_torch.launch.serve.serve"):
+                 "repro_torch.launch.serve.serve",
+                 "repro_torch.models.mamba2.init_params",
+                 "repro_torch.models.mamba2.Mamba2",
+                 "repro_torch.models.mamba2.MambaLayer",
+                 "repro_torch.models.hybrid.init_params",
+                 "repro_torch.models.hybrid.Hybrid",
+                 "repro_torch.models.hybrid.SharedBlock",
+                 "repro_torch.models.layers.MLP"):
         assert must in with_device, must
 
 

@@ -1,7 +1,7 @@
-"""The CUDA routing kernels against the plain torch engines, on the card:
-the snapshot kernels (``porc_snapshot.cu``), the rank-sequential
-strict kernels (``porc_assign.cu``) and the MoE dispatch
-(``cg_dispatch.cu``).
+"""The CUDA kernels against their plain torch versions, on the card: the
+snapshot kernels (``porc_snapshot.cu``), the rank-sequential strict
+kernels (``porc_assign.cu``), the MoE dispatch (``cg_dispatch.cu``) and
+the Mamba-2 SSD scan (``ssd_scan.cu``).
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels
 build with ``nvcc`` at first use); without a card they skip. The file
@@ -390,3 +390,128 @@ def test_dispatch_wrapper_checks_its_inputs(dev):
         cg_dispatch(pref, gates, n_experts=16, k=2)
     with pytest.raises(ValueError):
         cg_dispatch(pref, gates, n_experts=40_000, k=2, capacity=8)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(B, L, H, P, G, N, dev, dtype=torch.float32, seed=0):
+    """tests/test_kernels_ssd.py's inputs, made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = normal(B, L, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(normal(B, L, H)) * 0.1
+    A = -torch.exp(normal(H) * 0.5)
+    Bm = (normal(B, L, G, N) / N ** 0.5).to(dtype)
+    Cm = (normal(B, L, G, N) / N ** 0.5).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def relerr(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (a.abs().max() + 1e-9))
+
+
+# the bounds of tests/test_kernels_ssd.py: against the sequential
+# recurrence and against the plain chunked scan in f32, and in bf16
+SSD_REF, SSD_CHUNKED, SSD_BF16 = 1e-4, 1e-5, 3e-2
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", [
+    (2, 128, 4, 32, 1, 64, 32), (1, 256, 8, 64, 2, 128, 64),
+    (1, 256, 6, 16, 3, 32, 128), (2, 1023, 8, 64, 1, 64, 93),
+    (8, 1024, 80, 64, 1, 64, 128), (8, 4096, 24, 64, 1, 128, 128)])
+def test_ssd_kernel_matches_plain(dev, B, L, H, P, G, N, Q):
+    """y and the final state against ``ref_ssd_scan`` and the plain
+    ``ssd_chunked`` in f32: the JAX tests' grid, a chunk that divides
+    neither 16 nor 128 (``pick_chunk`` of a 1,023-token prompt), and the
+    prefill shapes of zamba2-2.7b (8 × 1,024) and mamba2-130m
+    (8 × 4,096)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    inputs = ssd_inputs(B, L, H, P, G, N, dev, seed=L + H)
+    before = ssd_scan.launches
+    y, h = ssd_scan(*inputs, chunk=Q, return_state=True)
+    assert ssd_scan.launches == before + 1
+    assert y.shape == inputs[0].shape and h.shape == (B, H, P, N)
+    assert torch.equal(ssd_scan(*inputs, chunk=Q), y)
+    yc, hc = ssd_chunked(*inputs, Q, return_state=True)
+    assert relerr(yc, y) < SSD_CHUNKED and relerr(hc, h) < SSD_CHUNKED
+    yr, hr = ref.ref_ssd_scan(*inputs, return_state=True)
+    assert relerr(yr, y) < SSD_REF and relerr(hr, h) < SSD_REF
+
+
+@pytest.mark.parametrize("L,H,P,N,Q", [(128, 4, 32, 64, 64),
+                                       (1024, 80, 64, 64, 128),
+                                       (4096, 24, 64, 128, 128)])
+def test_ssd_kernel_bf16(dev, L, H, P, N, Q):
+    """bf16 x, B, C (the models' dtype): y in bf16, the state in f32,
+    within 3e-2 of both plain versions."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    inputs = ssd_inputs(2, L, H, P, 1, N, dev, torch.bfloat16, seed=3)
+    y, h = ssd_scan(*inputs, chunk=Q, return_state=True)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    for want in (ssd_chunked(*inputs, Q, return_state=True),
+                 ref.ref_ssd_scan(*inputs, return_state=True)):
+        assert relerr(want[0], y) < SSD_BF16
+        assert relerr(want[1], h) < SSD_BF16
+
+
+def test_ssd_kernel_chunk_invariance_and_zero_c(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, A, Bm, Cm = ssd_inputs(1, 128, 4, 16, 1, 32, dev)
+    y128, h128 = ssd_scan(x, dt, A, Bm, Cm, chunk=128, return_state=True)
+    for Q in (16, 32, 64):
+        y, h = ssd_scan(x, dt, A, Bm, Cm, chunk=Q, return_state=True)
+        assert relerr(y128, y) < SSD_REF and relerr(h128, h) < SSD_REF
+    h16 = ssd_scan(x, dt, A, Bm, Cm, chunk=16, return_state=True)[1]
+    # C enters only y: the state at the same chunk is the same
+    y, h = ssd_scan(x, dt, A, Bm, torch.zeros_like(Cm), chunk=16,
+                    return_state=True)
+    assert float(y.abs().max()) == 0.0 and torch.equal(h, h16)
+
+
+def test_mamba_block_launches_the_ssd_kernel(dev):
+    """On CUDA tensors with ``use_pallas="auto"`` the block (stateless and
+    with the final state) goes through the kernel, never the plain
+    version; ``"never"`` takes the plain version, and both agree."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import mamba2
+    cfg = get_smoke_config("mamba2-130m").replace(dtype="float32")
+    model = mamba2.init_params(cfg, 0, device=dev)
+    x = torch.randn((2, 40, cfg.d_model), device=dev)
+    lp = model.layers[0]
+    launches = ssd_scan.launches
+    plain = mamba2.ssd_chunked.tally["cuda_calls"]
+    out = mamba2.mamba_block(x, lp, cfg)
+    out_s, (conv, h) = mamba2.mamba_block(x, lp, cfg, return_state=True)
+    assert ssd_scan.launches == launches + 2
+    assert mamba2.ssd_chunked.tally["cuda_calls"] == plain
+    never = cfg.replace(use_pallas="never")
+    want, (_, want_h) = mamba2.mamba_block(x, lp, never, return_state=True)
+    assert relerr(want, out) < 1e-4 and torch.equal(out, out_s)
+    assert relerr(want_h, h) < 1e-4
+
+
+def test_ssd_wrapper_checks_its_inputs(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, A, Bm, Cm = ssd_inputs(1, 96, 4, 16, 2, 32, dev)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=64)             # 96 % 64
+    with pytest.raises(ValueError):
+        ssd_scan(x[:, :, :3], dt[:, :, :3], A[:3], Bm, Cm, chunk=32)  # H % G
+    with pytest.raises(ValueError):
+        ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=32)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm.to(torch.bfloat16), Cm, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=96 * 8)         # L % chunk
+    big = ssd_inputs(1, 512, 2, 256, 1, 256, dev)
+    with pytest.raises(ValueError):
+        ssd_scan(*big, chunk=512)                        # shared memory

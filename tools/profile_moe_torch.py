@@ -30,7 +30,11 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 
-def profile(name: str, fn, steps: int, dev) -> dict:
+def profile(name: str, fn, steps: int, dev,
+            kernel: str = "cg_dispatch") -> dict:
+    """Run ``fn`` (``steps`` steps) once unprofiled and once under the
+    profiler; ``kernel`` names the hand-written kernel whose device time
+    is reported beside the totals."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -49,8 +53,8 @@ def profile(name: str, fn, steps: int, dev) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    dispatch_us = sum(e.time_range.elapsed_us() for e in kernels
-                      if "cg_dispatch" in e.name)
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels
+                    if kernel in e.name)
     # host ops by input shape, ranked by the device time of their kernels
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.key.startswith("aten::")]
@@ -60,7 +64,7 @@ def profile(name: str, fn, steps: int, dev) -> dict:
                device_ms=device_us / 1e3,
                device_busy_share=device_us / 1e6 / wall_prof,
                kernels_per_step=len(kernels) / steps,
-               cg_dispatch_device_ms=dispatch_us / 1e3,
+               **{f"{kernel}_device_ms": kernel_us / 1e3},
                top_device_ops=[(e.key, str(e.input_shapes)[:90], e.count,
                                 e.device_time_total / 1e3)
                                for e in top])
@@ -68,7 +72,7 @@ def profile(name: str, fn, steps: int, dev) -> dict:
           f"{out['ms_per_step']:.2f} ms/step; profiled: device busy "
           f"{out['device_busy_share']:.4f} ({out['device_ms']:.2f} ms of "
           f"{wall_prof * 1e3:.2f}), {out['kernels_per_step']:.1f} kernels/"
-          f"step, cg_dispatch {out['cg_dispatch_device_ms']:.3f} ms",
+          f"step, {kernel} {out[f'{kernel}_device_ms']:.3f} ms",
           flush=True)
     print("  top ops by the device time of their kernels (op, input "
           "shapes, calls, ms):", flush=True)
