@@ -19,7 +19,10 @@ Phases:
      and the final state) against the sequential ``ref_ssd_scan`` and
      the plain ``ssd_chunked`` within the JAX tests' tolerances, over
      their grid, chunk invariance, C ≡ 0 and both Mamba-2 models'
-     prefill shapes; times each at the main path's shapes;
+     prefill shapes; the strict kernels also over edge grids (blocks of
+     1 to 1,000, S 1, 7 and 100, one key repeated, the L2 paths, the
+     leftover fallback); times each at the main path's shapes (the
+     strict ones also in ns per rank);
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -54,22 +57,28 @@ Phases:
      card), random weights from a seeded ``torch.Generator``:
      ``prefill_step`` on 8 × 1,024 tokens and 32 ``decode_step``s with
      router "cg" and with "topk" (prefill tokens/s, decode ms/step,
-     ``drop_frac``, ``max_load_frac``); then ``launch/serve.py``'s
+     ``drop_frac``, ``max_load_frac``), and one prefill of 2 × 4,096
+     past ``attn_chunk_threshold`` (2,048), so every layer's attention
+     takes ``chunked_attention``; then ``launch/serve.py``'s
      ``ServingEngine`` with 4 replicas of the model, one slow, serving
      64 requests; then the smoke config in f32 on the card against the
      same weights on the CPU;
-  7. Mamba-2: (k) zamba2-2.7b at full size (54 Mamba-2 layers in 9
-     groups, d 2,560, 80 SSD heads of 64, N 64, a shared attention block
-     of 32 heads × 80 and d_ff 10,240, vocab 32,000) and (l) mamba2-130m
-     at full size (24 layers, d 768, 24 heads, N 128), random bf16
-     weights from a seeded ``torch.Generator``: ``prefill_step`` on 8
-     prompts of 1,024 (k) or 4,096 (l) tokens and 32 greedy
-     ``decode_step``s, one ``ssd_scan`` launch per SSM layer, and
-     ``prefill(prompt[:-1])`` + ``decode(last)`` against
+  7. Mamba-2: first ``chunked_attention`` against ``dense_attention`` in
+     f32 at 1 × 4,096 tokens with zamba2's and qwen3-moe's attention
+     shapes (≤ 1e-5 relative); (k) zamba2-2.7b at full size (54 Mamba-2
+     layers in 9 groups, d 2,560, 80 SSD heads of 64, N 64, a shared
+     attention block of 32 heads × 80 and d_ff 10,240, vocab 32,000) and
+     (l) mamba2-130m at full size (24 layers, d 768, 24 heads, N 128),
+     random bf16 weights from a seeded ``torch.Generator``:
+     ``prefill_step`` on 8 prompts of 1,024 (k) or 4,096 (l) tokens and
+     32 greedy ``decode_step``s, one ``ssd_scan`` launch per SSM layer,
+     and ``prefill(prompt[:-1])`` + ``decode(last)`` against
      ``prefill(prompt)``; (m) ``launch/serve.py``'s ``ServingEngine``
      over (k)'s model with 4 replicas, one slow, serving 64 requests;
-     (n) both smoke configs in f32 on the card against the same weights
-     on the CPU;
+     (o) (k)'s model on 8 prompts of 4,096 tokens, past the attention
+     threshold: the 9 shared-attention calls take ``chunked_attention``
+     (tokens/s, peak memory), then 4 decode steps; (n) both smoke
+     configs in f32 on the card against the same weights on the CPU;
   8. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
@@ -106,12 +115,14 @@ def log(*a):
 
 
 def counters() -> dict:
-    """(object, attribute) of every kernel's launch counter, and of the
+    """(object, attribute) of every kernel's launch counter, of the
     plain strict engine's, plain dispatch's and plain SSD scan's tallies
-    of calls on CUDA tensors."""
+    of calls on CUDA tensors, and of the calls of ``chunked_attention``
+    (plain torch: the reference has no kernel there)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cg_dispatch import cg_dispatch
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.layers import chunked_attention
     from repro_torch.models.mamba2 import ssd_chunked
     from repro_torch.kernels.porc_assign import (porc_assign,
                                                  porc_multisource_strict)
@@ -129,7 +140,8 @@ def counters() -> dict:
             "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls"),
             "plain_dispatch_on_cuda": (ref.ref_cg_dispatch.tally,
                                        "cuda_calls"),
-            "plain_ssd_on_cuda": (ssd_chunked.tally, "cuda_calls")}
+            "plain_ssd_on_cuda": (ssd_chunked.tally, "cuda_calls"),
+            "chunked_attention": (chunked_attention, "calls")}
 
 
 def zero_counts():
@@ -637,6 +649,77 @@ def check_multisource_strict(streams: dict, dev) -> float:
     return err
 
 
+def check_strict_edges(keys, dev) -> float:
+    """The strict kernels at the edges of their design, against the plain
+    engines, bit for bit, each from a (load, mass) continuation:
+    porc_assign over blocks {1, 33, 128, 1,000} × n_bins {8, 100, 60,000}
+    (60,000: the load in global memory, read through L2) and
+    porc_multisource_strict over S {1, 7, 100} (source-major warps) ×
+    blocks {1, 33, 128, 1,000} × n_bins {8, 10,000} (10,000 at S 7 and
+    100: the views through L2; block 1,000 at S 100: the bidder lists in
+    global memory), two steps with a merge between, each on the WP
+    stream and, at the smaller n_bins, on one key repeated: every key of
+    a block bids one bin at every rank, so positions reach block − 1,
+    most keys are refused and, at 8 bins, the 32 ranks leave keys to the
+    leftover fallback (required at S 7, block 33, eps 0)."""
+    import itertools
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.porc_assign import (porc_assign,
+                                                 porc_multisource_strict)
+    tally = ref._porc_block.tally
+    streams = {"WP": keys, "one key": torch.full_like(keys[:200_000],
+                                                     int(keys[0]))}
+    err = 0.0
+    for (sname, k), blk, n in itertools.product(streams.items(),
+                                                (1, 33, 128, 1000),
+                                                (8, 100, 60_000)):
+        if sname == "one key" and n > 100:
+            continue
+        kk = k[:blk * (64 if blk == 1 else 4)].contiguous()
+        load0 = torch.arange(n, device=dev, dtype=torch.float32) % 7
+        m0 = load0.sum()
+        left0 = tally["leftovers"]
+        want = ref.ref_porc_assign(kk, n, block=blk, eps=0.01, load0=load0,
+                                   m0=m0)
+        got = porc_assign(kk, n, block=blk, eps=0.01, load0=load0, m0=m0)
+        for what, x, y in zip(("assign", "load"), got, want):
+            err = max(err, _same(f"porc_assign edge {sname} block={blk} "
+                                 f"n={n} {what}", x, y))
+        log(f"  porc_assign edge {sname:>7} block {blk:>4} n_bins {n:>6}: "
+            f"identical, {tally['leftovers'] - left0} leftovers")
+    cases = [(sname, k, S, blk, n, 0.01)
+             for (sname, k), S, blk, n in itertools.product(
+                 streams.items(), (1, 7, 100), (1, 33, 128, 1000),
+                 (8, 10_000)) if sname == "WP" or n == 8]
+    cases.append(("one key", streams["one key"], 7, 33, 8, 0.0))
+    for sname, k, S, blk, n, eps in cases:
+        kk = k[:2 * S * blk].contiguous()
+        base0 = torch.arange(n, device=dev, dtype=torch.float32) % 5
+        delta0 = (torch.arange(S * n, device=dev, dtype=torch.float32)
+                  % 3).reshape(S, n)
+        ticks0 = torch.tensor(1, dtype=torch.int32, device=dev)
+        left0 = tally["leftovers"]
+        want = ref._porc_multisource_scan(kk, n, S, 2, blk, eps, 8,
+                                          "strict", base0, delta0,
+                                          ticks0)[:4]
+        left = tally["leftovers"] - left0
+        got = porc_multisource_strict(kk, n, S, 2, blk, eps, base0, delta0,
+                                      ticks0)
+        for what, x, y in zip(("assign", "base", "delta", "ticks"), got,
+                              want):
+            err = max(err, _same(f"multisource strict edge {sname} S={S} "
+                                 f"block={blk} n={n} eps={eps} {what}", x,
+                                 y))
+        if eps == 0.0 and left < 1:
+            fail("multisource strict edge: the eps 0 case left no key to "
+                 "the fallback")
+        log(f"  porc_multisource_strict edge {sname:>7} S {S:>3} block "
+            f"{blk:>4} n_bins {n:>5} eps {eps}: identical, {left} "
+            "leftovers")
+    return err
+
+
 def strict_work(run) -> dict:
     """Run the plain strict engine once and read what it walked: source
     blocks, ranks and bids (each bid one hash, a position and a compare)
@@ -668,7 +751,8 @@ def time_assign(keys, dev, n: int, slot: int, block: int) -> dict:
     ops = work["bids"] * (OPS_PER_PROBE + 2) + work["ranks"] * block
     return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                ranks_per_block=work["ranks"] / work["blocks"], **work)
+                ranks_per_block=work["ranks"] / work["blocks"],
+                ns_per_rank=ms * 1e6 / work["ranks"], **work)
 
 
 def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
@@ -697,7 +781,8 @@ def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
            + steps * (S + 1) * n * 2)                 # masses, merges
     return dict(shape=f"M={M} S={S} n_bins={n} block={block} sync=1", ms=ms,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                ranks_per_block=work["ranks"] / work["blocks"], **work)
+                ranks_per_block=work["ranks"] / work["blocks"],
+                ns_per_rank=ms * 1e6 / work["ranks"], **work)
 
 
 # ---------------------------------------------------------------------------
@@ -1494,18 +1579,41 @@ def timed_run(name: str, model, cfg, tokens, decode_steps: int,
             or int(cache["pos"]) != S + decode_steps \
             or ("k" in cache and cache["k"].shape[2] != S + decode_steps):
         fail(f"{name}: tokens or cache out of range")
-    steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
+    attn = attention_calls(cfg, S)
+    if counts["chunked_attention"] != attn:
+        fail(f"{name}: {counts['chunked_attention']} chunked_attention "
+             f"calls, expected {attn} (threshold "
+             f"{cfg.attn_chunk_threshold})")
     out = dict(run=name, n_layers=cfg.n_layers, batch=B, seq=S,
                prefill_s=prefill_s, prefill_tokens_per_s=B * S / prefill_s,
-               decode_steps=decode_steps, decode_ms_first=step_ms[0],
-               decode_ms_mean=sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
-               decode_ms_median=steady[len(steady) // 2], launches=counts)
-    log(f"  {name}: prefill {B}x{S} in {prefill_s:.3f} s = "
-        f"{out['prefill_tokens_per_s']:,.0f} tokens/s; decode "
-        f"{out['decode_ms_mean']:.2f} ms/step mean, "
-        f"{out['decode_ms_median']:.2f} median (first "
-        f"{out['decode_ms_first']:.2f})")
+               decode_steps=decode_steps, launches=counts)
+    msg = (f"  {name}: prefill {B}x{S} in {prefill_s:.3f} s = "
+           f"{out['prefill_tokens_per_s']:,.0f} tokens/s"
+           + (f", {attn} chunked_attention calls" if attn else ""))
+    if step_ms:
+        steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
+        out.update(decode_ms_first=step_ms[0],
+                   decode_ms_mean=sum(step_ms[1:])
+                   / max(len(step_ms) - 1, 1),
+                   decode_ms_median=steady[len(steady) // 2])
+        msg += (f"; decode {out['decode_ms_mean']:.2f} ms/step mean, "
+                f"{out['decode_ms_median']:.2f} median (first "
+                f"{out['decode_ms_first']:.2f})")
+    log(msg)
     return out
+
+
+def attention_calls(cfg, S: int) -> int:
+    """The ``chunked_attention`` calls of a prefill of S tokens: one per
+    attention layer (the MoE's every layer, the hybrid's shared block
+    once per group) when S passes the config's threshold, else none."""
+    if S <= cfg.attn_chunk_threshold:
+        return 0
+    if cfg.family == "moe":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0
 
 
 def moe_run(model, cfg, tokens, decode_steps: int, dev,
@@ -1581,15 +1689,19 @@ def serve_model(name: str, cfg, model, dev, seed: int, kernels,
 
 def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
              seq: int = 1024, decode_steps: int = 32, smoke: bool = False,
-             check_launches: bool = True) -> dict:
+             check_launches: bool = True,
+             long_prompt: tuple[int, int] | None = None) -> dict:
     """(i) qwen3-moe-235b-a22b at full width (d 4096, 64/4 heads, 128
     experts top-8, vocab 151,936) cut to ``n_layers``, random bf16
     weights from a seeded ``torch.Generator``: ``moe_run`` with
     router="cg" and router="topk" (the same weights and tokens); CG must
-    drop no more slots than top-k. (ii) ``launch/serve.py``'s
-    ``ServingEngine`` over the same model with 4 replicas, one slow,
-    serving 64 requests. ``smoke`` takes the smoke config instead, for a
-    rehearsal on the CPU. Returns the report."""
+    drop no more slots than top-k. With ``long_prompt`` (batch, length),
+    one more ``moe_run`` with router "cg": a prefill of that many tokens
+    and no decode step, past ``attn_chunk_threshold`` at (2, 4,096), so
+    every layer's attention takes ``chunked_attention``. (ii)
+    ``launch/serve.py``'s ``ServingEngine`` over the same model with 4
+    replicas, one slow, serving 64 requests. ``smoke`` takes the smoke
+    config instead, for a rehearsal on the CPU. Returns the report."""
     import torch
     from repro_torch.models import model_zoo as zoo
     cfg = moe_config(n_layers, smoke)
@@ -1622,6 +1734,13 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
              f"{runs[1]['drop_frac']})")
     log(f"  drop_frac CG {runs[0]['drop_frac']:.4f} vs top-k "
         f"{runs[1]['drop_frac']:.4f}")
+    long = None
+    if long_prompt:
+        long_tokens = torch.randint(0, cfg.vocab, long_prompt, generator=gen,
+                                    device=dev, dtype=torch.int32)
+        zoo.prefill_step(model, cfg, {"tokens": long_tokens})   # warm-up
+        long = moe_run(model, cfg, long_tokens, 0, dev, check_launches)
+        del long_tokens
 
     # (ii) serving: 4 replicas of the model, one slow, 64 requests
     serving = serve_model("moe", cfg, model, dev, seed,
@@ -1630,7 +1749,7 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else 0.0)
     return dict(arch=cfg.arch_id, n_layers=cfg.n_layers, params=n_params,
-                peak_gb=peak, runs=runs, serving=serving)
+                peak_gb=peak, runs=runs, long=long, serving=serving)
 
 
 def greedy_logits(model, cfg, tokens, steps: int = 4) -> list:
@@ -1751,13 +1870,15 @@ def ssm_run(model, cfg, tokens, decode_steps: int, dev,
 def ssm_path(dev, seed: int, arch: str, batch: int = 8,
              seq: int | None = None, decode_steps: int = 32,
              smoke: bool = False, serving: bool = False,
-             check_launches: bool = True) -> dict:
+             check_launches: bool = True,
+             long_seq: int | None = None) -> dict:
     """``arch`` (zamba2-2.7b or mamba2-130m) at its full config, random
     bf16 weights from a seeded ``torch.Generator`` and
     ``use_pallas="auto"``: ``ssm_run`` on ``batch`` random prompts of
     ``seq`` tokens (``SSM_PROMPTS``) after a warm-up of the same shape;
     with ``serving``, ``launch/serve.py``'s ``serve`` over the same
-    model; then the prefill/decode consistency of the same config in f32
+    model; with ``long_seq``, ``long_run`` on ``batch`` prompts of that
+    length; then the prefill/decode consistency of the same config in f32
     (new weights from the same generator) on two of the prompts, where
     no bf16 rounding hides a fault of the cache. ``smoke`` takes the
     smoke config instead, for a rehearsal on the CPU. Returns the
@@ -1798,6 +1919,10 @@ def ssm_path(dev, seed: int, arch: str, batch: int = 8,
     out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                       if dev.type == "cuda" else 0.0)
     log(f"  peak device memory {out['peak_gb']:.2f} GB")
+    if long_seq:
+        out["long"] = long_run(model, cfg, torch.randint(
+            0, cfg.vocab, (batch, long_seq), generator=gen, device=dev,
+            dtype=torch.int32), dev, check_launches)
     del model
     cfg32 = cfg.replace(dtype="float32")
     gap = prefill_decode_gap(zoo.init_params(cfg32, gen, device=dev), cfg32,
@@ -1808,6 +1933,71 @@ def ssm_path(dev, seed: int, arch: str, batch: int = 8,
     out["consistency_f32_rel_err"] = gap
     log(f"  {arch} in f32, 2 x {seq} tokens: prefill(prompt[:-1]) + "
         f"decode(last) vs prefill(prompt): {gap:.3e} relative")
+    return out
+
+
+def long_run(model, cfg, tokens, dev, check_launches: bool = True,
+             decode_steps: int = 4) -> dict:
+    """A long prompt through a Mamba-2 or hybrid model: after a warm-up
+    prefill of the same shape, ``timed_run`` (prefill + ``decode_steps``
+    greedy steps from its cache) with the peak device memory of the
+    timed run; one ``ssd_scan`` launch per SSM layer, and past the
+    hybrid's ``attn_chunk_threshold`` one ``chunked_attention`` call per
+    shared block (``timed_run`` checks those)."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    B, S = tokens.shape
+    zoo.prefill_step(model, cfg, {"tokens": tokens})             # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    name = f"{cfg.arch_id} {cfg.n_layers}L B={B} S={S}"
+    out = timed_run(name, model, cfg, tokens, decode_steps, dev)
+    counts = out["launches"]
+    check_counts(name, counts, "ssd_scan", dev, check_launches)
+    if check_launches and counts["ssd_scan"] != cfg.n_layers:
+        fail(f"{name}: {counts['ssd_scan']} ssd_scan launches, expected one "
+             f"per SSM layer ({cfg.n_layers})")
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                      if dev.type == "cuda" else 0.0)
+    log(f"  {name}: peak device memory {out['peak_gb']:.2f} GB")
+    return out
+
+
+def check_chunked_attention(dev, S: int = 4096) -> dict:
+    """``chunked_attention`` (q and kv chunks of 1,024, the configs') against
+    ``dense_attention`` on the card in f32, causal, batch 1, S tokens, at
+    zamba2's attention shape (32 heads of 80, no GQA) and qwen3-moe's (64
+    query and 4 KV heads of 128): max|a − b| ≤ 1e-5 · max|dense| (the two
+    differ only in the order of their sums); each timed once."""
+    import torch
+    from repro_torch.models.layers import chunked_attention, dense_attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for arch, H, KV, Dh in (("zamba2-2.7b", 32, 32, 80),
+                            ("qwen3-moe-235b-a22b", 64, 4, 128)):
+        q = torch.randn((1, S, H, Dh), generator=gen, device=dev)
+        k, v = (torch.randn((1, S, KV, Dh), generator=gen, device=dev)
+                for _ in range(2))
+        ms = {}
+        res = {}
+        for name, fn in (("chunked", lambda: chunked_attention(
+                              q, k, v, causal=True, q_chunk=1024,
+                              kv_chunk=1024)),
+                         ("dense", lambda: dense_attention(q, k, v,
+                                                           causal=True))):
+            res[name] = fn()
+            ms[name] = cuda_ms(fn, reps=1, warmup=0)
+        err = relerr(res["dense"], res["chunked"])
+        if not err <= 1e-5:
+            fail(f"chunked_attention at {arch}'s shape differs from "
+                 f"dense_attention by {err:.3e} relative")
+        out[arch] = dict(rel_err=err, chunked_ms=ms["chunked"],
+                         dense_ms=ms["dense"])
+        log(f"  chunked vs dense attention, {arch} shape 1 x {S} x {H}/{KV}"
+            f" heads x {Dh}, f32: max rel err {err:.3e}; chunked "
+            f"{ms['chunked']:.2f} ms, dense {ms['dense']:.2f} ms")
+        del q, k, v, res
     return out
 
 
@@ -1916,7 +2106,11 @@ def main() -> int:
                               check_assign_fallback(wp_keys, dev)),
            "porc_multisource_strict": check_multisource_strict(streams2,
                                                                dev),
+
            "cg_dispatch": check_dispatch(dev)}
+    edges = check_strict_edges(wp_keys, dev)
+    for name in ("porc_assign", "porc_multisource_strict"):
+        err[name] = max(err[name], edges)
     ssd_err = check_ssd(dev)
     err["ssd_scan"] = ssd_err["max_abs_err"]
     timing = {
@@ -1937,7 +2131,8 @@ def main() -> int:
     timing["ssd_scan[mamba2]"] = time_ssd(dev, *mamba2)
     for name, t in timing.items():
         b, by = bound(t)
-        extra = (f", {t['ranks_per_block']:.2f} ranks per block"
+        extra = (f", {t['ranks_per_block']:.2f} ranks per block, "
+                 f"{t['ns_per_rank']:.1f} ns per rank"
                  if "ranks_per_block" in t else
                  f", {t['bids']} bids, drop frac {t['drop_frac']:.4f}"
                  if "bids" in t else "")
@@ -1968,18 +2163,22 @@ def main() -> int:
 
     # 6. serving a CG-routed MoE model
     log(f"== MoE: {MOE_ARCH} at full width, 8 of 94 layers: prefill_step "
-        "+ decode_step (router cg and topk), then launch/serve.py's "
-        "ServingEngine")
-    moe = moe_path(dev, args.seed)
+        "+ decode_step (router cg and topk), a 2 x 4,096 prefill past the "
+        "attention threshold, then launch/serve.py's ServingEngine")
+    moe = moe_path(dev, args.seed, long_prompt=(2, 4096))
     moe["reference"] = moe_reference_check(dev, args.seed)
     log(f"  peak device memory {moe['peak_gb']:.1f} GB")
 
     # 7. serving Mamba-2 and the zamba2 hybrid
-    log("== Mamba-2: (k) zamba2-2.7b and (l) mamba2-130m at full size: "
-        "prefill_step + decode_step; (m) launch/serve.py's ServingEngine "
-        "over (k); (n) the smoke configs, card vs CPU")
+    log("== Mamba-2: chunked vs dense attention at 4,096 tokens; (k) "
+        "zamba2-2.7b and (l) mamba2-130m at full size: prefill_step + "
+        "decode_step; (m) launch/serve.py's ServingEngine over (k); (o) "
+        "(k)'s model on 8 x 4,096 prompts; (n) the smoke configs, card vs "
+        "CPU")
     t7 = time.perf_counter()
-    ssm = [ssm_path(dev, args.seed, "zamba2-2.7b", serving=True),
+    attn = check_chunked_attention(dev)
+    ssm = [ssm_path(dev, args.seed, "zamba2-2.7b", serving=True,
+                    long_seq=4096),
            ssm_path(dev, args.seed, "mamba2-130m")]
     ssm_ref = ssm_reference_check(dev, args.seed)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
@@ -1992,9 +2191,11 @@ def main() -> int:
     launches["porc_multisource_scan_hh"] += serving["hh_launches"]
     launches["porc_assign"] += sum(r["porc_assign_launches"]
                                    for r in schemes)
-    launches["cg_dispatch"] = sum(r["launches"]["cg_dispatch"]
-                                  for r in moe["runs"] + [moe["serving"]])
-    launches["ssd_scan"] = sum(r["run"]["launches"]["ssd_scan"] for r in ssm)
+    launches["cg_dispatch"] = sum(
+        r["launches"]["cg_dispatch"]
+        for r in moe["runs"] + [moe["long"], moe["serving"]])
+    launches["ssd_scan"] = sum(r[k]["launches"]["ssd_scan"] for r in ssm
+                               for k in ("run", "long") if k in r)
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -2026,7 +2227,8 @@ def main() -> int:
         args.out.write_text(json.dumps(dict(
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
-            ssm=ssm, ssm_reference=ssm_ref, kernels=kernels),
+            chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
+            kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,18 @@ def _lib():
     return lib
 
 
-def _scratch(n_items: int, n_bins: int, dev):
-    """Scratch of a launch: the bids of one step (used when they do not
-    fit in shared memory) and the stable load order of the leftover
+# warps of the multisource kernel's CTA, one routing list each
+# (kStrictWarps in csrc/porc_assign.cu)
+_STRICT_WARPS = 32
+
+
+def _scratch(n_lists: int, block: int, n_bins: int, dev):
+    """Scratch of a launch: the routing warps' lists of still-bidding
+    keys, 16 bytes a key of a block for each warp (used when they do not
+    fit in shared memory), and the stable load order of the leftover
     fallback (a power-of-two bitonic network)."""
     sort_n = 1 << max(n_bins - 1, 0).bit_length()
-    return (torch.empty(n_items, dtype=torch.int32, device=dev),
+    return (torch.empty(4 * n_lists * block, dtype=torch.int32, device=dev),
             torch.empty(sort_n, dtype=torch.int64, device=dev), sort_n)
 
 
@@ -76,11 +82,11 @@ def porc_assign(keys: torch.Tensor, n_bins: int, *, d: int | None = None,
     m0 = device_scalar(m0, torch.float32, dev)
     assign = torch.empty(M, dtype=torch.int32, device=dev)
     load = torch.empty(n_bins, dtype=torch.float32, device=dev)
-    bid, order, sort_n = _scratch(block, n_bins, dev)
+    lists, order, sort_n = _scratch(1, block, n_bins, dev)
     err = _lib().porc_assign_launch(
         keys.data_ptr(), load0.data_ptr(), m0.data_ptr(), assign.data_ptr(),
-        load.data_ptr(), bid.data_ptr(), order.data_ptr(), M // block, block,
-        n_bins, d, sort_n, cap_scale(eps, n_bins),
+        load.data_ptr(), lists.data_ptr(), order.data_ptr(), M // block,
+        block, n_bins, d, sort_n, cap_scale(eps, n_bins),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_assign")
     porc_assign.launches += 1
@@ -123,11 +129,13 @@ def porc_multisource_strict(keys: torch.Tensor, n_bins: int, n_sources: int,
     base = torch.empty(n_bins, dtype=torch.float32, device=dev)
     delta = torch.empty((S, n_bins), dtype=torch.float32, device=dev)
     ticks = torch.empty((), dtype=torch.int32, device=dev)
-    bid, order, sort_n = _scratch(S * block, n_bins, dev)
+    lists, order, sort_n = _scratch(min(S, _STRICT_WARPS), block, n_bins,
+                                    dev)
     err = _lib().porc_multisource_strict_launch(
         keys.data_ptr(), base0.data_ptr(), delta0.data_ptr(),
         ticks0.data_ptr(), assign.data_ptr(), base.data_ptr(),
-        delta.data_ptr(), ticks.data_ptr(), bid.data_ptr(), order.data_ptr(),
+        delta.data_ptr(), ticks.data_ptr(), lists.data_ptr(),
+        order.data_ptr(),
         M // (S * block), S, block, n_bins, sync_every, sort_n,
         cap_scale(eps, n_bins), float(np.float32(block / S)),
         torch.cuda.current_stream(dev).cuda_stream)

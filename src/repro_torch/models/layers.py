@@ -7,17 +7,16 @@ attention sub-layer's weights under the names of the JAX package's
 module of its ``mlp_params`` dict (``w1``, ``w3``, ``w2``); the functions
 read a module's weights as attributes.
 
-Only what the MoE, Mamba-2 and hybrid archs run is here. Left out: ``shard_act`` and the
-activation-sharding rules, which are the identity on one device (the
-port runs on one device; the mesh tier is ROADMAP Queue 1 item 7); the
-``rmsnorm`` custom VJP, which comes with training (ROADMAP Queue 1
-item 8b) — here the norm is a forward function; ``chunked_attention``,
-which ``attention`` would take above ``cfg.attn_chunk_threshold`` and
-which also waits for item 8b: ``attention`` raises there rather than
-take the dense path. ``layernorm``, biases, the sliding window and its
-local/global flag, a query offset, a decode window's lower bound and
-cross-attention's precomputed k/v belong to the dense, audio and VLM
-families (ROADMAP Queue 1 item 10) and come with them.
+Only what the MoE, Mamba-2 and hybrid archs run is here. Left out:
+``shard_act`` and the activation-sharding rules, which are the identity
+on one device (the port runs on one device; the mesh tier is ROADMAP
+Queue 1 item 7); the ``rmsnorm`` custom VJP and the rematerialisation of
+the chunked attention's scan, which come with training (ROADMAP Queue 1
+item 8b) — here the norm and the attention are forward functions.
+``layernorm``, biases, the sliding window and its local/global flag, a
+query offset, a decode window's lower bound and cross-attention's
+precomputed k/v belong to the dense, audio and VLM families (ROADMAP
+Queue 1 item 10) and come with them.
 """
 from __future__ import annotations
 
@@ -107,6 +106,106 @@ def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     del s
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def _chunks(S: int, chunk: int, what: str) -> int:
+    """How many chunks of ``chunk`` cut ``S``; the reference reshapes S
+    into them, so a length they do not divide is refused."""
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"chunked_attention: {what} length {S} is not a "
+                         f"multiple of its chunk {chunk}")
+    return S // chunk
+
+
+def _online_step(qc, kc, vc, mask, m, l, acc, scale):
+    """One kv chunk of the online softmax: f32 scores of ``qc``
+    [B, qc, H, Dh] against ``kc``/``vc`` [B, kc, H, Dh], the positions
+    where ``mask`` [qc, kc] is False (if given) set to ``_NEG``, folded
+    into the running max ``m``, sum ``l`` [B, H, qc] and ``acc``
+    [B, H, qc, Dh]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qc.to(torch.float32),
+                     kc.to(torch.float32)) * scale
+    if mask is not None:
+        s.masked_fill_(~mask, _NEG)  # in place: s is this step's own
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    del s
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                               vc.to(torch.float32))
+    return m_new, l, acc
+
+
+def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
+           kv_blocks) -> torch.Tensor:
+    """Every q chunk i over the first ``kv_blocks(i)`` kv chunks, with
+    the causal mask on absolute positions when ``causal``; the running
+    max starts at ``_NEG`` and the output is acc / max(l, 1e-30)."""
+    B, Sq, H, Dh = q.shape
+    nq = _chunks(Sq, q_chunk, "query")
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    scale = _scale(Dh)
+    dev = q.device
+    ar_q = torch.arange(q_chunk, device=dev)
+    ar_k = torch.arange(kv_chunk, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = []
+    for i in range(nq):
+        qc = q[:, i * q_chunk:(i + 1) * q_chunk]
+        m = torch.full((B, H, q_chunk), _NEG, **f32)
+        l = torch.zeros((B, H, q_chunk), **f32)
+        acc = torch.zeros((B, H, q_chunk, Dh), **f32)
+        for j in range(kv_blocks(i)):
+            mask = ((i * q_chunk + ar_q)[:, None]
+                    >= (j * kv_chunk + ar_k)[None, :]) if causal else None
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            m, l, acc = _online_step(qc, k[:, ks], v[:, ks], mask, m, l,
+                                     acc, scale)
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None])
+                    .transpose(1, 2))                    # [B, qc, H, Dh]
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _chunked_attn_body(q, k, v, causal: bool, q_chunk: int,
+                       kv_chunk: int) -> torch.Tensor:
+    """The rectangular sweep: every q chunk over every kv chunk."""
+    nk = _chunks(k.shape[1], kv_chunk, "key")
+    return _sweep(q, k, v, causal, q_chunk, kv_chunk, lambda i: nk)
+
+
+def _chunked_attn_tri(q, k, v, q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """The triangular causal schedule: per q chunk, exactly the causal
+    kv-chunk prefix."""
+    Sq = q.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sq)
+    _chunks(Sq, kv_chunk, "key")
+    return _sweep(q, k, v, True, q_chunk, kv_chunk,
+                  lambda i: -(-(i + 1) * q_chunk // kv_chunk))   # ceil
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over q and kv chunks: the S² score matrix
+    never lives whole, only one [B, H, q_chunk, kv_chunk] f32 tile.
+
+    q: [B, Sq, H, Dh]; k, v: [B, Sk, KV, Dh]. Returns [B, Sq, H, Dh].
+    Causal self-attention (Sq == Sk) takes the triangular schedule, the
+    rest the rectangular sweep, as in the reference; chunk lengths that
+    do not divide their sequence raise ``ValueError``. Each call adds one
+    to ``chunked_attention.calls``.
+    """
+    chunked_attention.calls += 1
+    if causal and q.shape[1] == k.shape[1]:
+        return _chunked_attn_tri(q, k, v, q_chunk, kv_chunk)
+    return _chunked_attn_body(q, k, v, causal, q_chunk, kv_chunk)
+
+
+# calls, summed: ``chip_smoke.py`` reads here that a long prompt's
+# prefill took the chunked path
+chunked_attention.calls = 0
 
 
 def decode_attention(q, k_cache, v_cache, valid_len) -> torch.Tensor:
@@ -215,17 +314,17 @@ def attention(x, p, cfg, *, positions, causal=True, return_kv=False):
     """
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if S > cfg.attn_chunk_threshold:
-        raise NotImplementedError(
-            f"sequence {S} > attn_chunk_threshold "
-            f"{cfg.attn_chunk_threshold}: chunked_attention is not ported "
-            "yet (ROADMAP Queue 1 item 8b)")
     q = linear(x, p.wq).reshape(B, S, H, Dh)
     k = linear(x, p.wk).reshape(B, S, KV, Dh)
     v = linear(x, p.wv).reshape(B, S, KV, Dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = dense_attention(q, k, v, causal=causal)
+    if max(S, k.shape[1]) > cfg.attn_chunk_threshold:
+        out = chunked_attention(q, k, v, causal=causal,
+                                q_chunk=min(cfg.q_chunk, S),
+                                kv_chunk=min(cfg.kv_chunk, k.shape[1]))
+    else:
+        out = dense_attention(q, k, v, causal=causal)
     out = linear(out.reshape(B, S, H * Dh), p.wo)
     if return_kv:
         return out, (k, v)

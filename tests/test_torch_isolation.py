@@ -103,7 +103,8 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.convert",
                                     "repro_torch.kernels.ssd_scan",
                                     "repro_torch.models.mamba2",
-                                    "repro_torch.models.hybrid"])
+                                    "repro_torch.models.hybrid",
+                                    "repro_torch.models.layers"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""

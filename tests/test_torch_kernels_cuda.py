@@ -285,6 +285,64 @@ def test_multisource_strict_s1_equals_assign_kernel(dev):
     assert torch.equal(s_m.base + s_m.delta.sum(0), s_r.load)
 
 
+def edge_keys(kind, m, dev):
+    """The zipf stream, or one key repeated: then every key of a block
+    bids the same bin at every rank and positions reach block − 1."""
+    keys = zipf_keys(m, dev, seed=7)
+    return keys if kind == "zipf" else torch.full_like(keys, int(keys[0]))
+
+
+@pytest.mark.parametrize("kind,block,n_bins", [
+    ("zipf", 1, 8), ("zipf", 33, 100), ("zipf", 1000, 8),
+    ("zipf", 33, 60_000), ("zipf", 1000, 60_000),
+    ("one_key", 1, 8), ("one_key", 33, 8), ("one_key", 128, 100),
+    ("one_key", 1000, 8), ("one_key", 1000, 100)])
+def test_assign_kernel_edges(dev, kind, block, n_bins):
+    """Blocks of 1, 33 (one warp and a lane) and 1,000 keys, one key
+    repeated, and 60,000 bins (the load through L2), from a (load0, m0)
+    continuation."""
+    keys = edge_keys(kind, block * (64 if block == 1 else 4), dev)
+    load0 = torch.arange(n_bins, device=dev, dtype=torch.float32) % 7
+    m0 = load0.sum()
+    got = porc_assign(keys, n_bins, block=block, eps=0.01, load0=load0,
+                      m0=m0)
+    want = ref.ref_porc_assign(keys, n_bins, block=block, eps=0.01,
+                               load0=load0, m0=m0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind,n_sources,block,n_bins,eps", [
+    ("zipf", 1, 1000, 8, 0.01), ("zipf", 7, 33, 10_000, 0.01),
+    ("zipf", 100, 1, 8, 0.01), ("zipf", 100, 33, 8, 0.01),
+    ("zipf", 100, 128, 10_000, 0.01), ("zipf", 100, 1000, 8, 0.01),
+    ("one_key", 7, 1000, 8, 0.01), ("one_key", 100, 128, 8, 0.01),
+    ("one_key", 7, 33, 8, 0.0)])
+def test_multisource_strict_kernel_edges(dev, kind, n_sources, block,
+                                         n_bins, eps):
+    """Source-major warps at S 1, 7 and 100 (S 100 at block 1,000 keeps
+    the bidder lists in global memory, 10,000 bins at S 7 and 100 the
+    views), one key repeated (at 8 bins the 32 ranks leave keys to the
+    leftover fallback), two steps with a merge between, from a (base,
+    delta, ticks) continuation."""
+    S = n_sources
+    keys = edge_keys(kind, 2 * S * block, dev)
+    base0 = torch.arange(n_bins, device=dev, dtype=torch.float32) % 5
+    delta0 = (torch.arange(S * n_bins, device=dev, dtype=torch.float32)
+              % 3).reshape(S, n_bins)
+    ticks0 = torch.tensor(1, dtype=torch.int32, device=dev)
+    tally = ref._porc_block.tally
+    left0 = tally["leftovers"]
+    want = ref._porc_multisource_scan(keys, n_bins, S, 2, block, eps, 8,
+                                      "strict", base0, delta0, ticks0)[:4]
+    if kind == "one_key" and n_bins == 8:
+        assert tally["leftovers"] > left0
+    got = porc_multisource_strict(keys, n_bins, S, 2, block, eps, base0,
+                                  delta0, ticks0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
 def test_strict_wrappers_check_their_inputs(dev):
     keys = zipf_keys(256, dev)
     with pytest.raises(ValueError):
