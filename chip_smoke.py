@@ -12,17 +12,25 @@ Phases:
      ``nvcc`` each, started together) into
      ``build/repro_torch_kernels/``;
   3. kernels: holds ``porc_snapshot``, ``porc_multisource_scan`` and its
-     HHPolicy branch, ``porc_assign`` and ``porc_multisource_strict``
-     against their plain torch versions on the card, bit for bit, on WP-
-     and TW-profile streams, ``cg_dispatch`` over the JAX tests' grid
+     HHPolicy branch (over the cluster grid: S 1, 7, 8, 9, 17, 100 ×
+     n_bins 8, 480, 1,000, 60,000 × sync 1, 3 × block 1, 16, 128, every
+     HHPolicy of ``hh_policy``), ``porc_assign`` and
+     ``porc_multisource_strict`` against their plain torch versions on
+     the card, bit for bit, on WP- and TW-profile streams, and prints
+     each launch plan of ``porc_multisource_scan`` (grid, cluster,
+     shared-memory bytes); ``cg_dispatch`` over the JAX tests' grid
      and the MoE path's prefill and decode shapes, and ``ssd_scan`` (y
      and the final state) against the sequential ``ref_ssd_scan`` and
      the plain ``ssd_chunked`` within the JAX tests' tolerances, over
      their grid, chunk invariance, C ≡ 0 and both Mamba-2 models'
      prefill shapes; the strict kernels also over edge grids (blocks of
      1 to 1,000, S 1, 7 and 100, one key repeated, the L2 paths, the
-     leftover fallback); times each at the main path's shapes (the
-     strict ones also in ns per rank);
+     leftover fallback); times each at the main path's shapes, every
+     kernel both ways: ``ms`` between CUDA events (host issue included)
+     and ``device_ms``, the kernel's own device time (``kernel_ms``,
+     ``torch.profiler``); the strict ones also in ns per rank,
+     ``porc_multisource_scan`` also over the five spans of one (c) slot
+     and at Fig 11's shape;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -193,6 +201,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int, match: str) -> float:
+    """Mean device time of one kernel launch over ``reps`` calls of
+    ``fn``: the summed intervals of the CUDA kernels whose name holds
+    ``match`` in a ``torch.profiler`` trace, over their count. Unlike
+    ``cuda_ms`` it leaves out the gaps in which the device waits for the
+    host to issue the next launch. A trace may drop a record at its edge:
+    one that holds fewer than ``reps`` - 1 launches is taken again, up to
+    three times; one that holds more than ``reps`` fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if match in e.key]
+        count = sum(e.count for e in hits)
+        counts.append(count)
+        if count > reps:
+            break
+        if count >= reps - 1:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    fail(f"kernel_ms: {counts} launches of {match!r} in the traces of "
+         f"{reps} calls each")
+
+
 def probes_used(keys, assign, n_bins: int, chunk: int):
     """Probes each key of a block>1 call walked: the first salt whose
     candidate is its assignment, or the whole chunk (fallback)."""
@@ -261,33 +298,89 @@ def check_snapshot(keys, dev) -> float:
     return err
 
 
-def check_multisource(keys, dev) -> float:
-    """porc_multisource_scan kernel vs _porc_multisource_scan, bit for
-    bit, through the span driver with a ragged tail and a state carry."""
+# The cluster grid of porc_multisource_scan, both branches: sources
+# around the cluster size of 8, views from 8 bins to 60,000 (loads in
+# global memory), blocks 1, 16 and 128
+MS_SOURCES = (1, 7, 8, 9, 17, 100)
+MS_BINS = (8, 480, 1000, 60_000)
+MS_SYNC = (1, 3)
+MS_BLOCKS = (1, 16, 128)
+
+
+def ms_lengths(S: int, block: int, sync: int) -> tuple[int, int]:
+    """(m, split) of a grid case: five blocks per source, a ragged
+    remainder of 77 mod block per source (power-of-two spans: 64, 8, 4,
+    1 at block 128; 8, 4, 1 at 16) and a sub-S tail. With sync 3 the
+    first call ends at a step boundary, so the second enters mid-phase
+    (ticks 2, lanes and sketch lanes non-zero); with sync 1 it ends with
+    ragged spans and a sub-S tail of its own."""
+    m = S * block * 5 + S * (77 % block) + (S // 2 if S > 1 else 0)
+    if sync == 1:
+        return m, S * block * 2 + S * (3 % block) + S // 3
+    return m, S * block * 2
+
+
+def run_both(keys, n, S, sync, block, split, m, dev, pol=None) -> dict:
+    """ref_porc_multisource on the kernel and on the plain engine, the
+    state carried across a split at ``split``."""
     import torch
     from repro_torch.kernels import ref
+    out = {}
+    for eng in ("cuda", "snapshot"):
+        a1, st = ref.ref_porc_multisource(
+            keys[:split], n, S, sync_every=sync, block=block, eps=0.01,
+            engine=eng, policy=pol, device=dev)
+        a2, st = ref.ref_porc_multisource(
+            keys[split:m], n, S, sync_every=sync, block=block, eps=0.01,
+            state=st, engine=eng, policy=pol, device=dev)
+        out[eng] = (torch.cat([a1, a2]),) + tuple(st)
+    return out
+
+
+MS_FIELDS = ("assign", "base", "delta", "routed", "ticks", "sketch_base",
+             "sketch_delta")
+
+
+def check_multisource(streams: dict, dev) -> float:
+    """porc_multisource_scan kernel vs _porc_multisource_scan, bit for
+    bit, through the span driver with a ragged tail and a state carry,
+    over streams × S × n_bins × sync × block (the cluster grid)."""
     err = 0.0
-    for S, n in ((1, 100), (8, 480), (100, 1000)):
-        for sync in (1, 3):
-            m = S * 128 * 5 + S * 77 + (S // 2 if S > 1 else 0)
-            split = S * 128 * 2 + S * 3 + (S // 3)
-            out = {}
-            for eng in ("cuda", "snapshot"):
-                a1, st = ref.ref_porc_multisource(
-                    keys[:split], n, S, sync_every=sync, block=128, eps=0.01,
-                    engine=eng, device=dev)
-                a2, st = ref.ref_porc_multisource(
-                    keys[split:m], n, S, sync_every=sync, block=128,
-                    eps=0.01, state=st, engine=eng, device=dev)
-                out[eng] = (torch.cat([a1, a2]), st.base, st.delta,
-                            st.routed, st.ticks)
-            for what, x, y in zip(("assign", "base", "delta", "routed",
-                                   "ticks"), out["cuda"], out["snapshot"]):
-                err = max(err, _same(f"multisource S={S} n={n} sync={sync} "
-                                     f"{what}", x, y))
-            log(f"  porc_multisource_scan S={S:>3} n_bins={n:>5} "
-                f"sync={sync}: identical ({m} messages)")
+    for sname, keys in streams.items():
+        for S in MS_SOURCES:
+            for n in MS_BINS:
+                for sync in MS_SYNC:
+                    for block in MS_BLOCKS:
+                        m, split = ms_lengths(S, block, sync)
+                        out = run_both(keys, n, S, sync, block, split, m, dev)
+                        for what, x, y in zip(MS_FIELDS, out["cuda"],
+                                              out["snapshot"]):
+                            if x is not None or y is not None:
+                                err = max(err, _same(
+                                    f"multisource {sname} S={S} n={n} "
+                                    f"sync={sync} block={block} {what}",
+                                    x, y))
+            log(f"  porc_multisource_scan {sname} S={S:>3}: identical over "
+                f"n_bins {MS_BINS} x sync {MS_SYNC} x block {MS_BLOCKS}")
     return err
+
+
+def log_plans(title: str):
+    """One line per launch plan of porc_multisource_scan counted since
+    the counters were last cleared: grid, cluster, threads, shared-memory
+    bytes and where the state lives."""
+    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
+    for plan, count in sorted(porc_multisource_scan.plans.items()):
+        where = "loads " + ("shared" if plan.loads_smem else "global")
+        if plan.branch == "hh":
+            where += ", sketch " + ("shared" if plan.sketch_smem
+                                    else "global")
+        log(f"  launch plan ({title}) porc_multisource_scan[{plan.branch}]:"
+            f" grid {plan.cluster}, cluster {plan.cluster}, "
+            f"{plan.threads} threads, {plan.smem_bytes} B shared memory, "
+            f"{plan.lanes_per_cta} sources per CTA, {where}; {count} "
+            f"launches")
+    porc_multisource_scan.plans.clear()
 
 
 def time_snapshot(keys, dev, n: int, slot: int, block: int) -> dict:
@@ -301,39 +394,91 @@ def time_snapshot(keys, dev, n: int, slot: int, block: int) -> dict:
     m0 = torch.zeros((), device=dev)
     ms = cuda_ms(lambda: porc_snapshot(k, n, block=block, eps=0.01,
                                           load0=load0, m0=m0), reps=50)
+    device_ms = kernel_ms(lambda: porc_snapshot(
+        k, n, block=block, eps=0.01, load0=load0, m0=m0), 50,
+        "porc_snapshot_kernel")
     plain_ms = cuda_ms(lambda: ref.ref_porc_snapshot(
         k, n, block=block, eps=0.01, load0=load0, m0=m0), reps=3, warmup=1)
     a, _ = porc_snapshot(k, n, block=block, eps=0.01, load0=load0, m0=m0)
     nbytes = 4 * M * 2 + 4 * n * 2 + 4
     ops = probes_used(k, a, n, 8) * OPS_PER_PROBE + M
     return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
-                plain_ms=plain_ms, bytes=nbytes, ops=ops)
+                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops)
+
+
+def time_ms(keys, dev, n: int, S: int, block: int, steps: int, pol=None,
+            sync: int = 1, warm: int = 0, plain: bool = True) -> dict:
+    """porc_multisource_scan (``pol``: its HHPolicy branch) on one span
+    of ``steps`` steps of ``block`` keys per source, from the state the
+    first ``warm`` messages leave (span driver on the card, block 128,
+    sync 1): ``ms``, the time per call between CUDA events over 50 calls
+    (``cuda_ms``, host issue included, as every kernel's row is timed);
+    ``device_ms``, the kernel's own device time per launch
+    (``kernel_ms``); the plain engine on the same inputs; and the bytes
+    and operations of the bound."""
+    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
+    from repro_torch.kernels import ref
+    st = ref.multisource_state_init(n, S, pol, device=dev)
+    if warm:
+        _, st = ref.ref_porc_multisource(keys[:warm], n, S, block=128,
+                                         eps=0.01, state=st, engine="cuda",
+                                         policy=pol, device=dev)
+    M = S * block * steps
+    k = keys[warm: warm + M].contiguous()
+    args = (k, n, S, sync, block, 0.01, 8, st.base, st.delta, st.ticks,
+            st.sketch_base, st.sketch_delta, pol)
+    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
+    device_ms = kernel_ms(lambda: porc_multisource_scan(*args), 50,
+                          "porc_multisource")
+    plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
+        *args[:7], "snapshot", *args[7:]), reps=3, warmup=1) if plain \
+        else None
+    shape = f"M={M} S={S} n_bins={n} block={block} steps={steps}"
+    if pol is None:
+        a = porc_multisource_scan(*args)[0]
+        nbytes = 4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
+        ops = (probes_used(k, a, n, 8) * OPS_PER_PROBE + M
+               + steps * (S + 1) * n * 2)
+        return dict(shape=shape, ms=ms, device_ms=device_ms,
+                    plain_ms=plain_ms, bytes=nbytes, ops=ops)
+    D, W = pol.depth, pol.width
+    lanes = (1 + S) * D * W
+    nbytes = (4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
+              + 4 * lanes * 2)                # sketch lanes in and out
+    probes = hh_probes(*args)
+    ops = ((probes + 2 * D * M) * OPS_PER_PROBE        # chain + sketch hashes
+           + M * (2 * D + 1)                           # sketch reads, adds
+           + steps * S * block * block                 # duplicate ranks
+           + steps * (S + 1) * n * 2 + steps * lanes)  # masses, merges
+    return dict(shape=f"{shape} W-Choices chain={n}", ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, probes=probes)
 
 
 def time_multisource(keys, dev, n: int, S: int, slot: int,
                      block: int) -> dict:
     """porc_multisource_scan at the main path's shape: one slot's span
-    of full per-source blocks."""
-    import torch
-    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
+    of full per-source blocks, from the empty state."""
+    return time_ms(keys, dev, n, S, block, slot // S // block)
+
+
+def time_slot_spans(keys, dev, n: int, S: int, slot: int, block: int,
+                    pol=None) -> dict:
+    """Every span of one slot as the span driver cuts it (``block_spans``
+    of the slot's messages per source: at (c) 512, 64, 32, 16 and 1), each
+    timed from the state ten slots leave; ``ms`` is their sum, the
+    kernel's time per slot."""
     from repro_torch.kernels import ref
-    per = slot // S // block * block
-    M = per * S
-    k = keys[:M].contiguous()
-    base0 = torch.zeros(n, device=dev)
-    delta0 = torch.zeros((S, n), device=dev)
-    ticks0 = torch.zeros((), dtype=torch.int32, device=dev)
-    args = (k, n, S, 1, block, 0.01, 8, base0, delta0, ticks0)
-    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
-    plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
-        *args[:7], "snapshot", *args[7:]), reps=3, warmup=1)
-    a = porc_multisource_scan(*args)[0]
-    steps = M // (S * block)
-    nbytes = 4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
-    ops = (probes_used(k, a, n, 8) * OPS_PER_PROBE + M
-           + steps * (S + 1) * n * 2)
-    return dict(shape=f"M={M} S={S} n_bins={n} block={block}", ms=ms,
-                plain_ms=plain_ms, bytes=nbytes, ops=ops)
+    spans = [time_ms(keys, dev, n, S, blk, length // blk, pol,
+                     warm=10 * slot)
+             for _, length, blk in ref.block_spans(slot // S, block)]
+    return dict(shape=f"one slot of {slot} messages, S={S} n_bins={n}, "
+                f"spans {[t['shape'].split(' block=')[1] for t in spans]}"
+                + (" W-Choices" if pol is not None else ""),
+                spans=spans, **{k: sum(t[k] for t in spans)
+                                for k in ("ms", "device_ms", "plain_ms",
+                                          "bytes", "ops")})
 
 
 HH_POLICIES = ("w", "d", "w_no_rotate", "d_chain4_spread",
@@ -366,40 +511,28 @@ def check_multisource_hh(streams: dict, dev) -> float:
     _porc_multisource_scan(policy=...), bit for bit — assignments, base,
     delta, routed, ticks and both sketch lanes — through the span driver
     with a ragged tail and the state carried across two calls, over
-    streams × n_bins {100, 480, 60,000} × S {1, 8} × sync {1, 3} × the
-    policies of ``hh_policy``. 60,000 bins put the views out of shared
-    memory. Also: the kernel split at a step boundary equals one call."""
+    streams × the cluster grid (S × n_bins × sync × block) × every policy
+    of ``hh_policy``. 60,000 bins put the loads in global memory, 17 and
+    100 sources the sketch lanes. Also: the kernel split at a step
+    boundary equals one call."""
     import torch
     from repro_torch.kernels import ref
     err = 0.0
-    fields = ("assign", "base", "delta", "routed", "ticks", "sketch_base",
-              "sketch_delta")
     for sname, keys in streams.items():
-        for n in (100, 480, 60_000):
-            for S in (1, 8):
-                for sync in (1, 3):
-                    m = S * 128 * 5 + S * 77 + (S // 2 if S > 1 else 0)
-                    split = S * 128 * 2 + S * 3 + S // 3
-                    for pname in HH_POLICIES:
-                        pol = hh_policy(pname, n)
-                        out = {}
-                        for eng in ("cuda", "snapshot"):
-                            a1, st = ref.ref_porc_multisource(
-                                keys[:split], n, S, sync_every=sync,
-                                block=128, eps=0.01, engine=eng, policy=pol,
-                                device=dev)
-                            a2, st = ref.ref_porc_multisource(
-                                keys[split:m], n, S, sync_every=sync,
-                                block=128, eps=0.01, state=st, engine=eng,
-                                policy=pol, device=dev)
-                            out[eng] = (torch.cat([a1, a2]), st.base,
-                                        st.delta, st.routed, st.ticks,
-                                        st.sketch_base, st.sketch_delta)
-                        for what, x, y in zip(fields, out["cuda"],
-                                              out["snapshot"]):
-                            err = max(err, _same(
-                                f"HH {sname} {pname} S={S} n={n} sync={sync}"
-                                f" {what}", x, y))
+        for S in MS_SOURCES:
+            for n in MS_BINS:
+                for sync in MS_SYNC:
+                    for block in MS_BLOCKS:
+                        m, split = ms_lengths(S, block, sync)
+                        for pname in HH_POLICIES:
+                            out = run_both(keys, n, S, sync, block, split, m,
+                                           dev, hh_policy(pname, n))
+                            for what, x, y in zip(MS_FIELDS, out["cuda"],
+                                                  out["snapshot"]):
+                                err = max(err, _same(
+                                    f"HH {sname} {pname} S={S} n={n} "
+                                    f"sync={sync} block={block} {what}",
+                                    x, y))
                     # split at a step boundary == one call, on the kernel
                     pol = hh_policy("w", n)
                     aligned = S * 128 * 4
@@ -413,13 +546,13 @@ def check_multisource_hh(streams: dict, dev) -> float:
                             eps=0.01, state=st2, engine="cuda", policy=pol,
                             device=dev)
                         parts.append(a)
-                    for what, x, y in zip(fields, (one,) + tuple(st1),
+                    for what, x, y in zip(MS_FIELDS, (one,) + tuple(st1),
                                           (torch.cat(parts),) + tuple(st2)):
                         _same(f"HH split {sname} S={S} n={n} sync={sync} "
                               f"{what}", x, y)
-                    log(f"  HHPolicy {sname} n_bins={n:>6} S={S} "
-                        f"sync={sync}: {len(HH_POLICIES)} policies identical"
-                        f" ({m} messages); split == one call")
+            log(f"  HHPolicy {sname} S={S:>3}: {len(HH_POLICIES)} policies "
+                f"identical over n_bins {MS_BINS} x sync {MS_SYNC} x block "
+                f"{MS_BLOCKS}; split == one call")
     return err
 
 
@@ -478,35 +611,9 @@ def time_multisource_hh(keys, dev, n: int, S: int, slot: int,
     """The HHPolicy branch at the main path's span shape (one slot's
     128-block span, W-Choices chain of n_bins candidates), from a state
     warmed by ten slots of the same stream."""
-    from repro_torch.kernels.porc_snapshot import porc_multisource_scan
-    from repro_torch.kernels import ref
     from repro_torch.kernels.blocks import HHPolicy
-    pol = HHPolicy(scheme="w")
-    per = slot // S // block * block
-    M = per * S
-    warm = 10 * slot
-    _, st = ref.ref_porc_multisource(keys[:warm], n, S, block=block,
-                                     eps=0.01, engine="cuda", policy=pol,
-                                     device=dev)
-    k = keys[warm: warm + M].contiguous()
-    args = (k, n, S, 1, block, 0.01, 8, st.base, st.delta, st.ticks,
-            st.sketch_base, st.sketch_delta, pol)
-    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
-    plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
-        *args[:7], "snapshot", *args[7:]), reps=3, warmup=1)
-    steps = M // (S * block)
-    D, W = pol.depth, pol.width
-    lanes = (1 + S) * D * W
-    nbytes = (4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
-              + 4 * lanes * 2)                # sketch lanes in and out
-    probes = hh_probes(*args)
-    ops = ((probes + 2 * D * M) * OPS_PER_PROBE        # chain + sketch hashes
-           + M * (2 * D + 1)                           # sketch reads, adds
-           + steps * S * block * block                 # duplicate ranks
-           + steps * (S + 1) * n * 2 + steps * lanes)  # masses, merges
-    return dict(shape=f"M={M} S={S} n_bins={n} block={block} W-Choices "
-                f"chain={n}", ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                ops=ops, probes=probes)
+    return time_ms(keys, dev, n, S, block, slot // S // block,
+                   HHPolicy(scheme="w"), warm=10 * slot)
 
 
 # ---------------------------------------------------------------------------
@@ -744,14 +851,16 @@ def time_assign(keys, dev, n: int, slot: int, block: int) -> dict:
     k = keys[warm: warm + M].contiguous()
     args = dict(block=block, eps=0.01, load0=st.load, m0=st.routed)
     ms = cuda_ms(lambda: porc_assign(k, n, **args), reps=20)
+    device_ms = kernel_ms(lambda: porc_assign(k, n, **args), 20,
+                          "porc_assign_kernel")
     plain_ms = cuda_ms(lambda: ref.ref_porc_assign(k, n, **args), reps=2,
                        warmup=1)
     work = strict_work(lambda: ref.ref_porc_assign(k, n, **args))
     nbytes = 4 * M * 2 + 4 * n * 2 + 4
     ops = work["bids"] * (OPS_PER_PROBE + 2) + work["ranks"] * block
     return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
-                plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                ranks_per_block=work["ranks"] / work["blocks"],
+                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, ranks_per_block=work["ranks"] / work["blocks"],
                 ns_per_rank=ms * 1e6 / work["ranks"], **work)
 
 
@@ -770,6 +879,8 @@ def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
     args = (k, n, S, 1, block, 0.01)
     state = (st.base, st.delta, st.ticks)
     ms = cuda_ms(lambda: porc_multisource_strict(*args, *state), reps=10)
+    device_ms = kernel_ms(lambda: porc_multisource_strict(*args, *state),
+                          10, "porc_multisource_strict_kernel")
 
     def plain():
         return ref._porc_multisource_scan(*args, 8, "strict", *state)
@@ -780,7 +891,7 @@ def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
     ops = (work["bids"] * (OPS_PER_PROBE + 2) + work["ranks"] * block
            + steps * (S + 1) * n * 2)                 # masses, merges
     return dict(shape=f"M={M} S={S} n_bins={n} block={block} sync=1", ms=ms,
-                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
                 ranks_per_block=work["ranks"] / work["blocks"],
                 ns_per_rank=ms * 1e6 / work["ranks"], **work)
 
@@ -905,6 +1016,8 @@ def time_dispatch(dev, G: int, T: int, skew: float = 0.0) -> dict:
     pref, gates = dispatch_inputs(G, T, E, D, skew, dev, seed=99)
     args = dict(n_experts=E, k=k, capacity=C, block=min(128, T))
     ms = cuda_ms(lambda: cg_dispatch(pref, gates, **args), reps=50)
+    device_ms = kernel_ms(lambda: cg_dispatch(pref, gates, **args), 50,
+                          "cg_dispatch_kernel")
     plain_ms = cuda_ms(lambda: ref.ref_cg_dispatch(pref, gates, **args),
                        reps=3, warmup=1)
     assign = cg_dispatch(pref, gates, **args)[0]
@@ -917,7 +1030,8 @@ def time_dispatch(dev, G: int, T: int, skew: float = 0.0) -> dict:
     # writes and the load's add; per token the k-term sum and k divisions
     ops = bids * 8 + G * T * 2 * k
     return dict(shape=f"G={G} T={T} E={E} k={k} D={D} C={C} skew={skew}",
-                ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops, bids=bids,
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, bids=bids,
                 drop_frac=float((assign < 0).float().mean()))
 
 
@@ -1060,6 +1174,9 @@ def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
     inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=11)
     ms = cuda_ms(lambda: ssd_scan(*inputs, chunk=Q, return_state=True),
                  reps=20)
+    device_ms = kernel_ms(lambda: ssd_scan(*inputs, chunk=Q,
+                                           return_state=True), 20,
+                          "ssd_scan_kernel")
     plain_ms = cuda_ms(lambda: ssd_chunked(*inputs, Q, return_state=True),
                        reps=3, warmup=1)
     # x, B, C in bf16 and dt, A in f32 read once; y in bf16 and the
@@ -1072,7 +1189,8 @@ def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
     # and the state update [P, N] over Q
     ops = B * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
     return dict(shape=f"{arch} B={B} L={L} H={H} P={P} G={G} N={N} Q={Q} "
-                "bf16", ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+                "bf16", ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bytes=nbytes, ops=ops)
 
 
 def bound(t: dict) -> tuple[float, str]:
@@ -2099,7 +2217,7 @@ def main() -> int:
     tw_keys = sample(TW_TABLE1, args.seed + 1, TW_TABLE1["n_messages"], dev)
     streams2 = {"WP": wp_keys, "TW": tw_keys}
     err = {"porc_snapshot": check_snapshot(wp_keys, dev),
-           "porc_multisource_scan": check_multisource(wp_keys, dev),
+           "porc_multisource_scan": check_multisource(streams2, dev),
            "porc_multisource_scan[HHPolicy]": check_multisource_hh(streams2,
                                                                    dev),
            "porc_assign": max(check_assign(streams2, dev),
@@ -2113,6 +2231,8 @@ def main() -> int:
         err[name] = max(err[name], edges)
     ssd_err = check_ssd(dev)
     err["ssd_scan"] = ssd_err["max_abs_err"]
+    log_plans("phase 3 checks")
+    from repro_torch.kernels.blocks import HHPolicy
     timing = {
         "porc_snapshot": time_snapshot(wp_keys, dev, n=100, slot=10_000,
                                        block=128),
@@ -2120,6 +2240,13 @@ def main() -> int:
                                                   slot=5_000, block=128),
         "porc_multisource_scan[HHPolicy]": time_multisource_hh(
             tw_keys, dev, n=480, S=8, slot=5_000, block=128),
+        "porc_multisource_scan[slot]": time_slot_spans(
+            tw_keys, dev, n=480, S=8, slot=5_000, block=128),
+        "porc_multisource_scan[HHPolicy, slot]": time_slot_spans(
+            tw_keys, dev, n=480, S=8, slot=5_000, block=128,
+            pol=HHPolicy(scheme="w")),
+        "porc_multisource_scan[Fig 11]": time_ms(
+            wp_keys, dev, n=1000, S=100, block=128, steps=10),
         "porc_assign": time_assign(wp_keys, dev, n=100, slot=10_000,
                                    block=128),
         "porc_multisource_strict": time_multisource_strict(
@@ -2129,6 +2256,9 @@ def main() -> int:
     zamba2, mamba2 = ssd_model_shapes()
     timing["ssd_scan"] = time_ssd(dev, *zamba2)
     timing["ssd_scan[mamba2]"] = time_ssd(dev, *mamba2)
+    # zamba2's long prefill, phase 7 (o): 8 × 4,096 tokens
+    timing["ssd_scan[zamba2 8x4096]"] = time_ssd(
+        dev, *zamba2[:2], 4096, *zamba2[3:])
     for name, t in timing.items():
         b, by = bound(t)
         extra = (f", {t['ranks_per_block']:.2f} ranks per block, "
@@ -2136,8 +2266,16 @@ def main() -> int:
                  if "ranks_per_block" in t else
                  f", {t['bids']} bids, drop frac {t['drop_frac']:.4f}"
                  if "bids" in t else "")
-        log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch, "
-            f"plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
+        log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch "
+            f"(CUDA events), {t['device_ms']:.4f} ms device time, plain "
+            f"{t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
+    for name in ("porc_multisource_scan[slot]",
+                 "porc_multisource_scan[HHPolicy, slot]"):
+        log(f"  {name} spans: " + ", ".join(
+            f"{t['shape'].split(' block=')[1]} {t['ms']:.4f} ms "
+            f"({t['device_ms']:.4f} device)"
+            for t in timing[name]["spans"]))
+    log_plans("phase 3 timing")
     log(f"  phases 2-3 took {time.perf_counter() - t_start:.1f} s")
 
     # 4. the main path
@@ -2151,6 +2289,7 @@ def main() -> int:
     del block1_vw
     log("== strict engine: (g) the Fig 11 point, 100 sources × 1,000 VWs")
     fig11 = fig11_path(dev, wp_keys)
+    log_plans("phase 4 main paths")
     log("== partitioner registry: (h) the Fig 7/8 table")
     schemes = schemes_path(dev, wp_keys)
     del wp_keys
@@ -2219,8 +2358,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src, replaces=replaces,
             launches=count, max_abs_err=err[name], ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=b, bound_by=by,
-            library_ms=None))
+            device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=b,
+            bound_by=by, library_ms=None))
     log(f"  the whole run took {time.perf_counter() - t_start:.1f} s")
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

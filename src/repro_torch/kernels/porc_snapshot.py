@@ -11,13 +11,20 @@ so a run can show that its main path went through the kernel;
 ``porc_multisource_scan.hh_launches`` counts the launches of its
 ``HHPolicy`` branch, a kernel of its own.
 
+``porc_multisource_scan`` launches one cluster of G = min(S, 8) CTAs
+per call; ``multisource_plan`` decides from the sizes, before the
+launch, which state lives in shared memory, and
+``porc_multisource_scan.plans`` counts the launches of each plan.
+
 Only full per-source blocks reach these kernels. The ragged sub-S tail
 of ``ref_porc_multisource`` stays plain torch on every device, as the
 reference routes it with jnp too.
 """
 from __future__ import annotations
 
+import collections
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,9 +43,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("porc_snapshot")
     lib.porc_snapshot_launch.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
     lib.porc_snapshot_launch.restype = _I
-    lib.porc_multisource_launch.argtypes = [_P] * 8 + [_I] * 6 + [_F, _F, _P]
+    lib.porc_multisource_launch.argtypes = [_P] * 8 + [_I] * 10 + [_F, _F, _P]
     lib.porc_multisource_launch.restype = _I
-    lib.porc_multisource_hh_launch.argtypes = ([_P] * 14 + [_I] * 13
+    lib.porc_multisource_hh_launch.argtypes = ([_P] * 13 + [_I] * 18
                                                + [_F] * 4 + [_P])
     lib.porc_multisource_hh_launch.restype = _I
     return lib
@@ -83,6 +90,74 @@ def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
 porc_snapshot.launches = 0
 
 
+# the portable cluster size, and the dynamic shared memory a CTA may ask
+# for (csrc/routing.cuh kSmemLimit)
+MAX_CLUSTER = 8
+SMEM_LIMIT = 220 * 1024
+
+
+class MultisourcePlan(NamedTuple):
+    """How one ``porc_multisource_scan`` launch runs: a cluster of
+    ``cluster`` CTAs of ``threads`` threads, CTA g owning sources g,
+    g+cluster, … (at most ``lanes_per_cta``), each with ``smem_bytes`` of
+    dynamic shared memory. ``loads_smem``: the load lanes and the base
+    replica live in shared memory (else in the output buffers);
+    ``sketch_smem``: likewise the sketch lanes and the sketch replica
+    (HHPolicy branch only)."""
+    branch: str
+    cluster: int
+    threads: int
+    lanes_per_cta: int
+    loads_smem: bool
+    sketch_smem: bool
+    smem_bytes: int
+
+
+def _words(count: int) -> int:
+    return -(-count // 4) * 4          # 16-byte aligned regions
+
+
+def multisource_plan(n_sources: int, n_bins: int, block: int,
+                     depth: int = 0, width: int = 0) -> MultisourcePlan:
+    """The launch plan of ``porc_multisource_scan`` for these sizes
+    (``depth``·``width`` > 0: the HHPolicy branch). Sums the regions of
+    ``MSLayout`` in ``csrc/porc_snapshot.cu``, whose launcher refuses a
+    byte count that differs. The loads go to shared memory first (every
+    probe reads them), then the sketch. Raises ``ValueError`` when even
+    the step's staged keys do not fit."""
+    S = n_sources
+    hh = depth * width > 0
+    G = min(S, MAX_CLUSTER)
+    L = -(-S // G)
+    DW = depth * width if hh else 0
+    # staged keys of two steps and their picks; per-lane scalars, the
+    # lane totals of two merges, 32 warp sums and a counter; with a policy
+    # the bitmap of changed sketch cells, the list of those this CTA
+    # merges, and the spread flags
+    fixed = 3 * _words(L * block) + _words(4 * L + 2 * MAX_CLUSTER + 36)
+    if hh:
+        nw = -(-DW // 32)
+        fixed += (2 * _words(nw) + _words(-(-nw // G) * 32)
+                  + _words(L * -(-block // 32)))
+    # base replica, own lanes, own column sums of two merges
+    loads = _words(n_bins) + _words(L * n_bins) + 2 * _words(n_bins)
+    sketch = _words(DW) + _words(L * DW)
+    limit = SMEM_LIMIT // 4
+    if fixed > limit:
+        raise ValueError(f"porc_multisource_scan: {L} sources of block "
+                         f"{block} per CTA do not fit in shared memory")
+    loads_smem = fixed + loads <= limit
+    used = fixed + (loads if loads_smem else 0)
+    sketch_smem = hh and used + sketch <= limit
+    # a policy-free CTA with few keys: its keys plus the argmin warps, at
+    # least 256 threads (fewer warps to wait for at every barrier)
+    threads = 1024 if hh else min(1024, max(256, 32 * -(-(L * block) // 32)
+                                            + 32 * L))
+    return MultisourcePlan("hh" if hh else "plain", G, threads, L,
+                           loads_smem, sketch_smem,
+                           4 * (used + (sketch if sketch_smem else 0)))
+
+
 def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                           sync_every: int, block: int, eps: float,
                           chunk: int, base0, delta0, ticks0,
@@ -118,6 +193,7 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                                policy)
     if skb0 is not None or skd0 is not None:
         raise ValueError("sketch lanes given without an HHPolicy")
+    plan = multisource_plan(S, n_bins, block)
     if M == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
                 delta0.clone(), ticks0 % sync_every, None, None)
@@ -129,16 +205,19 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         keys.data_ptr(), base0.data_ptr(), delta0.data_ptr(),
         ticks0.data_ptr(), assign.data_ptr(), base.data_ptr(),
         delta.data_ptr(), ticks.data_ptr(), M // (S * block), S, block,
-        n_bins, chunk, sync_every, cap_scale(eps, n_bins),
+        n_bins, chunk, sync_every, plan.cluster, plan.threads,
+        int(plan.loads_smem), plan.smem_bytes, cap_scale(eps, n_bins),
         float(np.float32(block / S)),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_multisource_scan")
     porc_multisource_scan.launches += 1
+    porc_multisource_scan.plans[plan] += 1
     return assign, base, delta, ticks, None, None
 
 
 porc_multisource_scan.launches = 0
 porc_multisource_scan.hh_launches = 0
+porc_multisource_scan.plans = collections.Counter()
 
 
 def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
@@ -152,6 +231,7 @@ def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
         raise ValueError(f"bad HHPolicy {policy}")
     check(skb0, "skb0", torch.float32, (D, W), dev)
     check(skd0, "skd0", torch.float32, (S, D, W), dev)
+    plan = multisource_plan(S, n_bins, block, D, W)
     if M == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev), base0.clone(),
                 delta0.clone(), ticks0 % sync_every, skb0.clone(),
@@ -163,26 +243,26 @@ def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
     skb = torch.empty((D, W), dtype=torch.float32, device=dev)
     skd = torch.empty((S, D, W), dtype=torch.float32, device=dev)
     spread = bool(policy.spread_fallback)
-    # scratch of the spread fallback: per-item flags and the stable load
-    # order of one source's view (a power-of-two bitonic network)
+    # scratch of the spread fallback: the stable load order of one
+    # source's view per CTA (a power-of-two bitonic network)
     sort_n = 1 << max(n_bins - 1, 0).bit_length()
-    flags = torch.empty(S * block if spread else 1, dtype=torch.int32,
-                        device=dev)
-    order = torch.empty(sort_n if spread else 1, dtype=torch.int64,
-                        device=dev)
+    order = torch.empty(plan.cluster * sort_n if spread else 1,
+                        dtype=torch.int64, device=dev)
     f32 = np.float32
     err = _lib().porc_multisource_hh_launch(
         keys.data_ptr(), base0.data_ptr(), delta0.data_ptr(),
         ticks0.data_ptr(), skb0.data_ptr(), skd0.data_ptr(),
         assign.data_ptr(), base.data_ptr(), delta.data_ptr(),
-        ticks.data_ptr(), skb.data_ptr(), skd.data_ptr(), flags.data_ptr(),
-        order.data_ptr(), M // (S * block), S, block, n_bins, sync_every,
+        ticks.data_ptr(), skb.data_ptr(), skd.data_ptr(), order.data_ptr(),
+        M // (S * block), S, block, n_bins, sync_every,
         D, W, hh_chunk(policy, chunk, n_bins), policy.d_tail,
         hh_budget_ceiling(policy, n_bins), int(policy.rotate_duplicates),
-        int(spread), sort_n, cap_scale(eps, n_bins),
+        int(spread), sort_n, plan.cluster, plan.threads, int(plan.loads_smem),
+        int(plan.sketch_smem), plan.smem_bytes, cap_scale(eps, n_bins),
         float(f32(block / S)), float(f32(policy.hot_fraction)),
         hh_need_scale(policy, n_bins, eps),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_multisource_scan (HHPolicy)")
     porc_multisource_scan.hh_launches += 1
+    porc_multisource_scan.plans[plan] += 1
     return assign, base, delta, ticks, skb, skd

@@ -201,6 +201,101 @@ def test_hh_wrapper_checks_its_inputs(dev):
 
 
 # ---------------------------------------------------------------------------
+# the cluster layout of both branches: sources around the cluster size of
+# 8, views from 8 bins to 60,000 (loads in global memory), blocks 1-128
+# ---------------------------------------------------------------------------
+
+MS_GRID = [(S, n, sync, block) for S in (1, 7, 8, 9, 17, 100)
+           for n in (8, 480, 1000, 60_000) for sync in (1, 3)
+           for block in (1, 16, 128)]
+
+
+def _both_engines(keys, split, n, S, sync, block, pol, dev):
+    """(assign, state fields) of the kernel and the plain engine, the
+    stream split at a step boundary: with sync 3 the second call enters
+    mid-phase, ticks and the lanes (and sketch lanes) non-zero."""
+    out = {}
+    for eng in ("cuda", "snapshot"):
+        a1, st = ref.ref_porc_multisource(
+            keys[:split], n, S, sync_every=sync, block=block, eps=0.01,
+            engine=eng, policy=pol, device=dev)
+        a2, st = ref.ref_porc_multisource(
+            keys[split:], n, S, sync_every=sync, block=block, eps=0.01,
+            state=st, engine=eng, policy=pol, device=dev)
+        out[eng] = (torch.cat([a1, a2]),) + tuple(
+            x for x in st if x is not None)
+    return out
+
+
+@pytest.mark.parametrize("n_sources,n_bins,sync_every,block", MS_GRID)
+def test_multisource_kernel_grid(dev, n_sources, n_bins, sync_every, block):
+    S = n_sources
+    keys = zipf_keys(S * block * 4 + S * 9 + 1, dev, seed=5)
+    out = _both_engines(keys, S * block * 2, n_bins, S, sync_every, block,
+                        None, dev)
+    for x, y in zip(out["cuda"], out["snapshot"]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", range(len(MS_GRID)))
+def test_multisource_hh_kernel_grid(dev, case):
+    """The HHPolicy branch over the same grid, the policies taken in
+    turn (each meets every S, n and block)."""
+    S, n, sync, block = MS_GRID[case]
+    pol = hh_policy(HH_NAMES[case % len(HH_NAMES)], n)
+    keys = zipf_keys(S * block * 4 + S * 9 + 1, dev, z=1.4, seed=6)
+    out = _both_engines(keys, S * block * 2, n, S, sync, block, pol, dev)
+    for x, y in zip(out["cuda"], out["snapshot"]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n_sources", [1, 9, 17])
+def test_multisource_hh_kernel_rescaled_sketch(dev, n_sources):
+    """A state whose sketch was rescaled (non-integer counts, as
+    ServingEngine's rebase leaves it) entering mid-phase: the first merge
+    adds every non-zero lane cell in source order."""
+    S, n, block = n_sources, 480, 32
+    pol = ref.HHPolicy(scheme="w", width=1024)
+    keys = zipf_keys(S * block * 5, dev, seed=7)
+    rng = np.random.default_rng(8)
+    f = np.float32(0.37)
+    base0 = torch.from_numpy(rng.integers(0, 9, n).astype(np.float32)).to(dev)
+    delta0 = torch.from_numpy(rng.integers(0, 3, (S, n)).astype(
+        np.float32)).to(dev)
+    skb0 = torch.from_numpy(rng.integers(0, 500, (4, 1024)).astype(
+        np.float32) * f).to(dev)
+    skd0 = torch.from_numpy(rng.integers(0, 5, (S, 4, 1024)).astype(
+        np.float32) * f).to(dev)
+    args = (keys, n, S, 3, block, 0.01, 8, base0, delta0,
+            torch.tensor(2, dtype=torch.int32, device=dev), skb0, skd0, pol)
+    got = porc_multisource_scan(*args)
+    want = ref._porc_multisource_scan(*args[:7], "snapshot", *args[7:])
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_multisource_launches_a_cluster(dev):
+    """S > 1 launches a cluster of min(S, 8) CTAs, as the plan says; a
+    block whose staged keys do not fit raises before any launch."""
+    from repro_torch.kernels.porc_snapshot import multisource_plan
+    keys = zipf_keys(9 * 128, dev)
+    before = porc_multisource_scan.plans.copy()
+    porc_multisource_scan(keys, 480, 9, 1, 128, 0.01, 8,
+                          torch.zeros(480, device=dev),
+                          torch.zeros(9, 480, device=dev), 0)
+    plan = multisource_plan(9, 480, 128)
+    assert plan.cluster == 8 and plan.lanes_per_cta == 2
+    assert porc_multisource_scan.plans[plan] == before[plan] + 1
+    launches = porc_multisource_scan.launches
+    big = 1 << 16
+    with pytest.raises(ValueError):
+        porc_multisource_scan(zipf_keys(big, dev), 16, 1, 1, big, 0.01, 8,
+                              torch.zeros(16, device=dev),
+                              torch.zeros(1, 16, device=dev), 0)
+    assert porc_multisource_scan.launches == launches
+
+
+# ---------------------------------------------------------------------------
 # the strict engine: porc_assign and porc_multisource_strict
 # ---------------------------------------------------------------------------
 
