@@ -30,7 +30,10 @@ Phases:
      and ``device_ms``, the kernel's own device time (``kernel_ms``,
      ``torch.profiler``); the strict ones also in ns per rank,
      ``porc_multisource_scan`` also over the five spans of one (c) slot
-     and at Fig 11's shape;
+     and at Fig 11's shape; ``porc_snapshot`` at its three launch shapes
+     on (a) (a slot's 78 blocks of 128, its 16-key tail, a block-1 slot
+     of 10,000 keys) and ``ssd_scan`` at its three prefill shapes, its
+     operations held against the bf16 tensor-core rate;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -111,6 +114,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 # float32 outside the tensor cores.
 OPS_PER_S = 67e12
 OPS_PER_PROBE = 24             # two fmix32 rounds + salt mix, mod, compare
+BF16_TC_OPS_PER_S = 989e12     # bf16 tensor cores, dense
 
 WP_TABLE1 = dict(name="WP", n_messages=22_000_000, n_keys=2_900_000,
                  p1=0.0932, z_tail=1.0, diurnal=True)
@@ -137,6 +141,8 @@ def counters() -> dict:
     from repro_torch.kernels.porc_snapshot import (porc_multisource_scan,
                                                    porc_snapshot)
     return {"porc_snapshot": (porc_snapshot, "launches"),
+            "porc_snapshot_block1": (porc_snapshot.blocks, 1),
+            "porc_snapshot_block128": (porc_snapshot.blocks, 128),
             "porc_multisource_scan": (porc_multisource_scan, "launches"),
             "porc_multisource_scan_hh": (porc_multisource_scan,
                                          "hh_launches"),
@@ -230,15 +236,19 @@ def kernel_ms(fn, reps: int, match: str) -> float:
          f"{reps} calls each")
 
 
-def probes_used(keys, assign, n_bins: int, chunk: int):
-    """Probes each key of a block>1 call walked: the first salt whose
-    candidate is its assignment, or the whole chunk (fallback)."""
+def probes_used(keys, assign, n_bins: int, budget: int):
+    """Probes the keys of a call walked, each up to ``budget`` salts (the
+    chunk at block > 1, the whole chain of 4·n_bins at block 1): the
+    first salt whose candidate is its assignment, or the whole budget
+    (fallback). At block 1 this is exact: a chain that meets the
+    least-loaded bin stops there or earlier, as that bin is under the
+    cap."""
     import torch
     from repro_torch.core.hashing import hash_to_bins
-    salts = torch.arange(1, chunk + 1, device=keys.device)
+    salts = torch.arange(1, budget + 1, device=keys.device)
     hit = hash_to_bins(keys[:, None], salts, n_bins) == assign[:, None]
     first = torch.where(hit.any(1), hit.int().argmax(1) + 1,
-                        torch.full_like(assign, chunk, dtype=torch.int64))
+                        torch.full_like(assign, budget, dtype=torch.int64))
     return int(first.sum())
 
 
@@ -263,8 +273,8 @@ def check_snapshot(keys, dev) -> float:
     from repro_torch.kernels.porc_snapshot import porc_snapshot
     from repro_torch.kernels import ref
     err = 0.0
-    cases = [(n, blk) for n in (100, 480, 1000) for blk in (1, 128)]
-    cases.append((60_000, 128))          # load beyond shared memory
+    # 60,000 bins: the load beyond shared memory
+    cases = [(n, blk) for n in (100, 480, 1000, 60_000) for blk in (1, 128)]
     for n, blk in cases:
         m = 2_000 if blk == 1 else 128 * 200
         k = keys[:m].contiguous()
@@ -383,28 +393,37 @@ def log_plans(title: str):
     porc_multisource_scan.plans.clear()
 
 
-def time_snapshot(keys, dev, n: int, slot: int, block: int) -> dict:
-    """porc_snapshot at the main path's shape: one slot's full blocks."""
-    import torch
+def time_snapshot(keys, dev, n: int, M: int, block: int, warm: int = 0,
+                  warm_block: int = 128, plain: bool = True) -> dict:
+    """porc_snapshot on ``M`` keys in blocks of ``block``, from the state
+    that the first ``warm`` messages leave (the span driver on the card
+    at ``warm_block``): ``ms`` between CUDA events (host issue included),
+    ``device_ms`` the kernel's own device time (``kernel_ms``), the plain
+    engine on the same inputs, and the bytes and operations of the bound.
+    The main path's three launch shapes: a slot's 78 blocks of 128, its
+    16-key tail, and a block-1 slot of 10,000 keys."""
     from repro_torch.kernels.porc_snapshot import porc_snapshot
     from repro_torch.kernels import ref
-    M = slot // block * block
-    k = keys[:M].contiguous()
-    load0 = torch.zeros(n, device=dev)
-    m0 = torch.zeros((), device=dev)
-    ms = cuda_ms(lambda: porc_snapshot(k, n, block=block, eps=0.01,
-                                          load0=load0, m0=m0), reps=50)
-    device_ms = kernel_ms(lambda: porc_snapshot(
-        k, n, block=block, eps=0.01, load0=load0, m0=m0), 50,
-        "porc_snapshot_kernel")
-    plain_ms = cuda_ms(lambda: ref.ref_porc_snapshot(
-        k, n, block=block, eps=0.01, load0=load0, m0=m0), reps=3, warmup=1)
-    a, _ = porc_snapshot(k, n, block=block, eps=0.01, load0=load0, m0=m0)
+    st = ref.porc_state_init(n, device=dev)
+    if warm:
+        _, st = ref.ref_porc_route(keys[:warm], n, block=warm_block,
+                                   eps=0.01, state=st, engine="cuda",
+                                   device=dev)
+    k = keys[warm: warm + M].contiguous()
+    kw = dict(block=block, eps=0.01, load0=st.load, m0=st.routed)
+    reps = 50 if block > 1 else 10
+    ms = cuda_ms(lambda: porc_snapshot(k, n, **kw), reps=reps)
+    device_ms = kernel_ms(lambda: porc_snapshot(k, n, **kw), reps,
+                          "porc_snapshot_kernel")
+    plain_ms = cuda_ms(lambda: ref.ref_porc_snapshot(k, n, **kw),
+                       reps=1 if block == 1 else 3, warmup=1) if plain \
+        else None
+    a, _ = porc_snapshot(k, n, **kw)
     nbytes = 4 * M * 2 + 4 * n * 2 + 4
-    ops = probes_used(k, a, n, 8) * OPS_PER_PROBE + M
-    return dict(shape=f"M={M} n_bins={n} block={block}", ms=ms,
-                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
-                ops=ops)
+    probes = probes_used(k, a, n, 4 * n if block == 1 else 8)
+    return dict(shape=f"M={M} n_bins={n} block={block} after {warm}",
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=probes * OPS_PER_PROBE + M, probes=probes)
 
 
 def time_ms(keys, dev, n: int, S: int, block: int, steps: int, pol=None,
@@ -1164,12 +1183,16 @@ def check_ssd(dev, model_shapes=None) -> dict:
 
 
 def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
-             N: int, Q: int) -> dict:
+             N: int, Q: int, plain: bool = True) -> dict:
     """ssd_scan at a prefill shape of the main path, bf16 as the model
     runs it, with the final state (as ``prefill_step`` asks); the plain
-    ``ssd_chunked`` on the same inputs."""
+    ``ssd_chunked`` on the same inputs. The operations are held against
+    the bf16 tensor-core rate (bf16 × bf16 products are exact in an f32
+    accumulator); ``bound_f32_ms`` keeps them at the f32 FMA rate, the
+    bound of the rows before the kernel ran on tensor cores."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import (ctas_per_sm, resident_ctas,
+                                              ssd_scan)
     from repro_torch.models.mamba2 import ssd_chunked
     inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=11)
     ms = cuda_ms(lambda: ssd_scan(*inputs, chunk=Q, return_state=True),
@@ -1178,7 +1201,7 @@ def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
                                            return_state=True), 20,
                           "ssd_scan_kernel")
     plain_ms = cuda_ms(lambda: ssd_chunked(*inputs, Q, return_state=True),
-                       reps=3, warmup=1)
+                       reps=3, warmup=1) if plain else None
     # x, B, C in bf16 and dt, A in f32 read once; y in bf16 and the
     # final state in f32 written once
     nbytes = (2 * B * L * H * P + 4 * B * L * H + 4 * H
@@ -1190,12 +1213,16 @@ def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
     ops = B * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
     return dict(shape=f"{arch} B={B} L={L} H={H} P={P} G={G} N={N} Q={Q} "
                 "bf16", ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                bytes=nbytes, ops=ops)
+                bytes=nbytes, ops=ops, ops_per_s=BF16_TC_OPS_PER_S,
+                bound_f32_ms=max(nbytes / HBM_BYTES_PER_S,
+                                 ops / OPS_PER_S) * 1e3,
+                ctas_per_sm=resident_ctas(P, N, Q),
+                ctas_per_sm_planned=ctas_per_sm(P, N, Q))
 
 
 def bound(t: dict) -> tuple[float, str]:
     by_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-    by_ops = t["ops"] / OPS_PER_S * 1e3
+    by_ops = t["ops"] / t.get("ops_per_s", OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -2234,8 +2261,14 @@ def main() -> int:
     log_plans("phase 3 checks")
     from repro_torch.kernels.blocks import HHPolicy
     timing = {
-        "porc_snapshot": time_snapshot(wp_keys, dev, n=100, slot=10_000,
-                                       block=128),
+        # (a)'s slot of 10,000 messages: 78 blocks of 128, then its
+        # 16-key tail; and (a)'s block-1 slot, each after ten slots
+        "porc_snapshot": time_snapshot(wp_keys, dev, 100, 9_984, 128,
+                                       warm=100_000),
+        "porc_snapshot[tail]": time_snapshot(wp_keys, dev, 100, 16, 16,
+                                             warm=109_984),
+        "porc_snapshot[block 1]": time_snapshot(
+            wp_keys, dev, 100, 10_000, 1, warm=100_000, warm_block=1),
         "porc_multisource_scan": time_multisource(wp_keys, dev, n=480, S=8,
                                                   slot=5_000, block=128),
         "porc_multisource_scan[HHPolicy]": time_multisource_hh(
@@ -2266,6 +2299,13 @@ def main() -> int:
                  if "ranks_per_block" in t else
                  f", {t['bids']} bids, drop frac {t['drop_frac']:.4f}"
                  if "bids" in t else "")
+        if "bound_f32_ms" in t:
+            extra += f", bound at the f32 FMA rate {t['bound_f32_ms']:.6f} ms"
+        if "probes" in t:
+            extra += f", {t['probes']} probes"
+        if "ctas_per_sm" in t:
+            extra += (f", {t['ctas_per_sm']} CTAs an SM (planned "
+                      f"{t['ctas_per_sm_planned']})")
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch "
             f"(CUDA events), {t['device_ms']:.4f} ms device time, plain "
             f"{t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
@@ -2333,13 +2373,28 @@ def main() -> int:
     launches["cg_dispatch"] = sum(
         r["launches"]["cg_dispatch"]
         for r in moe["runs"] + [moe["long"], moe["serving"]])
-    launches["ssd_scan"] = sum(r[k]["launches"]["ssd_scan"] for r in ssm
-                               for k in ("run", "long") if k in r)
+    # per launch shape: (a)'s block-128 slots and their tails, its block-1
+    # slots; zamba2 8 × 1,024 and 8 × 4,096, mamba2 8 × 4,096
+    snap = {k: sum(r["launches"][k] for r in runs + fig11)
+            for k in ("porc_snapshot_block1", "porc_snapshot_block128")}
+    launches["porc_snapshot[block 1]"] = snap["porc_snapshot_block1"]
+    launches["porc_snapshot[tail]"] = (launches["porc_snapshot"]
+                                       - sum(snap.values()))
+    launches["porc_snapshot"] = snap["porc_snapshot_block128"]
+    zamba2_run, mamba2_run = ssm
+    launches["ssd_scan"] = zamba2_run["run"]["launches"]["ssd_scan"]
+    launches["ssd_scan[zamba2 8x4096]"] = \
+        zamba2_run["long"]["launches"]["ssd_scan"]
+    launches["ssd_scan[mamba2]"] = mamba2_run["run"]["launches"]["ssd_scan"]
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
             ("porc_snapshot", launches["porc_snapshot"], "porc_snapshot.cu",
              "src/repro/kernels/porc_snapshot.py:78"),
+            ("porc_snapshot[tail]", launches["porc_snapshot[tail]"],
+             "porc_snapshot.cu", "src/repro/kernels/porc_snapshot.py:78"),
+            ("porc_snapshot[block 1]", launches["porc_snapshot[block 1]"],
+             "porc_snapshot.cu", "src/repro/kernels/porc_snapshot.py:78"),
             ("porc_multisource_scan", launches["porc_multisource_scan"],
              "porc_snapshot.cu", "src/repro/kernels/porc_snapshot.py:207"),
             ("porc_multisource_scan[HHPolicy]",
@@ -2352,12 +2407,17 @@ def main() -> int:
             ("cg_dispatch", launches["cg_dispatch"], "cg_dispatch.cu",
              "src/repro/kernels/cg_dispatch.py:81"),
             ("ssd_scan", launches["ssd_scan"], "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:66"),
+            ("ssd_scan[zamba2 8x4096]", launches["ssd_scan[zamba2 8x4096]"],
+             "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66"),
+            ("ssd_scan[mamba2]", launches["ssd_scan[mamba2]"], "ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:66")):
         t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src, replaces=replaces,
-            launches=count, max_abs_err=err[name], ms=t["ms"],
+            launches=count,
+            max_abs_err=err.get(name, err[name.split("[")[0]]), ms=t["ms"],
             device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=b,
             bound_by=by, library_ms=None))
     log(f"  the whole run took {time.perf_counter() - t_start:.1f} s")

@@ -24,11 +24,15 @@
 // Single source. One persistent CTA walks the blocks in order. The load
 // vector stays in dynamic shared memory for the whole stream while it
 // fits, and in the output buffer in global memory (read through L2 with
-// __ldcg) above that. One thread per key of the block; the salted
-// candidate chain is hashed in the kernel, as the Pallas kernel fuses
-// it. The fallback argmin (lowest index on ties) is taken before any add
-// and only when some key of the block exhausted its chain. Adds are
-// atomicAdd on the load, exact: the counts are integers below 2^24.
+// __ldcg) above that; the keys are staged in shared memory beside it
+// before they are routed (porc_snapshot.py::snapshot_plan sizes both).
+// A block of 2..1,024 keys takes a key a thread, its first salts hashed
+// ahead and read side by side; block 1 walks its key's chain 32 salts a
+// round by ballot, on one warp. The salted candidate chain is hashed in
+// the kernel, as the Pallas kernel fuses it. The fallback argmin (lowest
+// index on ties) is taken before any add and only when some key of the
+// block exhausted its chain. Adds are atomic, exact: the counts are
+// integers below 2^24. Between two blocks only the routing warps meet.
 //
 // Multi-source (both branches, one template). Between two merges the S
 // sources do not see each other: each routes against its own view base +
@@ -109,64 +113,364 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int kChainGroup = 4;   // salts a key probes at once
+constexpr int kMaxDevices = 64;  // devices whose smem ceiling is recorded
+
 // ---------------------------------------------------------------------------
 // Single source: ref_porc_snapshot
 // ---------------------------------------------------------------------------
+//
+// One persistent CTA. The launch's keys are copied into shared memory
+// first (cp.async), in one window when they fit beside the loads, else
+// in a ring of two windows: the next window's copies are issued, by
+// every thread, before the current one is routed, and waited for after
+// it (one CTA barrier a window). Nothing global is on the chain: the keys
+// and the loads are read from shared memory (or the loads through L2
+// above kSmemLimit), the picks stay in registers and are stored once.
+//
+// block >= 2: key t of a block on thread t, so ceil(block / 32) warps
+// route (a 16-key tail and block 32 one warp, block 128 four). Each
+// thread hashes its key's first kAhead salts (the default chunk) and
+// reads them side by side; the next block's key and its salts are hashed
+// while this block votes and adds, as they do not depend on the loads.
+// Only when some key's budget holds no bin under the cap (a vote:
+// __any_sync in one warp, bar.red.or among several) does each warp take
+// the argmin of the loads (lowest index on ties), before any add. (Helper
+// warps that hashed the next block and took the argmin while the routing
+// warps routed measured slower on the H100, PERF.md section 5.) The adds
+// are atomics on the loads, then one barrier of the routing warps
+// (__syncwarp for one).
+// While every load is a count below 2^24 (checked at the launch's start)
+// the loads in shared memory are kept as integers: a float atomic add on
+// shared memory is a compare-and-swap loop, and a block's copies of a hot
+// key all add to one bin.
+//
+// block == 1 (the sequential oracle's full chain of 4 n_bins salts): one
+// warp; lane i hashes salt s + i and reads that bin's load; the first set
+// bit of __ballot_sync(load < cap) is the serial walk's pick. The next
+// key's first round is hashed and read before this key's add lands (then
+// corrected by comparing its bins with the pick), so no shared-memory
+// round trip lies between two keys; the lane that found the pick adds to
+// it from the load it read.
+//
+// The loads in global memory (n_bins above kSmemLimit): the adds are
+// atomics in L2 and the reads go through L2 (__ldcg); __threadfence_block
+// and the barrier order a block's adds before the next block's reads.
 
-template <bool kSmem>
-__global__ void porc_snapshot_kernel(const int* __restrict__ keys,
-                                     const float* __restrict__ load0,
-                                     const float* __restrict__ m0_ptr,
-                                     int* __restrict__ assign,
-                                     float* __restrict__ load_out,
-                                     int n_blocks, int block, int n_bins,
-                                     int chunk, float cap_scale) {
-  extern __shared__ float smem[];
-  float* load = kSmem ? smem : load_out;
-  for (int c = threadIdx.x; c < n_bins; c += blockDim.x) load[c] = load0[c];
-  __syncthreads();
+constexpr int kSnapMaxBlock = 1024;   // one key a thread
+constexpr int kAhead = 8;             // salts of a key hashed ahead
+constexpr int kSnapMinThreads = 256;  // the key copies need no fewer
 
-  const float m0 = *m0_ptr;
-  const int max_probes = 4 * n_bins;
-  // block=1 walks the whole chain of Alg. 1 (the sequential oracle);
-  // block>1 probes the first `chunk` salts
-  const int budget = block == 1 ? max_probes : min(chunk, max_probes);
+__host__ __device__ inline int snap_words(int count) {
+  return (count + 3) & ~3;  // 16-byte aligned regions
+}
+
+// Issues the copies of keys[0, n) into dst, threads t, t + nt, ..., as one
+// cp.async group.
+__device__ __forceinline__ void stage_keys(const int* __restrict__ keys,
+                                           int* dst, int n, int t, int nt) {
+  for (int i = t; i < n; i += nt)
+    __pipeline_memcpy_async(dst + i, keys + i, sizeof(int));
+  __pipeline_commit();
+}
+
+// Load c as f32: from shared or global memory, or (kInt) from the copy in
+// integers that the kernel keeps in shared memory while every load is a
+// count below 2^24, so that the adds are native integer atomics.
+template <bool kSmem, bool kInt>
+__device__ __forceinline__ float load_at(const float* load, int c) {
+  if constexpr (kInt)
+    return static_cast<float>(reinterpret_cast<const int*>(load)[c]);
+  else
+    return rd<kSmem>(load + c);
+}
+
+// A load the integer copy holds exactly: a count below 2^24 (not -0).
+__device__ __forceinline__ bool is_count(float v) {
+  return v >= 0.0f && v < 16777216.0f &&
+         __float_as_uint(v) ==
+             __float_as_uint(static_cast<float>(static_cast<int>(v)));
+}
+
+// Warp-wide argmin of load[0..n), lowest index on ties; every lane of
+// the warp calls it and gets the result.
+template <bool kSmem, bool kInt = false>
+__device__ __forceinline__ int warp_load_argmin(const float* load, int n) {
+  float v = INFINITY;
+  int idx = 0x7FFFFFFF;
+  for (int c = threadIdx.x % kWarp; c < n; c += kWarp)
+    argmin_merge(v, idx, load_at<kSmem, kInt>(load, c), c);
+  warp_argmin(v, idx);
+  return idx;
+}
+
+// The routing threads' barrier (the first `nt` threads, whole warps: named
+// barrier 1; one warp: __syncwarp), and the same with an OR vote.
+__device__ __forceinline__ void route_sync(int nt) {
+  if (nt == kWarp)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+}
+__device__ __forceinline__ bool route_any(bool pred, int nt) {
+  if (nt == kWarp) return __any_sync(0xFFFFFFFFu, pred);
+  int any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.s32 p, %1, 0;\n"
+      " bar.red.or.pred q, 1, %2, p;\n selp.s32 %0, 1, 0, q;\n}"
+      : "=r"(any)
+      : "r"(static_cast<int>(pred)), "r"(nt)
+      : "memory");
+  return any != 0;
+}
+
+// cap = (m0 + (b+1)*block) * K, the reference's f32 order
+__device__ __forceinline__ float snapshot_cap_at(float m0, int b,
+                                                 float fblock, float K) {
+  const float mt = __fadd_rn(
+      m0, __fmul_rn(__fadd_rn(static_cast<float>(b), 1.0f), fblock));
+  return __fmul_rn(mt, K);
+}
+
+// Blocks [b0, b1) of block >= 2 keys; wk holds keys from key k0 on. Every
+// routing thread (the first ceil(block/32) warps) calls it. kInt: the
+// loads are the integer copy in shared memory.
+template <bool kSmem, bool kInt>
+__device__ void route_blocks(const int* wk, int k0, int b0, int b1,
+                             int block, float* load, int* assign, float m0,
+                             int n_bins, int budget, float K) {
+  const int t = threadIdx.x;
+  const int nt = (block + kWarp - 1) / kWarp * kWarp;
+  const bool live = t < block;
+  const uint32_t n = static_cast<uint32_t>(n_bins);
+  const uint64_t magic = mod_magic(n);
   const float fblock = static_cast<float>(block);
+  const auto key_of = [&](int b) {
+    return static_cast<uint32_t>(b < b1 ? wk[b * block - k0 + (live ? t : 0)]
+                                        : 0);
+  };
+  uint32_t key = key_of(b0);
+  int c[kAhead];
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    c[j] = hash_to_bin_by(key, static_cast<uint32_t>(1 + j), n, magic);
+  for (int b = b0; b < b1; ++b) {
+    const float cap = snapshot_cap_at(m0, b, fblock, K);
+    float v[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      v[j] = j < budget ? load_at<kSmem, kInt>(load, c[j]) : INFINITY;
+    // the next block's key and first salts
+    const uint32_t next = key_of(b + 1);
+    int cn[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      cn[j] = hash_to_bin_by(next, static_cast<uint32_t>(1 + j), n, magic);
+    int p = -1;
+#pragma unroll
+    for (int j = kAhead - 1; j >= 0; --j)
+      if (v[j] < cap) p = c[j];
+    // a budget beyond the salts hashed ahead, a group at a time
+    for (int s0 = 1 + kAhead; p < 0 && s0 <= budget; s0 += kChainGroup) {
+      int cc[kChainGroup];
+      float vv[kChainGroup];
+#pragma unroll
+      for (int j = 0; j < kChainGroup; ++j) {
+        cc[j] = hash_to_bin_by(key, static_cast<uint32_t>(s0 + j), n, magic);
+        vv[j] = load_at<kSmem, kInt>(load, cc[j]);
+      }
+#pragma unroll
+      for (int j = kChainGroup - 1; j >= 0; --j)
+        if (s0 + j <= budget && vv[j] < cap) p = cc[j];
+    }
+    // every thread has read the snapshot before any add
+    if (route_any(live && p < 0, nt)) {
+      const int amin = warp_load_argmin<kSmem, kInt>(load, n_bins);
+      if (p < 0) p = amin;
+      route_sync(nt);
+    }
+    if (live) {
+      if constexpr (kInt)
+        atomicAdd(reinterpret_cast<int*>(load) + p, 1);
+      else
+        atomicAdd(load + p, 1.0f);
+      assign[b * block + t] = p;
+    }
+    if (!kSmem) __threadfence_block();
+    route_sync(nt);
+    key = next;
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) c[j] = cn[j];
+  }
+}
 
-  for (int b = 0; b < n_blocks; ++b) {
-    // cap = (m0 + (b+1)*block) * K, the reference's f32 order
-    const float mt =
-        __fadd_rn(m0, __fmul_rn(__fadd_rn(static_cast<float>(b), 1.0f), fblock));
-    const float cap = __fmul_rn(mt, cap_scale);
-    const int base_i = b * block;
-    int miss = 0;
-    for (int k = threadIdx.x; k < block; k += blockDim.x) {
-      const uint32_t key = static_cast<uint32_t>(keys[base_i + k]);
-      int pick = -1;
-      for (int s = 1; s <= budget; ++s) {
-        const int c = hash_to_bin(key, static_cast<uint32_t>(s),
-                                  static_cast<uint32_t>(n_bins));
-        if (rd<kSmem>(load + c) < cap) {
+// Keys [k0, k1) at block 1, each walking its chain 32 salts a round, on
+// one warp. The next key's first round is hashed and read while this key
+// is routed: its loads then lack only this key's add, which it adds by
+// comparing its bins with the pick. The lane that finds the pick adds to
+// it, from the load it read.
+template <bool kSmem>
+__device__ void route_keys(const int* wk, int k0, int k1, float* load,
+                           int* assign, float m0, int n_bins, float K) {
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t n = static_cast<uint32_t>(n_bins);
+  const uint64_t magic = mod_magic(n);
+  const uint32_t salt = static_cast<uint32_t>(1 + lane);
+  const int max_probes = 4 * n_bins;
+  const bool live0 = 1 + lane <= max_probes;
+  const int len = k1 - k0;
+  const auto first_bin = [&](int i) {
+    return hash_to_bin_by(static_cast<uint32_t>(i < len ? wk[i] : 0), salt,
+                          n, magic);
+  };
+  int bin = first_bin(0), bin1 = first_bin(1);
+  float v = rd<kSmem>(load + bin);
+  int prev = -1;  // the pick whose add v does not hold yet
+  int mine = 0;   // lane i keeps the pick of key i of each 32
+  for (int i = 0; i < len; ++i) {
+    // the next key's first round: every add but this key's is visible
+    const float v1 = rd<kSmem>(load + bin1);
+    const int bin2 = first_bin(i + 2);
+    const float cap = snapshot_cap_at(m0, k0 + i, 1.0f, K);
+    if (bin == prev) v = __fadd_rn(v, 1.0f);
+    const unsigned ok = __ballot_sync(0xFFFFFFFFu, live0 && v < cap);
+    int win, pick = bin;
+    float pv = v;
+    if (ok) {
+      win = __ffs(ok) - 1;
+    } else {
+      const uint32_t key = static_cast<uint32_t>(wk[i]);
+      win = -1;
+      for (int s = 1 + kWarp; win < 0 && s <= max_probes; s += kWarp) {
+        const int c = hash_to_bin_by(key, static_cast<uint32_t>(s + lane), n,
+                                     magic);
+        const float vc = rd<kSmem>(load + c);
+        const unsigned okr =
+            __ballot_sync(0xFFFFFFFFu, s + lane <= max_probes && vc < cap);
+        if (okr) {
+          win = __ffs(okr) - 1;
           pick = c;
-          break;
+          pv = vc;
         }
       }
-      assign[base_i + k] = pick;
-      miss |= pick < 0;
+      if (win < 0) {  // the chain exhausted: the least-loaded bin
+        win = 0;
+        pick = warp_load_argmin<kSmem>(load, n_bins);
+        pv = rd<kSmem>(load + pick);
+      }
     }
-    // barrier: every key has read the snapshot before any add
-    if (__syncthreads_or(miss)) {
-      const int amin = block_argmin<kSmem>(load, n_bins);
-      for (int k = threadIdx.x; k < block; k += blockDim.x)
-        if (assign[base_i + k] < 0) assign[base_i + k] = amin;
+    __syncwarp();  // v1 was read before this add
+    if (lane == win) {
+      if constexpr (kSmem)
+        load[pick] = __fadd_rn(pv, 1.0f);
+      else
+        atomicAdd(load + pick, 1.0f);
     }
-    for (int k = threadIdx.x; k < block; k += blockDim.x)
-      atomicAdd(load + assign[base_i + k], 1.0f);
+    prev = __shfl_sync(0xFFFFFFFFu, pick, win);
+    const int slot = i % kWarp;
+    if (lane == slot) mine = prev;
+    if (slot == kWarp - 1 || i + 1 == len)
+      if (lane <= slot) assign[k0 + i - slot + lane] = mine;
+    bin = bin1;
+    bin1 = bin2;
+    v = v1;
+    if (!kSmem) __threadfence_block();
+    __syncwarp();
+  }
+}
+
+template <bool kSmem, bool kBlock1>
+__global__ void __launch_bounds__(kSnapMaxBlock)
+    porc_snapshot_kernel(const int* __restrict__ keys,
+                         const float* __restrict__ load0,
+                         const float* __restrict__ m0_ptr,
+                         int* __restrict__ assign,
+                         float* __restrict__ load_out, int n_blocks,
+                         int block, int n_bins, int chunk, float cap_scale,
+                         int window, int buffers) {
+  extern __shared__ __align__(16) float smem[];
+  float* load = kSmem ? smem : load_out;
+  int* ring = reinterpret_cast<int*>(smem + (kSmem ? snap_words(n_bins) : 0));
+  const int ring_words = snap_words(window);
+  const int M = n_blocks * block;
+  const int n_windows = (M + window - 1) / window;
+  bool counts = true;
+  for (int c = threadIdx.x; c < n_bins; c += blockDim.x) {
+    const float v = load0[c];
+    load[c] = v;
+    counts &= is_count(v);
+  }
+  stage_keys(keys, ring, min(window, M), threadIdx.x, blockDim.x);
+  __pipeline_wait_prior(0);
+  // blocks >= 2 add with integer atomics when every load is a count
+  constexpr bool kMayInt = kSmem && !kBlock1;
+  const bool ints = kMayInt ? __syncthreads_and(counts) : false;
+  if (!kMayInt) __syncthreads();
+  int* iload = reinterpret_cast<int*>(load);
+  if (ints) {
+    for (int c = threadIdx.x; c < n_bins; c += blockDim.x)
+      iload[c] = static_cast<int>(load[c]);
+    __syncthreads();
+  }
+
+  const int route_threads = (block + kWarp - 1) / kWarp * kWarp;
+  const float m0 = *m0_ptr;
+  // block=1 walks the whole chain of Alg. 1 (the sequential oracle);
+  // block>1 probes the first `chunk` salts
+  const int budget = min(chunk, 4 * n_bins);
+  for (int w = 0; w < n_windows; ++w) {
+    const int k0 = w * window;
+    const int k1 = min(k0 + window, M);
+    if (k1 < M)  // the next window, into the buffer read two windows ago
+      stage_keys(keys + k1, ring + ((w + 1) % buffers) * ring_words,
+                 min(window, M - k1), threadIdx.x, blockDim.x);
+    const int* wk = ring + (w % buffers) * ring_words;
+    if constexpr (kBlock1) {
+      if (threadIdx.x < kWarp)
+        route_keys<kSmem>(wk, k0, k1, load, assign, m0, n_bins, cap_scale);
+    } else if (threadIdx.x < route_threads) {
+      if (kMayInt && ints)
+        route_blocks<kSmem, kMayInt>(wk, k0, k0 / block, k1 / block, block,
+                                     load, assign, m0, n_bins, budget,
+                                     cap_scale);
+      else
+        route_blocks<kSmem, false>(wk, k0, k0 / block, k1 / block, block,
+                                   load, assign, m0, n_bins, budget,
+                                   cap_scale);
+    }
+    __pipeline_wait_prior(0);
     __syncthreads();
   }
   if (kSmem)
     for (int c = threadIdx.x; c < n_bins; c += blockDim.x)
-      load_out[c] = load[c];
+      load_out[c] = ints ? static_cast<float>(iload[c]) : load[c];
+}
+
+template <bool kSmem, bool kBlock1>
+cudaError_t launch_snapshot(const int* keys, const float* load0,
+                            const float* m0, int* assign, float* load_out,
+                            int n_blocks, int block, int n_bins, int chunk,
+                            float cap_scale, int window, int buffers,
+                            size_t bytes, cudaStream_t st) {
+  auto kernel = porc_snapshot_kernel<kSmem, kBlock1>;
+  // the shared-memory ceiling once per instance and device
+  static bool ceiling_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ceiling_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemLimit));
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) ceiling_set[dev] = true;
+  }
+  const int threads =
+      max(kSnapMinThreads, (block + kWarp - 1) / kWarp * kWarp);
+  kernel<<<1, threads, bytes, st>>>(keys, load0, m0, assign, load_out,
+                                    n_blocks, block, n_bins, chunk,
+                                    cap_scale, window, buffers);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -194,8 +498,6 @@ constexpr uint32_t kSketchSalt0 = 0x5EEDC0DEu;
 constexpr int kMsThreads = 1024;
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kInFlight = 8;     // lane reads a merge keeps in flight
-constexpr int kChainGroup = 4;   // salts a policy-free key probes at once
-constexpr int kMaxDevices = 64;  // devices whose smem ceiling is recorded
 
 // The cluster barrier in two halves: arrive (release) early, wait
 // (acquire) where another CTA's shared memory or global state is first
@@ -951,31 +1253,44 @@ cudaError_t launch_multisource(const MSArgs& a, const HHParams& hp, bool hh,
 
 }  // namespace
 
+// The wrapper's plan (porc_snapshot.py::snapshot_plan): the loads in
+// shared memory or not, and a key window of `window` keys (a multiple of
+// the block) in `buffers` buffers (1: every key of the call at once).
+// A plan whose bytes differ from this layout's is refused.
 extern "C" int porc_snapshot_launch(const void* keys, const void* load0,
                                     const void* m0, void* assign,
                                     void* load_out, int n_blocks, int block,
-                                    int n_bins, int chunk, float cap_scale,
-                                    void* stream) {
-  const size_t bytes = sizeof(float) * static_cast<size_t>(n_bins);
-  const int threads = 256;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                    int n_bins, int chunk, int loads_smem,
+                                    int window, int buffers, int smem_bytes,
+                                    float cap_scale, void* stream) {
+  const long long M = static_cast<long long>(n_blocks) * block;
+  const size_t want =
+      sizeof(float) * ((loads_smem ? snap_words(n_bins) : 0) +
+                       static_cast<size_t>(buffers) * snap_words(window));
+  if (n_blocks < 1 || block < 1 || block > kSnapMaxBlock || n_bins < 1 ||
+      chunk < 1 || window < block || window % block ||
+      (buffers == 1) != (window == M) || buffers < 1 || buffers > 2 ||
+      smem_bytes < 0 || want != static_cast<size_t>(smem_bytes) ||
+      want > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* k = static_cast<const int*>(keys);
+  const auto* l0 = static_cast<const float*>(load0);
+  const auto* m = static_cast<const float*>(m0);
+  auto* a = static_cast<int*>(assign);
+  auto* lo = static_cast<float*>(load_out);
+  auto* st = static_cast<cudaStream_t>(stream);
+#define SNAPSHOT_LAUNCH(SMEM, BLOCK1)                                        \
+  launch_snapshot<SMEM, BLOCK1>(k, l0, m, a, lo, n_blocks, block, n_bins, \
+                                chunk, cap_scale, window, buffers, want, st)
   cudaError_t err;
-  if (bytes <= kSmemLimit) {
-    err = set_smem(porc_snapshot_kernel<true>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    porc_snapshot_kernel<true><<<1, threads, bytes, st>>>(
-        static_cast<const int*>(keys), static_cast<const float*>(load0),
-        static_cast<const float*>(m0), static_cast<int*>(assign),
-        static_cast<float*>(load_out), n_blocks, block, n_bins, chunk,
-        cap_scale);
-  } else {
-    porc_snapshot_kernel<false><<<1, threads, 0, st>>>(
-        static_cast<const int*>(keys), static_cast<const float*>(load0),
-        static_cast<const float*>(m0), static_cast<int*>(assign),
-        static_cast<float*>(load_out), n_blocks, block, n_bins, chunk,
-        cap_scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (loads_smem)
+    err = block == 1 ? SNAPSHOT_LAUNCH(true, true)
+                     : SNAPSHOT_LAUNCH(true, false);
+  else
+    err = block == 1 ? SNAPSHOT_LAUNCH(false, true)
+                     : SNAPSHOT_LAUNCH(false, false);
+#undef SNAPSHOT_LAUNCH
+  return static_cast<int>(err);
 }
 
 extern "C" int porc_multisource_launch(

@@ -35,6 +35,20 @@ __device__ __forceinline__ int hash_to_bin(uint32_t key, uint32_t salt,
   return static_cast<int>(h % n_bins);
 }
 
+// The same bin by multiplication instead of a division: h % n ==
+// umulhi64(M * h, n) for every 32-bit h, with M = mod_magic(n) (Lemire,
+// Kaser and Kurz, "Faster remainder by direct computation", 2019).
+__host__ __device__ inline uint64_t mod_magic(uint32_t n) {
+  return 0xFFFFFFFFFFFFFFFFull / n + 1;
+}
+
+__device__ __forceinline__ int hash_to_bin_by(uint32_t key, uint32_t salt,
+                                              uint32_t n, uint64_t magic) {
+  uint32_t h = mix32(key + salt * 0x9E3779B9u);
+  h = mix32(h ^ (salt * 0x7F4A7C15u + 0x165667B1u));
+  return static_cast<int>(__umul64hi(magic * h, n));
+}
+
 template <bool kSmem>
 __device__ __forceinline__ float rd(const float* p) {
   if constexpr (kSmem) {

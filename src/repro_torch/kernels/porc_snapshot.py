@@ -7,7 +7,8 @@ the returned tuples of the Pallas wrappers. A CUDA tensor always goes to
 the kernel, which launches on the current stream; a CPU tensor goes to
 the plain torch version in ``ref`` (the CPU has no kernel). Each wrapper
 counts its kernel launches in ``<wrapper>.launches``, a plain integer,
-so a run can show that its main path went through the kernel;
+so a run can show that its main path went through the kernel
+(``porc_snapshot.blocks`` counts them per block size as well);
 ``porc_multisource_scan.hh_launches`` counts the launches of its
 ``HHPolicy`` branch, a kernel of its own.
 
@@ -41,7 +42,7 @@ def _lib() -> ctypes.CDLL:
     """The kernels' library, built at first use, with typed entry
     points."""
     lib = build.load("porc_snapshot")
-    lib.porc_snapshot_launch.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
+    lib.porc_snapshot_launch.argtypes = [_P] * 5 + [_I] * 8 + [_F, _P]
     lib.porc_snapshot_launch.restype = _I
     lib.porc_multisource_launch.argtypes = [_P] * 8 + [_I] * 10 + [_F, _F, _P]
     lib.porc_multisource_launch.restype = _I
@@ -49,6 +50,56 @@ def _lib() -> ctypes.CDLL:
                                                + [_F] * 4 + [_P])
     lib.porc_multisource_hh_launch.restype = _I
     return lib
+
+
+# the portable cluster size, and the dynamic shared memory a CTA may ask
+# for (csrc/routing.cuh kSmemLimit)
+MAX_CLUSTER = 8
+SMEM_LIMIT = 220 * 1024
+# the largest block of porc_snapshot: a key a thread
+SNAPSHOT_MAX_BLOCK = 1024
+
+
+def _words(count: int) -> int:
+    return -(-count // 4) * 4          # 16-byte aligned regions
+
+
+class SnapshotPlan(NamedTuple):
+    """How one ``porc_snapshot`` launch stages its state: the loads in
+    shared memory (``loads_smem``, else in the output buffer), and the
+    keys in ``buffers`` windows of ``window`` keys each (a multiple of
+    the block; one buffer holds every key of the call, two make a ring
+    whose next window is copied while one is routed)."""
+    loads_smem: bool
+    window: int
+    buffers: int
+    smem_bytes: int
+
+
+def snapshot_plan(M: int, n_bins: int, block: int) -> SnapshotPlan:
+    """The launch plan of ``porc_snapshot`` for ``M`` keys (> 0, a
+    multiple of ``block``): the loads go to shared memory first (every
+    probe reads them), then the keys, all at once where they fit, else a
+    ring of two windows as large as the rest allows. The launcher
+    refuses a plan whose bytes differ from its own sum. Raises
+    ``ValueError`` for a block above ``SNAPSHOT_MAX_BLOCK`` or one that
+    does not fit twice."""
+    if not 1 <= block <= SNAPSHOT_MAX_BLOCK:
+        raise ValueError(f"porc_snapshot: block={block} must be in "
+                         f"[1, {SNAPSHOT_MAX_BLOCK}] on the card")
+    limit = SMEM_LIMIT // 4
+    loads = _words(n_bins)
+    for loads_smem in (True, False):
+        room = limit - (loads if loads_smem else 0)
+        if _words(M) <= room:
+            window, buffers = M, 1
+        else:
+            window, buffers = (room // 2) // 4 * 4 // block * block, 2
+        if window >= block:
+            used = (loads if loads_smem else 0) + buffers * _words(window)
+            return SnapshotPlan(loads_smem, window, buffers, 4 * used)
+    raise ValueError(f"porc_snapshot: two windows of block={block} keys do "
+                     "not fit in shared memory")
 
 
 def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
@@ -75,25 +126,23 @@ def porc_snapshot(keys: torch.Tensor, n_bins: int, *, block: int = 128,
     check(load0, "load0", torch.float32, (n_bins,), dev)
     if M == 0:
         return torch.empty(0, dtype=torch.int32, device=dev), load0.clone()
+    plan = snapshot_plan(M, n_bins, block)
     m0 = device_scalar(m0, torch.float32, dev)
     assign = torch.empty(M, dtype=torch.int32, device=dev)
     load = torch.empty(n_bins, dtype=torch.float32, device=dev)
     err = _lib().porc_snapshot_launch(
         keys.data_ptr(), load0.data_ptr(), m0.data_ptr(), assign.data_ptr(),
         load.data_ptr(), M // block, block, n_bins, chunk,
+        int(plan.loads_smem), plan.window, plan.buffers, plan.smem_bytes,
         cap_scale(eps, n_bins), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_snapshot")
     porc_snapshot.launches += 1
+    porc_snapshot.blocks[block] += 1
     return assign, load
 
 
 porc_snapshot.launches = 0
-
-
-# the portable cluster size, and the dynamic shared memory a CTA may ask
-# for (csrc/routing.cuh kSmemLimit)
-MAX_CLUSTER = 8
-SMEM_LIMIT = 220 * 1024
+porc_snapshot.blocks = collections.Counter()
 
 
 class MultisourcePlan(NamedTuple):
@@ -111,10 +160,6 @@ class MultisourcePlan(NamedTuple):
     loads_smem: bool
     sketch_smem: bool
     smem_bytes: int
-
-
-def _words(count: int) -> int:
-    return -(-count // 4) * 4          # 16-byte aligned regions
 
 
 def multisource_plan(n_sources: int, n_bins: int, block: int,

@@ -38,11 +38,13 @@ def zipf_keys(m, dev, z=1.3, n_keys=5000, seed=1):
 
 
 @pytest.mark.parametrize("n_bins,block", [(100, 1), (100, 128), (1000, 64),
-                                          (480, 1024), (60_000, 128)])
+                                          (480, 1024), (60_000, 128),
+                                          (1000, 1), (60_000, 1), (100, 16),
+                                          (480, 32)])
 def test_snapshot_kernel_matches_plain(dev, n_bins, block):
     """Through the span driver: ragged length, state carried across two
-    calls; block 1024 has more keys than the CTA has threads, and the
-    60k-bin case keeps the load in global memory."""
+    calls; block 1024 routes on 32 warps, blocks 16 and 32 on one, and the
+    60k-bin cases keep the load in global memory."""
     keys = zipf_keys(1024 if block == 1 else 128 * 40 + 77, dev)
     split = keys.shape[0] // 3 // block * block
     out = {}
@@ -55,6 +57,94 @@ def test_snapshot_kernel_matches_plain(dev, n_bins, block):
         out[eng] = (torch.cat([a1, a2]), st.load, st.routed)
     for x, y in zip(out["cuda"], out["snapshot"]):
         assert torch.equal(x, y)
+
+
+def skewed_loads(n_bins, dev, light=0.02, level=10.0, seed=3):
+    """All but a ``light`` share of the bins at ``level``, the rest empty,
+    with m0 their sum: the cap sits just under ``level``, so a key walks
+    its chain until it meets a light bin (~1/light salts)."""
+    rng = np.random.default_rng(seed)
+    load0 = np.full(n_bins, level, np.float32)
+    load0[rng.choice(n_bins, max(1, int(light * n_bins)), replace=False)] = 0
+    load0 = torch.from_numpy(load0).to(dev)
+    return load0, load0.sum()
+
+
+@pytest.mark.parametrize("n_bins", [9, 1000, 60_000])
+def test_snapshot_block1_deep_chains(dev, n_bins):
+    """Block 1 with most bins over the cap: chains run past the first
+    ballot round of 32 salts (at 9 bins the second round has 4 live
+    lanes, and some chains exhaust all 36 salts and fall back to the
+    argmin); bit for bit with the plain engine."""
+    from repro_torch.core.hashing import hash_to_bins
+    keys = zipf_keys(512, dev, seed=4)
+    # at 9 bins one light bin, and a level far above the cap, which a key
+    # raises by 1.01/9 only
+    load0, m0 = (skewed_loads(n_bins, dev, light=0.12, level=1000.0)
+                 if n_bins == 9 else skewed_loads(n_bins, dev))
+    a, l = porc_snapshot(keys, n_bins, block=1, eps=0.01, load0=load0,
+                         m0=m0)
+    a_p, l_p = ref.ref_porc_snapshot(keys, n_bins, block=1, eps=0.01,
+                                     load0=load0, m0=m0)
+    assert torch.equal(a, a_p) and torch.equal(l, l_p)
+    salts = torch.arange(1, 4 * n_bins + 1, device=dev)[:256]
+    hit = hash_to_bins(keys[:, None], salts, n_bins) == a[:, None]
+    depth = torch.where(hit.any(1), hit.int().argmax(1) + 1,
+                        torch.full_like(a, 10**6, dtype=torch.int64))
+    assert int(depth.max()) > 32          # a second round was needed
+
+
+@pytest.mark.parametrize("n_bins,block", [(50_000, 1), (50_000, 128),
+                                          (100, 1), (100, 128)])
+def test_snapshot_kernel_key_ring(dev, n_bins, block):
+    """Keys that do not fit beside the loads ring through two buffers
+    over three windows or more, the next window copied while one is
+    routed: 50,000 bins leave room for a few thousand keys; 60,000 keys
+    over 100 bins take three windows. Block 128 against the plain
+    engine; block 1 (whose plain engine takes ~50 ms a key at 50,000
+    bins) against the same keys
+    routed in calls that each fit one window, the state carried."""
+    from repro_torch.kernels.porc_snapshot import snapshot_plan
+    M = (60_000 if block == 1 else 128 * 500) if n_bins == 100 else \
+        10_000 if block == 1 else 128 * 60
+    plan = snapshot_plan(M, n_bins, block)
+    assert plan.buffers == 2 and 2 * plan.window < M
+    keys = zipf_keys(M, dev, seed=5)
+    load0, m0 = skewed_loads(n_bins, dev, light=0.5, level=1.0)
+    a, l = porc_snapshot(keys, n_bins, block=block, eps=0.01, load0=load0,
+                         m0=m0)
+    if block == 1:
+        parts, load, m = [], load0, m0
+        for k in keys.split(M // 4):
+            assert snapshot_plan(k.shape[0], n_bins, 1).buffers == 1
+            part, load = porc_snapshot(k, n_bins, block=1, eps=0.01,
+                                       load0=load, m0=m)
+            parts.append(part)
+            m = m + k.shape[0]
+        a_p, l_p = torch.cat(parts), load
+    else:
+        a_p, l_p = ref.ref_porc_snapshot(keys, n_bins, block=block,
+                                         eps=0.01, load0=load0, m0=m0)
+    assert torch.equal(a, a_p) and torch.equal(l, l_p)
+
+
+@pytest.mark.parametrize("block", [16, 128, 1024])
+def test_snapshot_kernel_loads_that_are_not_counts(dev, block):
+    """The kernel keeps integer loads while every load is a count below
+    2^24; a load0 with fractions, a -0 or a count of 2^24 keeps them in
+    f32 (block 1024 on 32 routing warps). Both bit for bit with the
+    plain engine."""
+    keys = zipf_keys(block * 30, dev, seed=6)
+    base = torch.arange(100, device=dev, dtype=torch.float32) % 7
+    for load0 in (base + 0.5, torch.where(base == 0, -0.0, base),
+                  base + (base == 3) * 2.0**24):
+        m0 = load0.sum()
+        a, l = porc_snapshot(keys, 100, block=block, eps=0.05, load0=load0,
+                             m0=m0)
+        a_p, l_p = ref.ref_porc_snapshot(keys, 100, block=block, eps=0.05,
+                                         load0=load0, m0=m0)
+        assert torch.equal(a, a_p) and torch.equal(l, l_p)
+        assert torch.equal(torch.signbit(l), torch.signbit(l_p))
 
 
 def test_snapshot_kernel_direct_continuation(dev):
@@ -613,6 +703,39 @@ def test_ssd_kernel_bf16(dev, L, H, P, N, Q):
                  ref.ref_ssd_scan(*inputs, return_state=True)):
         assert relerr(want[0], y) < SSD_BF16
         assert relerr(want[1], h) < SSD_BF16
+
+
+@pytest.mark.parametrize("B,L,H,P,N,Q", [
+    (2, 128, 4, 64, 64, 128), (2, 384, 4, 64, 128, 128),
+    (1, 93, 4, 64, 64, 93), (1, 64, 2, 8, 16, 16), (1, 256, 8, 32, 64, 32)])
+def test_ssd_kernel_bf16_tensor_cores(dev, B, L, H, P, N, Q):
+    """The tensor-core kernel at zamba2's (P 64, N 64) and mamba2's
+    (N 128) chunk of 128 over a short L, a padded chunk of 93, the smoke
+    configs' P 8, N 16, and a P of 32. Against ``ssd_chunked`` on the
+    same bf16 values in f32: the state, which stays f32, within 1e-4 (the
+    hi/lo pairs of w, h0 and x·coef keep ~16 bits); y within 4e-3 (it is
+    rounded once to bf16, half an ulp is 2^-9); against the bf16 plain
+    versions within 3e-2; C ≡ 0 gives y exactly 0."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.mamba2 import ssd_chunked
+    inputs = ssd_inputs(B, L, H, P, 1, N, dev, torch.bfloat16, seed=L + P)
+    before = ssd_scan.launches
+    y, h = ssd_scan(*inputs, chunk=Q, return_state=True)
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert bool(y.isfinite().all()) and bool(h.isfinite().all())
+    y32, h32 = ssd_chunked(*(t.float() for t in inputs), Q,
+                           return_state=True)
+    assert relerr(h32, h) < SSD_REF
+    assert relerr(y32, y) < 4e-3
+    for want in (ssd_chunked(*inputs, Q, return_state=True),
+                 ref.ref_ssd_scan(*inputs, return_state=True)):
+        assert relerr(want[0], y) < SSD_BF16
+        assert relerr(want[1], h) < SSD_BF16
+    x, dt, A, Bm, Cm = inputs
+    y0, h0 = ssd_scan(x, dt, A, Bm, torch.zeros_like(Cm), chunk=Q,
+                      return_state=True)
+    assert float(y0.float().abs().max()) == 0.0 and torch.equal(h0, h)
 
 
 def test_ssd_kernel_chunk_invariance_and_zero_c(dev):

@@ -161,3 +161,78 @@ def test_use_pallas_switch_on_cpu():
         x, lp, cfg.replace(use_pallas="never")))
     with pytest.raises(ValueError, match="CUDA tensors"):
         mamba2.mamba_block(x, lp, cfg.replace(use_pallas="always"))
+
+
+def split_bf16(v: torch.Tensor):
+    """An f32 value as the tensor-core kernel feeds it: hi = bf16(v),
+    lo = bf16(v − hi), both exact in f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def tensor_core_scan(x, dt, A, Bm, Cm, chunk: int):
+    """The SSD chunk math with the bf16 kernel's precision, in plain
+    torch: x, B and C as bf16 values; C·Bᵀ from them (exact products);
+    the masked weights w, the carried state h0 and x·coef, which the
+    kernel computes in f32, each entering its product as a hi + lo pair
+    of bf16; sums in f32; y = e^{s}·(C·h0ᵀ) + w·x as the kernel
+    accumulates it. Returns y in f32 (before the kernel's one rounding to
+    bf16) and the final state."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, nc = H // G, L // chunk
+
+    def rs(a):
+        return a.float().reshape(Bsz, nc, chunk, *a.shape[2:])
+
+    xs, dts, bs, cs = rs(x), rs(dt), rs(Bm), rs(Cm)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    h = torch.zeros((Bsz, H, P, N))
+    ys = []
+    for c in range(nc):
+        xc, dtc = xs[:, c], dts[:, c]
+        bch = torch.repeat_interleave(bs[:, c], rep, dim=2)
+        cch = torch.repeat_interleave(cs[:, c], rep, dim=2)
+        s = torch.cumsum(dtc * A.float()[None, None, :], dim=1)
+        g = torch.einsum("bqhn,bkhn->bhqk", cch, bch)
+        diff = (s[:, :, None, :] - s[:, None, :, :]).movedim(-1, 1)
+        w = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+        w = w * g * dtc.movedim(-1, 1)[:, :, None, :]
+        hh, hl = split_bf16(h)
+        inter = (torch.einsum("bqhn,bhpn->bhqp", cch, hh)
+                 + torch.einsum("bqhn,bhpn->bhqp", cch, hl))
+        wh, wl = split_bf16(w)
+        y = (torch.exp(s.movedim(-1, 1))[..., None] * inter
+             + torch.einsum("bhqk,bkhp->bhqp", wh, xc)
+             + torch.einsum("bhqk,bkhp->bhqp", wl, xc)).movedim(1, 2)
+        coef = dtc * torch.exp(s[:, -1:, :] - s)
+        xh, xl = split_bf16(xc * coef[..., None])
+        h = (torch.exp(s[:, -1, :])[..., None, None] * h
+             + torch.einsum("bqhp,bqhn->bhpn", xh, bch)
+             + torch.einsum("bqhp,bqhn->bhpn", xl, bch))
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(Bsz, L, H, P), h
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", GRID + [(2, 1023, 8, 64, 1, 64,
+                                                   93)])
+def test_tensor_core_numerics_match_jax(B, L, H, P, G, N, Q):
+    """Before any chip time: the bf16 kernel's scheme (bf16 x, B, C; hi/lo
+    pairs for w, h0 and x·coef) against the JAX ``ref_ssd_scan`` on the
+    same bf16 values. Its y before the final rounding and its state stay
+    within the f32 bound against the recurrence (1e-4: a pair keeps ~16
+    bits, so the scheme itself costs ~1e-5), and y in bf16 within 3e-2.
+    f32 inputs take f32 FMAs on the card, the plain ``ssd_chunked``'s
+    arithmetic, held to 1e-5 against the JAX chunked scan."""
+    arrays = inputs(B, L, H, P, G, N, seed=Q + 1)
+    j, t = both(arrays, bf16=True)
+    y, h = tensor_core_scan(*t, Q)
+    jref = jax_ref_ssd_scan(*[a.astype(jnp.float32) if a.dtype == jnp.bfloat16
+                              else a for a in j])
+    assert relerr(jref, y) < REF
+    assert relerr(jax_ref_ssd_scan(*j), y.to(torch.bfloat16)) < BF16
+    _, rh = ref.ref_ssd_scan(*[a.float() for a in t], return_state=True)
+    assert relerr(rh.numpy(), h) < REF
+    j32, t32 = both(arrays)
+    y32 = mamba2.ssd_chunked(*t32, Q)
+    assert relerr(jax_ssd_chunked(*j32, Q), y32) < CHUNKED
