@@ -18,8 +18,10 @@ Phases:
      ``porc_multisource_strict`` against their plain torch versions on
      the card, bit for bit, on WP- and TW-profile streams, and prints
      each launch plan of ``porc_multisource_scan`` (grid, cluster,
-     shared-memory bytes); ``cg_dispatch`` over the JAX tests' grid
-     and the MoE path's prefill and decode shapes, and ``ssd_scan`` (y
+     shared-memory bytes); ``cg_dispatch`` over the JAX tests' grid,
+     the MoE path's prefill and decode shapes and the kernel's edges,
+     with the kernel its plan picks and the other where it fits, and
+     ``ssd_scan`` (y
      and the final state) against the sequential ``ref_ssd_scan`` and
      the plain ``ssd_chunked`` within the JAX tests' tolerances, over
      their grid, chunk invariance, C ≡ 0 and both Mamba-2 models'
@@ -90,7 +92,20 @@ Phases:
      threshold: the 9 shared-attention calls take ``chunked_attention``
      (tokens/s, peak memory), then 4 decode steps; (n) both smoke
      configs in f32 on the card against the same weights on the CPU;
-  8. prints the ``{"kernels": [...]}`` line and, last, the device line.
+  8. MoE training: (p) qwen3-moe-235b-a22b at full width with its depth
+     cut from 94 to 1 layer (its training state, 20 bytes a parameter,
+     is 62.2 GB: two layers would not fit the 80 GB card), random bf16
+     weights from a seeded ``torch.Generator``, the config's remat
+     "full" and grad_accum 8: 5 AdamW steps (warm-up 2) of
+     ``launch/steps.make_train_step`` on one fixed batch of 8 × 1,024
+     zipf(1.3) tokens, router "cg" and "topk" × uniform and
+     ``capacity_skew=3.0`` capacities (loss each step, grad_norm, step
+     ms, tokens/s, peak memory, ``moe_drop_frac``,
+     ``moe_max_load_frac``, ``cg_dispatch`` launches per step: two a
+     micro-step); the loss must fall and CG drop no more than top-k;
+     then the smoke config's train step in f32 on the card against the
+     CPU (loss, every gradient, the weights after the step);
+  9. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -100,6 +115,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -919,15 +935,19 @@ def time_multisource_strict(keys, dev, n: int, S: int, steps: int,
 # Phase 3, the MoE dispatch: cg_dispatch
 # ---------------------------------------------------------------------------
 
-def dispatch_inputs(G: int, T: int, E: int, D: int, skew: float, dev,
+def dispatch_inputs(G: int, T: int, E: int, D: int, skew, dev,
                     seed: int):
     """pref/gates as the router makes them, made on the card: softmax of
     normal logits with a per-expert bias of scale ``skew`` per group,
-    experts in stable descending order of probability."""
+    experts in stable descending order of probability. ``skew="hot"``
+    lifts expert 0 above every other, so every token bids it first."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
-    logits = torch.randn((G, T, E), generator=gen, device=dev) \
-        + skew * torch.randn((G, 1, E), generator=gen, device=dev)
+    logits = torch.randn((G, T, E), generator=gen, device=dev)
+    if skew == "hot":
+        logits[..., 0] += 20.0
+    else:
+        logits += skew * torch.randn((G, 1, E), generator=gen, device=dev)
     gates, pref = torch.sort(torch.softmax(logits, -1), dim=-1,
                              descending=True, stable=True)
     return (pref[..., :D].to(torch.int32).contiguous(),
@@ -946,8 +966,9 @@ def dispatch_grid():
     vector sweeps of ``tests/test_cg_dispatch_properties.py``) on three
     groups, the slice's shapes — prefill G=8 × T=1,024 and decode G=1 ×
     T=8 over E=128, k=8, D=12, with uniform and ``capacity_skew`` caps —
-    and two that stress the kernel's layout: blocks wider than a CTA
-    (2,048 tokens) and E=16,384 experts (shared memory above 48 KB)."""
+    and the kernel's edges: blocks of 2,048 tokens (their rows read from
+    global memory), E=16,384 experts (shared memory above 48 KB), D=32,
+    k=1 at capacity 1, every token bidding one expert first, G=0."""
     from repro_torch.configs import get_config
     from repro_torch.moe.router import expert_capacity_vector
     moe = get_config("qwen3-moe-235b-a22b").moe
@@ -980,16 +1001,26 @@ def dispatch_grid():
     grid.append(("block 2048", 2, 4096, 64, 4, 8, 2048, 2.0,
                  dict(capacity=int(1.25 * 4096 * 4 / 64))))
     grid.append(("E=16384", 2, 256, 16384, 2, 6, 128, 1.0, dict(capacity=1)))
+    # the edges of the one-warp design: a long row (D=32), k=1 at
+    # capacity 1, every token bidding one expert first, no group at all
+    grid.append(("D=32", 2, 512, 64, 8, 32, 128, 2.0,
+                 dict(capacity=int(1.25 * 512 * 8 / 64))))
+    grid.append(("k=1 capacity 1", 3, 256, 16, 1, 4, 128, 2.0,
+                 dict(capacity=1)))
+    grid.append(("one expert hot", 2, 1024, 128, 8, 12, 128, "hot",
+                 dict(capacity=80)))
+    grid.append(("G=0", 0, 256, 16, 2, 6, 128, 1.0, dict(capacity=8)))
     return grid
 
 
 def check_dispatch(dev) -> float:
     """cg_dispatch vs ref_cg_dispatch on the card, bit for bit (assign,
-    slot, weights, load) over ``dispatch_grid``; the group axis equals
+    slot, weights, load) over ``dispatch_grid``, with the kernel the plan
+    picks and with the other one where it fits; the group axis equals
     per-group calls."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.cg_dispatch import cg_dispatch
+    from repro_torch.kernels.cg_dispatch import cg_dispatch, dispatch_plan
     err = 0.0
     for i, (label, G, T, E, k, D, block, skew, kw) in enumerate(
             dispatch_grid()):
@@ -1000,13 +1031,30 @@ def check_dispatch(dev) -> float:
         for what, x, y in zip(("assign", "slot", "weights", "load"), got,
                               want):
             err = max(err, _same(f"cg_dispatch {label} {what}", x, y))
-        one = cg_dispatch(pref[-1], gates[-1], **args)
-        for what, x, y in zip(("assign", "slot", "weights", "load"), one,
-                              got):
-            _same(f"cg_dispatch {label} last group alone {what}", x, y[-1])
-        drop = float((got[0] < 0).float().mean())
+        # the kernel the plan did not pick, where it fits too
+        other = "warp" if dispatch_plan(E, block, D, k)[0] == "cta" \
+            else "cta"
+        try:
+            dispatch_plan(E, block, D, k, other)
+        except ValueError:
+            other = None
+        if other:
+            for what, x, y in zip(("assign", "slot", "weights", "load"),
+                                  cg_dispatch(pref, gates, kernel=other,
+                                              **args), want):
+                _same(f"cg_dispatch {label} {other} kernel {what}", x, y)
+        if G:
+            one = cg_dispatch(pref[-1], gates[-1], **args)
+            for what, x, y in zip(("assign", "slot", "weights", "load"),
+                                  one, got):
+                _same(f"cg_dispatch {label} last group alone {what}", x,
+                      y[-1])
+        elif got[3].shape != (0, E):
+            fail(f"cg_dispatch {label}: load of shape {got[3].shape}")
+        drop = float((got[0] < 0).float().mean()) if G else 0.0
         log(f"  cg_dispatch {label}: identical (G={G}, drop frac "
-            f"{drop:.4f})")
+            f"{drop:.4f}; {dispatch_plan(E, block, D, k)[0]} kernel"
+            + (f", and the {other} kernel" if other else "") + ")")
     return err
 
 
@@ -1020,25 +1068,38 @@ def dispatch_bids(pref, assign, k: int) -> int:
                            torch.full_like(at, pref.shape[-1])).sum())
 
 
-def time_dispatch(dev, G: int, T: int, skew: float = 0.0) -> dict:
+def time_dispatch(dev, G: int, T: int, skew: float = 0.0,
+                  skewed_caps: bool = False, plain: bool = True,
+                  kernel: str | None = None) -> dict:
     """cg_dispatch at a main-path shape of qwen3-moe-235b-a22b (E=128,
-    k=8, D=12, capacity from the router's formula), on router-like
-    inputs."""
+    k=8, D=12, capacities from the router's formula: uniform, or with
+    ``skewed_caps`` those of ``capacity_skew=3.0``, made on the card
+    once), on router-like inputs, with the kernel the plan picks or
+    ``kernel``; with ``plain`` the plain version's time too."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.cg_dispatch import cg_dispatch
-    from repro_torch.moe.router import uniform_capacity
+    from repro_torch.moe.router import expert_capacity_vector
     moe = get_config("qwen3-moe-235b-a22b").moe
+    if skewed_caps:
+        moe = dataclasses.replace(moe, capacity_skew=3.0)
     E, k = moe.n_experts, moe.top_k
     D = k + moe.overflow_depth
-    C = uniform_capacity(moe.capacity_factor, T, k, E)
+    caps = expert_capacity_vector(moe, T)
     pref, gates = dispatch_inputs(G, T, E, D, skew, dev, seed=99)
-    args = dict(n_experts=E, k=k, capacity=C, block=min(128, T))
+    args = dict(n_experts=E, k=k, block=min(128, T),
+                capacities=torch.tensor(caps, dtype=torch.float32,
+                                        device=dev))
+    if kernel:
+        args["kernel"] = kernel
+    C = caps[0] if len(set(caps)) == 1 else f"{min(caps)}-{max(caps)}"
     ms = cuda_ms(lambda: cg_dispatch(pref, gates, **args), reps=50)
     device_ms = kernel_ms(lambda: cg_dispatch(pref, gates, **args), 50,
                           "cg_dispatch_kernel")
-    plain_ms = cuda_ms(lambda: ref.ref_cg_dispatch(pref, gates, **args),
-                       reps=3, warmup=1)
+    plain_ms = (cuda_ms(lambda: ref.ref_cg_dispatch(
+        pref, gates, **{a: v for a, v in args.items() if a != "kernel"}),
+        reps=3, warmup=1) if plain else None)
     assign = cg_dispatch(pref, gates, **args)[0]
     bids = dispatch_bids(pref, assign, k)
     placed = int((assign >= 0).sum())
@@ -2180,6 +2241,245 @@ def ssm_reference_check(dev, seed: int) -> dict:
     return dict(max_rel_err=errs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training the CG-routed MoE
+# ---------------------------------------------------------------------------
+
+# the card-against-CPU train step: gradients within 1e-4 of each tensor's
+# largest (f32 matmuls round differently on the two devices, TF32 off;
+# the logits agree within ~2e-6, phase 6); the weights after one step
+# within 1e-5 of the largest plus 0.1 lr (AdamW's first step moves an
+# element by lr·g/(|g| + eps): with eps 1e-5 a gradient as small as the
+# devices' difference, ~1e-6, moves it up to 0.1 lr apart); AdamW on the
+# same gradients on both devices within 1e-6 of the largest
+TRAIN_GRAD_TOL, TRAIN_UPDATE_LR_TOL, TRAIN_OPT_TOL = 1e-4, 0.1, 1e-6
+
+
+def train_reckoning(cfg) -> dict:
+    """Parameters and bytes of the reference's training state per
+    parameter: bf16 weights and gradients (4), f32 master, m and v (12),
+    and the f32 gradient sum when ``grad_accum`` > 1 (4)."""
+    from repro_torch.models import model_zoo as zoo
+    n = zoo.count_params_specs(zoo.param_specs(cfg))
+    per = 16 + (4 if cfg.grad_accum > 1 else 0)
+    return dict(params=n, bytes_per_param=per, state_gb=n * per / 1e9)
+
+
+def train_run(cfg, tokens, dev, seed: int, steps: int = 5,
+              check_launches: bool = True) -> dict:
+    """``make_train_step`` on ``cfg`` from random weights drawn from
+    ``seed`` (bf16 at full width), AdamW (warm-up 2 of ``steps``),
+    ``steps`` steps on the fixed batch ``tokens``, with the launch counts
+    zeroed just before and read just after: the loss finite at every
+    step and lower at the last than at the first, ``moe_max_load_frac``
+    ≤ 1, and on the card ``cg_dispatch`` launched on every micro-step
+    (once a layer, twice under remat "full": the forward and its
+    recompute) and the plain dispatch never on CUDA tensors."""
+    import gc
+    import torch
+    from repro_torch import optim
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.kernels.cg_dispatch import cg_dispatch
+    name = (f"train {cfg.moe.router} skew={cfg.moe.capacity_skew} "
+            f"{cfg.n_layers}L")
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = zoo.init_params(cfg, seed, device=dev)
+    state = optim.init(model)
+    step = make_train_step(cfg, optim.AdamWConfig(warmup_steps=2,
+                                                  total_steps=steps))
+    per_step = cfg.grad_accum * cfg.n_layers * (2 if cfg.remat == "full"
+                                                else 1)
+    B, S = tokens.shape
+    rows = []
+    sync()
+    zero_counts()
+    for i in range(steps):
+        before = cg_dispatch.launches
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, {"tokens": tokens})
+        sync()
+        dt = time.perf_counter() - t0
+        row = dict(step=i + 1, loss=float(m["loss"]), lr=float(m["lr"]),
+                   grad_norm=float(m["grad_norm"]), ms=dt * 1e3,
+                   tokens_per_s=B * S / dt,
+                   drop_frac=float(m["moe_drop_frac"]),
+                   max_load_frac=float(m["moe_max_load_frac"]),
+                   cg_dispatch_launches=cg_dispatch.launches - before)
+        rows.append(row)
+        log(f"  {name} step {i + 1}: loss {row['loss']:.5f}, grad_norm "
+            f"{row['grad_norm']:.4f}, lr {row['lr']:.2e}, {row['ms']:.1f} ms "
+            f"= {row['tokens_per_s']:,.0f} tokens/s, drop_frac "
+            f"{row['drop_frac']:.4f}, max_load_frac "
+            f"{row['max_load_frac']:.4f}, cg_dispatch launches "
+            f"{row['cg_dispatch_launches']}")
+        if not (math.isfinite(row["loss"])
+                and math.isfinite(row["grad_norm"])):
+            fail(f"{name}: loss or grad_norm not finite at step {i + 1}")
+        if not 0.0 < row["max_load_frac"] <= 1.0:
+            fail(f"{name}: max_load_frac {row['max_load_frac']} at step "
+                 f"{i + 1}")
+        if cuda and check_launches \
+                and row["cg_dispatch_launches"] != per_step:
+            fail(f"{name}: {row['cg_dispatch_launches']} cg_dispatch "
+                 f"launches at step {i + 1}, expected {per_step} (every "
+                 "micro-step's layers, forward and recompute)")
+    counts = read_counts()
+    check_counts(name, counts, "cg_dispatch", dev, check_launches)
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail(f"{name}: the loss did not fall ({rows[0]['loss']} -> "
+             f"{rows[-1]['loss']})")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    steady = rows[1:] or rows
+    out = dict(run=name, router=cfg.moe.router,
+               capacity_skew=cfg.moe.capacity_skew, steps=rows,
+               step_ms_mean=sum(r["ms"] for r in steady) / len(steady),
+               tokens_per_s=B * S * len(steady)
+               / (sum(r["ms"] for r in steady) / 1e3),
+               peak_gb=peak, launches=counts)
+    log(f"  {name}: loss {rows[0]['loss']:.5f} -> {rows[-1]['loss']:.5f}; "
+        f"steps 2-{steps} {out['step_ms_mean']:.1f} ms = "
+        f"{out['tokens_per_s']:,.0f} tokens/s; peak device memory "
+        f"{peak:.1f} GB; cg_dispatch launches {counts['cg_dispatch']}")
+    del model, state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_path(dev, seed: int, n_layers: int | None = 1, steps: int = 5,
+               smoke: bool = False, check_launches: bool = True) -> dict:
+    """(p) qwen3-moe-235b-a22b at full width, depth cut to ``n_layers``,
+    with its config's remat "full" and grad_accum 8, on one fixed batch
+    of 8 × 1,024 zipf(1.3) tokens from ``seed`` (micro-steps of 1 ×
+    1,024): ``train_run`` with routers "cg" and "topk" × uniform and
+    ``capacity_skew=3.0`` capacities, everything freed between runs; CG
+    must drop no more than top-k at the same capacities (the first step:
+    the same weights and batch). ``smoke`` takes the smoke config on
+    8 × 64 tokens, for a rehearsal on the CPU."""
+    from repro_torch.core import streams
+    base = moe_config(n_layers, smoke)
+    B, S = (8, 64) if smoke else (8, 1024)
+    reck = train_reckoning(base)
+    log(f"  {base.arch_id}{' (smoke)' if smoke else ''}: depth "
+        f"{94 if not smoke else base.n_layers} -> {base.n_layers} "
+        f"layer(s): {reck['params']:,} parameters x "
+        f"{reck['bytes_per_param']} bytes of training state (bf16 weights "
+        f"and grads, f32 master, m, v, f32 grad sum) = "
+        f"{reck['state_gb']:.1f} GB; remat {base.remat!r}, grad_accum "
+        f"{base.grad_accum}, batch {B} x {S}")
+    tokens = streams.sample_zipf_stream(seed, B * S, base.vocab, 1.3,
+                                        device=dev).reshape(B, S)
+    runs = []
+    for skew in (0.0, 3.0):
+        pair = []
+        for router in ("cg", "topk"):
+            cfg = moe_config(n_layers, smoke, router)
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                      capacity_skew=skew))
+            pair.append(train_run(cfg, tokens, dev, seed, steps,
+                                  check_launches))
+        cg, topk = (r["steps"][0]["drop_frac"] for r in pair)
+        if cg > topk:
+            fail(f"train skew={skew}: CG dropped more than top-k ({cg} > "
+                 f"{topk})")
+        log(f"  train skew={skew}: first-step drop_frac CG {cg:.4f} vs "
+            f"top-k {topk:.4f}")
+        runs += pair
+    return dict(arch=base.arch_id, n_layers=base.n_layers, batch=[B, S],
+                reckoning=reck, runs=runs)
+
+
+def train_reference_check(dev, seed: int) -> dict:
+    """The train step on the card against the CPU, from the same weights:
+    the smoke config in f32 with grad_accum 2, AdamW with eps 1e-5, one
+    step on 4 × 64 tokens. The loss, every gradient (the router's by
+    name, which must not be zero), the step's loss and telemetry and the
+    weights after it agree within the ``TRAIN_*`` tolerances; AdamW on
+    the CPU's gradients agrees on both devices."""
+    import copy
+    import torch
+    from repro_torch import optim
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    cfg = moe_config(None, smoke=True).replace(dtype="float32",
+                                               grad_accum=2)
+    cpu = torch.device("cpu")
+    host = zoo.init_params(cfg, seed, device=cpu).requires_grad_(True)
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 64),
+                           generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.int32)
+    opt_cfg = optim.AdamWConfig(lr_peak=1e-3, warmup_steps=1,
+                                total_steps=4, eps=1e-5)
+    out = {}
+    for where, model in ((cpu, host), (dev, card)):
+        batch = {"tokens": tokens.to(where)}
+        loss, _ = zoo.loss_and_metrics(model, cfg, batch)
+        names, leaves = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        grads = {n: g.detach().cpu() for n, g in zip(names, grads)}
+        fixed = {n: g.to(where) for n, g in out.get("cpu", {}).get(
+            "grads", grads).items()}
+        same = copy.deepcopy(model)
+        optim.update(same, fixed, optim.init(same), opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        model, _, m = step(model, optim.init(model), batch)
+        out[where.type] = dict(
+            loss=float(loss.detach()), grads=grads,
+            metrics={k: v.detach().cpu() for k, v in m.items()},
+            weights={n: p.detach().cpu() for n, p in model.named_parameters()},
+            same_grads={n: p.detach().cpu()
+                        for n, p in same.named_parameters()})
+    a, b = out["cpu"], out[dev.type]
+    lr = float(a["metrics"]["lr"])
+
+    def worst(x, y):
+        return float((x - y).abs().max() / max(float(x.abs().max()), 1e-30))
+
+    loss_err = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    grad_err = {n: worst(g, b["grads"][n]) for n, g in a["grads"].items()}
+    router = [n for n in grad_err if n.endswith("moe.router")]
+    if loss_err > 1e-5 or max(grad_err.values()) > TRAIN_GRAD_TOL:
+        fail(f"train reference: loss rel {loss_err}, worst gradient "
+             f"{max(grad_err.items(), key=lambda kv: kv[1])}")
+    if not router or any(float(b["grads"][n].abs().max()) == 0.0
+                         for n in router):
+        fail("train reference: the router's gradient is zero on the card")
+    for k in ("loss", "grad_norm", "lr"):
+        if worst(a["metrics"][k], b["metrics"][k]) > 1e-5:
+            fail(f"train reference: step {k} differs")
+    for k in ("moe_drop_frac", "moe_max_load_frac", "moe_load"):
+        if not torch.equal(a["metrics"][k], b["metrics"][k]):
+            fail(f"train reference: routing telemetry {k} differs")
+    w_err, opt_err = 0.0, 0.0
+    for n, w in a["weights"].items():
+        d = float((w - b["weights"][n]).abs().max())
+        w_err = max(w_err, d / lr)
+        if d > 1e-5 * float(w.abs().max()) + TRAIN_UPDATE_LR_TOL * lr:
+            fail(f"train reference: weight {n} after the step differs by "
+                 f"{d}")
+        opt_err = max(opt_err, worst(a["same_grads"][n],
+                                     b["same_grads"][n]))
+    if opt_err > TRAIN_OPT_TOL:
+        fail(f"train reference: AdamW on the same gradients differs "
+             f"({opt_err})")
+    log(f"  smoke config in f32, one train step (grad_accum 2), card vs "
+        f"CPU: loss rel {loss_err:.2e}; gradients max rel "
+        f"{max(grad_err.values()):.2e} (router "
+        + ", ".join(f"{n} {grad_err[n]:.2e}" for n in router)
+        + f"); weights after the step max |diff| {w_err:.3f} lr; AdamW on "
+        f"the same gradients max rel {opt_err:.2e}; routing telemetry equal")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                weight_err_over_lr=w_err, adamw_rel_err=opt_err)
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -2362,7 +2662,17 @@ def main() -> int:
     ssm_ref = ssm_reference_check(dev, args.seed)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
-    # 8. report
+    # 8. training the CG-routed MoE
+    log(f"== MoE training: (p) {MOE_ARCH} at full width, 1 of 94 layers, "
+        "5 AdamW steps of 8 x 1,024 tokens (grad_accum 8, remat full), "
+        "router cg and topk x uniform and capacity_skew=3.0 capacities; "
+        "the smoke config's train step in f32, card vs CPU")
+    t8 = time.perf_counter()
+    train = train_path(dev, args.seed)
+    train["reference"] = train_reference_check(dev, args.seed)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # 9. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -2372,7 +2682,7 @@ def main() -> int:
                                    for r in schemes)
     launches["cg_dispatch"] = sum(
         r["launches"]["cg_dispatch"]
-        for r in moe["runs"] + [moe["long"], moe["serving"]])
+        for r in moe["runs"] + [moe["long"], moe["serving"]] + train["runs"])
     # per launch shape: (a)'s block-128 slots and their tails, its block-1
     # slots; zamba2 8 × 1,024 and 8 × 4,096, mamba2 8 × 4,096
     snap = {k: sum(r["launches"][k] for r in runs + fig11)
@@ -2427,7 +2737,7 @@ def main() -> int:
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
-            kernels=kernels),
+            train=train, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ rank by rank and holds the cap inside a block.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -587,16 +588,25 @@ def multisource_merge(state: MultiSourcePorcState) -> MultiSourcePorcState:
 def _capacity_vector(capacity, capacities, n_experts: int, dev):
     """The [E] f32 capacities of a dispatch: ``full(E, capacity)`` or
     ``capacities``; exactly one must be given. A tuple of equal
-    capacities is made on ``dev`` with ``torch.full`` too: a host-to-device
-    copy of a list would wait for the device's stream at every layer."""
+    capacities is made on ``dev`` with ``torch.full`` too, and a tuple or
+    list of unequal ones is copied to ``dev`` once and cached per
+    (capacities, device): a host-to-device copy at every MoE layer would
+    wait for the device's stream. Callers must not write to the result."""
     if (capacity is None) == (capacities is None):
         raise ValueError("pass exactly one of capacity / capacities")
     if capacities is None:
         return torch.full((n_experts,), capacity, dtype=torch.float32,
                           device=dev)
-    if isinstance(capacities, (tuple, list)) and len(set(capacities)) == 1:
-        return torch.full((len(capacities),), float(capacities[0]),
-                          dtype=torch.float32, device=dev)
+    if isinstance(capacities, (tuple, list)):
+        if len(set(capacities)) == 1:
+            return torch.full((len(capacities),), float(capacities[0]),
+                              dtype=torch.float32, device=dev)
+        return _cached_capacities(tuple(capacities), torch.device(dev))
+    return torch.as_tensor(capacities, dtype=torch.float32, device=dev)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_capacities(capacities: tuple, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(capacities, dtype=torch.float32, device=dev)
 
 

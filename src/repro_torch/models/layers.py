@@ -1,5 +1,4 @@
-"""Shared neural building blocks, forward only (port of
-``repro.models.layers``).
+"""Shared neural building blocks (port of ``repro.models.layers``).
 
 Plain functions on tensors, the ``Attention`` module that holds the
 attention sub-layer's weights under the names of the JAX package's
@@ -10,9 +9,10 @@ read a module's weights as attributes.
 Only what the MoE, Mamba-2 and hybrid archs run is here. Left out:
 ``shard_act`` and the activation-sharding rules, which are the identity
 on one device (the port runs on one device; the mesh tier is ROADMAP
-Queue 1 item 7); the ``rmsnorm`` custom VJP and the rematerialisation of
-the chunked attention's scan, which come with training (ROADMAP Queue 1
-item 8b) — here the norm and the attention are forward functions.
+Queue 1 item 7); the rematerialisation of the chunked attention's scan
+(its backward here is autograd's over the stored chunks; it comes with
+the training of long prompts, ROADMAP Queue 1 item 8b). ``rmsnorm``
+carries the reference's custom VJP.
 ``layernorm``, biases, the sliding window and its local/global flag, a
 query offset, a decode window's lower bound and cross-attention's
 precomputed k/v belong to the dense, audio and VLM families (ROADMAP
@@ -36,13 +36,45 @@ def torch_dtype(name: str) -> torch.dtype:
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """RMSNorm with a zero-centred scale, ``(1 + scale)``, in f32 and
-    cast back to ``x``'s dtype."""
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + _RMS_EPS) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP (``_rms_fwd``/``_rms_bwd``): the
+    backward keeps ``x`` in its own dtype (bf16 residuals, not an f32
+    copy) and works in f32."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return _rmsnorm(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32)
+        d = x.shape[-1]
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        r = torch.rsqrt(var + _RMS_EPS)
+        gs = gf * (1.0 + scale.to(torch.float32))
+        dx = r * gs - xf * (r ** 3 / d) * torch.sum(gs * xf, -1,
+                                                    keepdim=True)
+        dscale = torch.sum(gf * xf * r, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm with a zero-centred scale, ``(1 + scale)``, in f32 and
+    cast back to ``x``'s dtype; differentiable with the reference's
+    custom VJP."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale)
+    return _rmsnorm(x, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +296,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def drawn_param(key, shape, dtype, device, scale=None) -> nn.Parameter:
-    """A weight held without gradients: drawn as :func:`dense_init` draws
+    """A weight held without gradients (serving; training turns them on
+    with ``module.requires_grad_()``): drawn as :func:`dense_init` draws
     it with ``key`` (a ``torch.Generator``), or left uninitialized without
     one, for a caller to load (``repro_torch.convert``)."""
     return _param(dense_init(key, shape, dtype, scale, device)

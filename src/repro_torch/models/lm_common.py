@@ -1,15 +1,15 @@
-"""Shared LM machinery, forward only: norms, embeddings, the tied
-logits head, the SSD chunk choice and cache plumbing (port of
+"""Shared LM machinery: norms, embeddings, the chunked loss and the
+tied logits head, the SSD chunk choice and cache plumbing (port of
 ``repro.models.lm_common``).
 
-``chunked_xent`` and ``shift_labels`` come with training (ROADMAP
-Queue 1 item 8b); LayerNorm (``norm_kind="ln"``) with the families that
-use it (item 10): the MoE archs use RMSNorm.
+LayerNorm (``norm_kind="ln"``) comes with the families that use it
+(ROADMAP Queue 1 item 10): the MoE archs use RMSNorm.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import rmsnorm
 
@@ -39,6 +39,51 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
     x = embed[tokens.long()]
     root = torch.sqrt(torch.tensor(float(d_model), dtype=torch.float32))
     return x * root.to(x.dtype)
+
+
+def _xent_chunk(xc: torch.Tensor, embed: torch.Tensor, lc: torch.Tensor):
+    """(Σ token losses, count) of one chunk: f32 logits [B, C, V] against
+    the tied table, log-sum-exp minus the target's logit where the label
+    is not -1."""
+    logits = torch.einsum("bcd,vd->bcv", xc.to(torch.float32),
+                          embed.to(torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None].long())
+    valid = (lc >= 0).to(torch.float32)
+    return torch.sum((lse - tgt[..., 0]) * valid), torch.sum(valid)
+
+
+def chunked_xent(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing [B, S, V].
+
+    x: [B, S, D] final hidden states; embed: [V, D] (tied head); labels:
+    [B, S] int (already shifted; -1 = ignore). Sequence chunks of
+    ``chunk`` run in turn, so the live logits are [B, chunk, V] f32; under
+    autograd each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    As in the reference, a tail of S % chunk positions is left out.
+    """
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (x[:, sl], embed, labels[:, sl])
+        t, c = (checkpoint(_xent_chunk, *args, use_reentrant=False) if grad
+                else _xent_chunk(*args))
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def shift_labels(tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token labels: labels[t] = tokens[t+1], last = ignore (-1)."""
+    return torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                     dim=1)
 
 
 def last_logits(x_last: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

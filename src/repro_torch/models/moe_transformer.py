@@ -1,12 +1,16 @@
-"""MoE decoder transformer (qwen3-moe, phi3.5-moe) with CG routing,
-forward and serving path (port of ``repro.models.moe_transformer``).
+"""MoE decoder transformer (qwen3-moe, phi3.5-moe) with CG routing:
+the training loss and the serving path (port of
+``repro.models.moe_transformer``).
 
 The weights live in a ``MoETransformer`` module: ``embed`` [V, d] (the
 tied head), ``layers`` (an ``nn.ModuleList`` of ``MoEBlock``s, where the
 reference stacks each leaf on a leading [L] axis and scans) and
-``final_norm``. They are held without gradients; ``loss_fn`` and the
-training path come with ROADMAP Queue 1 item 8b. The reference's
-``lax.scan`` over layers is a Python loop.
+``final_norm``. They are made without gradients, for serving;
+``model.requires_grad_()`` makes them trainable, which
+``launch/steps.make_train_step`` does. ``prefill_step`` and
+``decode_step`` run under ``torch.no_grad``. The reference's
+``lax.scan`` over layers is a Python loop, each layer rematerialised as
+``cfg.remat`` says.
 """
 from __future__ import annotations
 
@@ -18,9 +22,13 @@ from repro_torch.moe.layer import MoEFFN, moe_ffn
 
 from .layers import (Attention, apply_rope, as_generator, attention,
                      drawn_param, linear, torch_dtype)
-from .lm_common import (Norm, embed_tokens, last_logits, norm, pad_cache_seq)
+from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
+                        pad_cache_seq, shift_labels)
 from .sp_decode import seqpar_update_and_attend
-from .transformer import cache_spec, init_cache  # noqa: F401 (reuse)
+from .transformer import cache_spec, init_cache, remat  # noqa: F401 (reuse)
+
+AUX_COEF = 0.01
+Z_COEF = 1e-3
 
 
 class MoEBlock(nn.Module):
@@ -78,12 +86,17 @@ def hidden_states(params: MoETransformer, cfg, x, positions,
     aux, z, drop, maxl = zero, zero, zero, zero
     load = torch.zeros(cfg.moe.n_experts, dtype=torch.float32, device=dev)
     kvs = []
-    for lp in params.layers:
+
+    def body(x, lp):
         h, kv = attention(norm(x, lp.attn_norm, cfg), lp.attn, cfg,
                           positions=positions, causal=True, return_kv=True)
         x = x + h
         h, m = moe_ffn(norm(x, lp.mlp_norm, cfg), lp.moe, cfg)
-        x = x + h
+        return x + h, m, kv
+
+    body = remat(body, cfg)
+    for lp in params.layers:
+        x, m, kv = body(x, lp)
         aux = aux + m["aux_loss"]
         z = z + m["z_loss"]
         drop = drop + m["drop_frac"]
@@ -100,6 +113,27 @@ def hidden_states(params: MoETransformer, cfg, x, positions,
         v = torch.stack([kv[1] for kv in kvs])
         return x, aux, z, rm, (k, v)
     return x, aux, z, rm
+
+
+def loss_fn(params: MoETransformer, cfg, batch, with_metrics: bool = False):
+    """Next-token loss of ``batch["tokens"]`` [B, S]: the chunked
+    cross-entropy against the tied table plus ``AUX_COEF`` and ``Z_COEF``
+    times the routers' load-balance and z losses, averaged over layers.
+    With ``with_metrics`` also the routing telemetry (``moe_drop_frac``,
+    ``moe_max_load_frac``, ``moe_load`` [E])."""
+    embed = params.embed
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+    x = embed_tokens(embed, tokens, cfg.d_model)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=embed.device).expand(B, S)
+    x, aux, z, rm = hidden_states(params, cfg, x, positions)
+    ce = chunked_xent(x, embed, shift_labels(tokens))
+    loss = ce + AUX_COEF * aux / cfg.n_layers + Z_COEF * z / cfg.n_layers
+    if with_metrics:
+        return loss, {"moe_drop_frac": rm["drop_frac"],
+                      "moe_max_load_frac": rm["max_load_frac"],
+                      "moe_load": rm["load"]}
+    return loss
 
 
 @torch.no_grad()

@@ -1,5 +1,4 @@
-"""MoE FFN layer with CG routing, forward only (port of
-``repro.moe.layer``).
+"""MoE FFN layer with CG routing (port of ``repro.moe.layer``).
 
 Token groups: the batch dimension is the group axis (one group per
 sequence — the "source" in the paper's terms; at decode the whole batch

@@ -8,10 +8,12 @@ token's next-preferred experts — PoRC's salted-hash sequence with the
 gate ordering as the probe order.
 
 ``route`` takes token groups on a leading axis and dispatches all of
-them with one call of ``kernels.ops.cg_dispatch``: the hand-written CUDA
-kernel for CUDA tensors, the plain ``ref_cg_dispatch`` for CPU tensors.
-(The reference's router calls its jnp ``ref_cg_dispatch`` once per group
-under ``vmap``, for its 512-device dry run.)
+them with one call of ``kernels.cg_dispatch.cg_dispatch_with_grad``: the
+hand-written CUDA kernel for CUDA tensors, the plain ``ref_cg_dispatch``
+for CPU tensors, with the combine weights' gradient reaching the router
+as it does through the reference's jnp ``ref_cg_dispatch`` (which the
+reference calls once per group under ``vmap``, for its 512-device dry
+run).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels.cg_dispatch import cg_dispatch_with_grad
 
 
 class RoutingResult(NamedTuple):
@@ -109,11 +111,10 @@ def route(x: torch.Tensor, router_w: torch.Tensor, moe, *,
     if block is None:
         block = min(128, T)
     if len(set(caps)) == 1:
-        assign, slot, weights, load = ops.cg_dispatch(
+        assign, slot, weights, load = cg_dispatch_with_grad(
             pref, gates, n_experts=E, k=k, capacity=caps[0], block=block)
     else:
-        assign, slot, weights, load = ops.cg_dispatch(
-            pref, gates, n_experts=E, k=k,
-            capacities=caps, block=block)
+        assign, slot, weights, load = cg_dispatch_with_grad(
+            pref, gates, n_experts=E, k=k, capacities=caps, block=block)
     aux, z = _aux_losses(logits, assign, E)
     return RoutingResult(assign, slot, weights, load, aux, z)

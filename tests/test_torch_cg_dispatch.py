@@ -168,3 +168,40 @@ def test_plain_version_tallies_cuda_calls_only():
     ref.ref_cg_dispatch(pref, gates, n_experts=8, k=2, capacity=20,
                         block=64)
     assert ref.ref_cg_dispatch.tally == before
+
+
+def test_capacity_vector_is_made_once_per_capacities_and_device():
+    """Unequal capacities cross to the device once and are cached per
+    (capacities, device): a list and a tuple of the same values give the
+    same tensor; equal capacities and a scalar still make their own."""
+    caps = (3, 2, 2, 1)
+    a = ref._capacity_vector(None, caps, 4, "cpu")
+    b = ref._capacity_vector(None, list(caps), 4, torch.device("cpu"))
+    assert a is b and a.dtype == torch.float32
+    assert a.tolist() == [3.0, 2.0, 2.0, 1.0]
+    u = ref._capacity_vector(None, (2, 2, 2, 2), 4, "cpu")
+    assert torch.equal(u, ref._capacity_vector(2, None, 4, "cpu"))
+    with pytest.raises(ValueError, match="exactly one"):
+        ref._capacity_vector(2, caps, 4, "cpu")
+
+
+def test_dispatch_plan_picks_the_kernel_and_stages_by_size():
+    """The CTA kernel at the MoE prefill shape with the next block's rows
+    staged; the one-warp kernel for decode blocks (≤ 32 tokens), for
+    E=16,384 (the CTA kernel's [2][warps][E] table does not fit) and for
+    blocks of 2,048 (over a CTA), the latter's rows left in global
+    memory; nothing for 40,000 experts. Bytes as ``Layout`` counts them
+    in ``csrc/cg_dispatch.cu``."""
+    from repro_torch.kernels.cg_dispatch import dispatch_plan, smem_bytes
+    assert dispatch_plan(128, 128, 12, 8) == ("cta", 2, 43_008)
+    # load, caps, load2: 512 B each; counts 2 × 4 warps × 128 × 4 B
+    assert smem_bytes(128, 128, 12, 8, 2, True) == (
+        3 * 512 + 512 + 3 * 4096 + 4 * 6144 + 4096)
+    assert dispatch_plan(128, 8, 12, 8)[:2] == ("warp", 2)
+    assert dispatch_plan(128, 8, 12, 8, kernel="cta")[:2] == ("cta", 2)
+    assert dispatch_plan(16384, 128, 6, 2)[:2] == ("warp", 2)
+    assert dispatch_plan(64, 2048, 8, 4)[:2] == ("warp", 0)
+    with pytest.raises(ValueError):
+        dispatch_plan(40_000, 128, 6, 2)
+    with pytest.raises(ValueError):
+        dispatch_plan(64, 2048, 8, 4, kernel="cta")

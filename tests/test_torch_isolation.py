@@ -33,6 +33,8 @@ from repro_torch import configs
 from repro_torch.launch import serve
 from repro_torch.models import model_zoo, moe_transformer
 from repro_torch.moe import route
+from repro_torch import optim
+from repro_torch.launch import steps
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
 res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
                          hh_scheme="w"), keys,
@@ -62,6 +64,9 @@ logits, cache = model_zoo.decode_step(model, cfg, cache,
 assert logits.shape == (2, cfg.vocab) and int(cache["pos"]) == 33
 out = serve.serve(cfg, model, requests=8, decode_steps=2, device="cpu")
 assert out["served"] == 8 and cg_dispatch.launches == 0
+model, state, m = steps.make_train_step(cfg, optim.AdamWConfig())(
+    model, optim.init(model), {"tokens": keys[:64].reshape(2, 32)})
+assert m["loss"].shape == () and int(state["step"]) == 1
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import hybrid, mamba2
 cfg = configs.get_smoke_config("mamba2-130m")
@@ -104,7 +109,9 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.kernels.ssd_scan",
                                     "repro_torch.models.mamba2",
                                     "repro_torch.models.hybrid",
-                                    "repro_torch.models.layers"])
+                                    "repro_torch.models.layers",
+                                    "repro_torch.optim",
+                                    "repro_torch.launch.steps"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -280,7 +287,8 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.models.model_zoo", "repro_torch.moe.layer",
             "repro_torch.moe.router", "repro_torch.launch.serve",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
-            "repro_torch.models.hybrid")
+            "repro_torch.models.hybrid", "repro_torch.optim.adamw",
+            "repro_torch.launch.steps")
 
 
 def _public_callables():
@@ -397,3 +405,26 @@ def test_chip_smoke_strict_and_registry_phases_rehearse_on_cpu():
                                    check_launches=False)
     assert len(rows) == 2 * 9
     assert {r["scheme"] for r in rows} >= set(partitioners.ALL_SCHEMES)
+
+
+def test_chip_smoke_training_phase_rehearses_on_cpu():
+    """``chip_smoke.py``'s phase 8 at the smoke config with the plain
+    dispatch: the four runs (routers cg and topk × uniform and skewed
+    capacities) train, their loss falls, CG drops no more than top-k, and
+    the card-against-CPU check runs its comparisons (here CPU against
+    CPU)."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    dev = torch.device("cpu")
+    out = chip_smoke.train_path(dev, 0, n_layers=None, steps=3, smoke=True,
+                                check_launches=False)
+    assert [(r["router"], r["capacity_skew"]) for r in out["runs"]] == [
+        ("cg", 0.0), ("topk", 0.0), ("cg", 3.0), ("topk", 3.0)]
+    assert all(r["steps"][-1]["loss"] < r["steps"][0]["loss"]
+               for r in out["runs"])
+    ref_check = chip_smoke.train_reference_check(dev, 0)
+    assert ref_check["loss_rel_err"] == 0.0

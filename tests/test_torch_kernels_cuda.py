@@ -544,12 +544,15 @@ def test_strict_wrappers_check_their_inputs(dev):
 # cg_dispatch
 # ---------------------------------------------------------------------------
 
-def routing(G, T, E, D, skew, dev, seed=0):
+def routing(G, T, E, D, skew, dev, seed=0, hot=False):
     """Router-like pref/gates made on the card (stable descending order
-    of softmax probabilities with a per-expert bias of scale skew)."""
+    of softmax probabilities with a per-expert bias of scale skew; with
+    ``hot`` expert 0 above every other)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     logits = torch.randn((G, T, E), generator=gen, device=dev) \
         + skew * torch.randn((G, 1, E), generator=gen, device=dev)
+    if hot:
+        logits[..., 0] += 20.0
     gates, pref = torch.sort(torch.softmax(logits, -1), dim=-1,
                              descending=True, stable=True)
     return (pref[..., :D].to(torch.int32).contiguous(),
@@ -604,6 +607,37 @@ def test_dispatch_kernel_capacity_vector(dev, E, k, ratio):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("case", ["D=32", "k=1 capacity 1",
+                                  "one expert hot", "G=0", "E=16384",
+                                  "block 2048"])
+def test_dispatch_kernel_edges(dev, case):
+    """The edges of the one-warp design, bit for bit with the plain
+    version: a row longer than any register budget (D=32), k=1 at
+    capacity 1, every token bidding one expert first, no group at all,
+    E=16,384 (the loads alone 64 KB of shared memory) and blocks of 2,048
+    tokens (their rows read from global memory), each group equal to a
+    call of its own."""
+    G, T, E, k, D, block, cap = {
+        "D=32": (2, 512, 64, 8, 32, 128, 80),
+        "k=1 capacity 1": (3, 256, 16, 1, 4, 128, 1),
+        "one expert hot": (2, 1024, 128, 8, 12, 128, 80),
+        "G=0": (0, 256, 16, 2, 6, 128, 8),
+        "E=16384": (2, 256, 16384, 2, 6, 128, 1),
+        "block 2048": (2, 4096, 64, 4, 8, 2048, 320)}[case]
+    pref, gates = routing(G, T, E, D, 2.0, dev, seed=T + D)
+    if case == "one expert hot":
+        pref, gates = routing(G, T, E, D, 0.0, dev, seed=5, hot=True)
+        assert bool((pref[..., 0] == 0).all())
+    kw = dict(n_experts=E, k=k, block=block, capacity=cap)
+    got = cg_dispatch(pref, gates, **kw)
+    want = ref.ref_cg_dispatch(pref, gates, **kw)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.equal(x, y)
+    for g in range(G):
+        for x, y in zip(cg_dispatch(pref[g], gates[g], **kw), got):
+            assert torch.equal(x, y[g])
+
+
 def test_moe_route_launches_the_dispatch_kernel(dev):
     """The router on CUDA tensors goes through the kernel, once per call
     for all groups, and never through the plain version."""
@@ -620,6 +654,61 @@ def test_moe_route_launches_the_dispatch_kernel(dev):
     r_cpu = route(x.cpu(), w.cpu(), moe)
     for f in ("assign", "slot", "load"):
         assert torch.equal(getattr(r, f).cpu(), getattr(r_cpu, f))
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One train step of qwen3-moe's smoke config in f32 (grad_accum 2,
+    remat "full") on the card against the CPU from the same weights: the
+    loss, every gradient (the router's non-zero) and the weights after the
+    step, within ``chip_smoke.train_reference_check``'s tolerances; the
+    dispatch launched twice a layer a micro-step (the forward and its
+    recompute) and the plain dispatch never ran on the card."""
+    import copy
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    cfg = get_smoke_config("qwen3-moe-235b-a22b").replace(
+        dtype="float32", grad_accum=2, remat="full")
+    host = zoo.init_params(cfg, 0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    opt_cfg = optim.AdamWConfig(lr_peak=1e-3, warmup_steps=1,
+                                total_steps=4, eps=1e-5)
+    out = {}
+    for model in (host, card):
+        where = next(model.parameters()).device
+        batch = {"tokens": tokens.to(where)}
+        launches = cg_dispatch.launches
+        plain = ref.ref_cg_dispatch.tally["cuda_calls"]
+        loss, _ = zoo.loss_and_metrics(model.requires_grad_(True), cfg, batch)
+        names, leaves = zip(*model.named_parameters())
+        grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(
+            loss, leaves))))
+        model, _, m = make_train_step(cfg, opt_cfg)(
+            model, optim.init(model), batch)
+        if where.type == "cuda":
+            assert cg_dispatch.launches - launches \
+                == 2 * cfg.n_layers * (1 + cfg.grad_accum)
+            assert ref.ref_cg_dispatch.tally["cuda_calls"] == plain
+        out[where.type] = (float(loss.detach()), grads,
+                           {n: p.detach().cpu()
+                            for n, p in model.named_parameters()},
+                           {k: v.cpu() for k, v in m.items()})
+    (l0, g0, w0, m0), (l1, g1, w1, m1) = out["cpu"], out["cuda"]
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for n, g in g0.items():
+        assert float((g - g1[n]).abs().max()) <= 1e-4 * float(
+            g.abs().max()), n
+    router = [n for n in g1 if n.endswith("moe.router")]
+    assert router and all(float(g1[n].abs().max()) > 0 for n in router)
+    for k in ("moe_drop_frac", "moe_max_load_frac", "moe_load"):
+        assert torch.equal(m0[k], m1[k]), k
+    lr = float(m0["lr"])
+    for n, w in w0.items():
+        assert float((w - w1[n]).abs().max()) <= 1e-5 * float(
+            w.abs().max()) + 0.1 * lr, n
 
 
 def test_dispatch_wrapper_checks_its_inputs(dev):

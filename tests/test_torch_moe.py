@@ -393,7 +393,7 @@ def test_chip_smoke_moe_phase_rehearses_on_cpu():
     assert out["serving"]["per_replica"] and sum(
         out["serving"]["per_replica"]) == 64
     assert chip_smoke.moe_reference_check(dev, 0)["max_rel_err"] == 0.0
-    assert len(chip_smoke.dispatch_grid()) == 22
+    assert len(chip_smoke.dispatch_grid()) == 26
     # bids: a token that never fills its k slots bids at all D ranks, one
     # that does stops at the rank of its k-th slot
     pref, _ = chip_smoke.dispatch_inputs(2, 128, 16, 6, 1.0, dev, 0)
