@@ -25,7 +25,11 @@ Phases:
      and the final state) against the sequential ``ref_ssd_scan`` and
      the plain ``ssd_chunked`` within the JAX tests' tolerances, over
      their grid, chunk invariance, C ≡ 0 and both Mamba-2 models'
-     prefill shapes; the strict kernels also over edge grids (blocks of
+     prefill shapes, and ``ssd_scan_bwd`` (the SSD scan's CUDA
+     backward, every gradient) against the plain ``ssd_chunked_bwd``
+     over the same grid in f32 and bf16, chunk invariance, C ≡ 0 and
+     phase 9's three training shapes; the strict kernels also over edge
+     grids (blocks of
      1 to 1,000, S 1, 7 and 100, one key repeated, the L2 paths, the
      leftover fallback); times each at the main path's shapes, every
      kernel both ways: ``ms`` between CUDA events (host issue included)
@@ -34,8 +38,9 @@ Phases:
      ``porc_multisource_scan`` also over the five spans of one (c) slot
      and at Fig 11's shape; ``porc_snapshot`` at its three launch shapes
      on (a) (a slot's 78 blocks of 128, its 16-key tail, a block-1 slot
-     of 10,000 keys) and ``ssd_scan`` at its three prefill shapes, its
-     operations held against the bf16 tensor-core rate;
+     of 10,000 keys), ``ssd_scan`` at its three prefill shapes, its
+     operations held against the bf16 tensor-core rate, and
+     ``ssd_scan_bwd`` at its three training shapes against the f32 rate;
   4. main path: ``cg.run`` with ``engine="auto"`` on the card —
      (a) the paper's simulation setup (10 workers × α=10, ε=0.01, slot
      10,000, y=3 machines 5× faster at ρ=0.8) on a WP stream at Table I
@@ -105,7 +110,20 @@ Phases:
      micro-step); the loss must fall and CG drop no more than top-k;
      then the smoke config's train step in f32 on the card against the
      CPU (loss, every gradient, the weights after the step);
-  9. prints the ``{"kernels": [...]}`` line and, last, the device line.
+  9. SSM training: (q) mamba2-130m at full size (24 layers, d 768, 24
+     heads of 64, N 128, vocab 50,280), 5 AdamW steps (warm-up 2) on
+     one fixed batch of 8 × 4,096 zipf(1.3) tokens; (r) zamba2-2.7b at
+     full size (54 layers, 2,340,750,240 parameters; 37.5 GB of training
+     state), 5 steps on 8 × 1,024 tokens, then one step on 2 × 4,096
+     past the attention threshold (the 9 shared-attention calls take
+     ``chunked_attention``, again in the recompute); the configs' remat
+     "full", grad_accum 1, random bf16 weights from a seeded
+     ``torch.Generator``; per step the loss (which must fall), grad_norm,
+     step ms, train tokens/s, and the launches: ``ssd_scan`` twice a
+     layer (forward and recompute), ``ssd_scan_bwd`` once; peak memory
+     beside the reckoning; then both smoke configs' train step in f32
+     on the card against the CPU;
+ 10. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -149,7 +167,7 @@ def counters() -> dict:
     (plain torch: the reference has no kernel there)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cg_dispatch import cg_dispatch
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.models.layers import chunked_attention
     from repro_torch.models.mamba2 import ssd_chunked
     from repro_torch.kernels.porc_assign import (porc_assign,
@@ -167,6 +185,7 @@ def counters() -> dict:
                                         "launches"),
             "cg_dispatch": (cg_dispatch, "launches"),
             "ssd_scan": (ssd_scan, "launches"),
+            "ssd_scan_bwd": (ssd_scan_bwd, "launches"),
             "plain_strict_on_cuda": (ref._porc_block.tally, "cuda_calls"),
             "plain_dispatch_on_cuda": (ref.ref_cg_dispatch.tally,
                                        "cuda_calls"),
@@ -1279,6 +1298,151 @@ def time_ssd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
                                  ops / OPS_PER_S) * 1e3,
                 ctas_per_sm=resident_ctas(P, N, Q),
                 ctas_per_sm_planned=ctas_per_sm(P, N, Q))
+
+
+# the backward against the plain ``ssd_chunked_bwd`` on the same CUDA
+# tensors, max|a − b| / max|a| per gradient: 1e-4 for what is f32 (every
+# gradient of f32 inputs; ddt and dA of bf16 ones), where the two differ
+# in the order of their sums (the bound of the forward against the
+# sequential recurrence); 3e-2 for dx, dB and dC of bf16 inputs, each
+# rounded once to bf16 from f32 sums (the forward's bf16 bound)
+SSD_BWD_TOL = {"f32": 1e-4, "bf16": 3e-2}
+SSD_GRADS = ("dx", "ddt", "dA", "dBm", "dCm")
+# the backward's rows of the kernels line, one per shape of
+# ``ssd_train_shapes``; it replaces no TPU kernel, but XLA's autodiff of
+# the reference's ssd_chunked (the "replaces" of its rows)
+BWD_ROWS = ("ssd_scan_bwd", "ssd_scan_bwd[zamba2 2x4096]",
+            "ssd_scan_bwd[mamba2]")
+
+
+def ssd_train_shapes():
+    """(label, B, L, H, P, G, N, Q) of the SSD backward in phase 9's train
+    steps: zamba2-2.7b on 8 × 1,024 and 2 × 4,096 tokens, mamba2-130m on
+    8 × 4,096."""
+    (_, _, _, *zamba2), (_, _, _, *mamba2) = ssd_model_shapes()
+    return [("zamba2-2.7b", 8, 1024, *zamba2),
+            ("zamba2-2.7b", 2, 4096, *zamba2),
+            ("mamba2-130m", 8, 4096, *mamba2)]
+
+
+def ssd_cotangent(x, seed: int):
+    """A normal cotangent of y, in x's dtype, drawn on x's device."""
+    import torch
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+
+
+def check_ssd_bwd(dev) -> dict:
+    """ssd_scan_bwd (the CUDA backward) against the plain
+    ``ssd_chunked_bwd`` on the same CUDA tensors, within ``SSD_BWD_TOL``:
+    the JAX SSD tests' grid (G 1, 2, 3) in f32 and bf16, chunk invariance
+    Q ∈ {16, 32, 64, 128} (each also within 1e-4 of chunk 128), C ≡ 0
+    (dx, ddt, dA and dB exactly 0, dC not), and phase 9's three training
+    shapes in bf16. Returns the largest absolute and relative errors."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.models.mamba2 import ssd_chunked_bwd
+    bf16 = torch.bfloat16
+    worst = dict(max_abs_err=0.0, max_rel_err=0.0)
+
+    def hold(label, inputs, Q, seed):
+        dy = ssd_cotangent(inputs[0], seed)
+        before = ssd_scan_bwd.launches
+        got = ssd_scan_bwd(*inputs, dy, chunk=Q)
+        torch.cuda.synchronize()
+        if ssd_scan_bwd.launches != before + 1:
+            fail(f"ssd_scan_bwd {label}: the kernel did not launch")
+        want = ssd_chunked_bwd(*inputs, dy, Q)
+        errs = []
+        for name, w, g in zip(SSD_GRADS, want, got):
+            if g.dtype != w.dtype or g.shape != w.shape \
+                    or not bool(g.isfinite().all()):
+                fail(f"ssd_scan_bwd {label}: {name} is not finite of "
+                     f"{w.dtype} {tuple(w.shape)}")
+            err = relerr(w, g)
+            errs.append(err)
+            worst["max_abs_err"] = max(worst["max_abs_err"], float(
+                (w.float() - g.float()).abs().max()))
+            worst["max_rel_err"] = max(worst["max_rel_err"], err)
+            tol = SSD_BWD_TOL["bf16" if g.dtype == bf16 else "f32"]
+            if not err < tol:
+                fail(f"ssd_scan_bwd {label}: {name} {err:.2e} from "
+                     f"ssd_chunked_bwd (bound {tol})")
+        log(f"  ssd_scan_bwd {label}: vs ssd_chunked_bwd "
+            + ", ".join(f"{n} {e:.2e}" for n, e in zip(SSD_GRADS, errs)))
+        return got
+
+    grid = [(2, 128, 4, 32, 1, 64, 32), (1, 256, 8, 64, 2, 128, 64),
+            (1, 256, 6, 16, 3, 32, 128)]
+    for dtype in (torch.float32, bf16):
+        for i, (B, L, H, P, G, N, Q) in enumerate(grid):
+            hold(f"JAX grid B={B} L={L} H={H} P={P} G={G} N={N} Q={Q} "
+                 f"{str(dtype).split('.')[1]}",
+                 ssd_inputs(B, L, H, P, G, N, dev, dtype, seed=20 + i), Q,
+                 seed=30 + i)
+    inputs = ssd_inputs(1, 128, 4, 16, 1, 32, dev, seed=24)
+    at128 = hold("chunk invariance Q=128", inputs, 128, seed=34)
+    for Q in (16, 32, 64):
+        got = hold(f"chunk invariance Q={Q}", inputs, Q, seed=34)
+        for name, a, b in zip(SSD_GRADS, at128, got):
+            if not relerr(a, b) < SSD_BWD_TOL["f32"]:
+                fail(f"ssd_scan_bwd: {name} at chunk {Q} differs from "
+                     f"chunk 128 ({relerr(a, b):.2e})")
+    x, dt, A, Bm, Cm = ssd_inputs(1, 64, 2, 8, 1, 16, dev, seed=25)
+    got = hold("C ≡ 0", (x, dt, A, Bm, torch.zeros_like(Cm)), 16, seed=35)
+    if any(float(g.abs().max()) != 0.0 for g in got[:4]) \
+            or float(got[4].abs().max()) == 0.0:
+        fail("ssd_scan_bwd: C ≡ 0 must give dx, ddt, dA, dB exactly 0 "
+             "and dC not")
+    for i, (arch, B, L, H, P, G, N, Q) in enumerate(ssd_train_shapes()):
+        hold(f"{arch} train B={B} L={L} H={H} P={P} N={N} Q={Q} bfloat16",
+             ssd_inputs(B, L, H, P, G, N, dev, bf16, seed=26 + i), Q,
+             seed=36 + i)
+    return worst
+
+
+def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
+                 N: int, Q: int) -> dict:
+    """ssd_scan_bwd at a training shape of phase 9, bf16 as the model runs
+    it: ``ms`` between CUDA events, ``device_ms`` of its two kernels
+    (the scan and the sum over heads, ``reduce_ms`` the latter alone),
+    the plain ``ssd_chunked_bwd`` on the same inputs. The operations, the
+    backward's own on the causal triangle (the kernel builds G and D
+    twice; that is not counted), are held against the bf16 tensor-core
+    rate, the card's peak for the operands' type, as ``time_ssd`` holds
+    the forward; ``bound_f32_ms`` keeps them at the f32 FMA rate, on
+    which the kernel runs today."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.models.mamba2 import ssd_chunked_bwd
+    inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=13)
+    dy = ssd_cotangent(inputs[0], 14)
+
+    def run():
+        return ssd_scan_bwd(*inputs, dy, chunk=Q)
+
+    ms = cuda_ms(run, reps=10)
+    reduce_ms = kernel_ms(run, 10, "ssd_bwd_reduce")
+    device_ms = kernel_ms(run, 10, "ssd_scan_bwd_kernel") + reduce_ms
+    plain_ms = cuda_ms(lambda: ssd_chunked_bwd(*inputs, dy, Q), reps=2,
+                       warmup=1)
+    # x, dy, B, C in bf16 and dt, A in f32 read once; dx, dB, dC in bf16
+    # and ddt, dA in f32 written once
+    nbytes = (2 * 2 * B * L * H * P + 4 * B * L * H + 4 * H
+              + 2 * 2 * B * L * G * N + 2 * B * L * H * P + 4 * B * L * H
+              + 2 * 2 * B * L * G * N + 4 * H)
+    # per chunk and head, in multiply-adds: G = C·Bᵀ over N and D = dy·xᵀ
+    # over P, then dx over P and dB, dC over N, each on the Q(Q+1)/2
+    # entries of the causal triangle; five [P, N] products over Q (the
+    # entering state, the three inter-chunk terms, dh); two operations each
+    nc = L // Q
+    ops = B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 10 * Q * P * N)
+    return dict(shape=f"{arch} train B={B} L={L} H={H} P={P} G={G} N={N} "
+                f"Q={Q} bf16", ms=ms, device_ms=device_ms,
+                reduce_ms=reduce_ms, plain_ms=plain_ms, bytes=nbytes,
+                ops=ops, ops_per_s=BF16_TC_OPS_PER_S,
+                bound_f32_ms=max(nbytes / HBM_BYTES_PER_S,
+                                 ops / OPS_PER_S) * 1e3)
 
 
 def bound(t: dict) -> tuple[float, str]:
@@ -2396,20 +2560,27 @@ def train_path(dev, seed: int, n_layers: int | None = 1, steps: int = 5,
                 reckoning=reck, runs=runs)
 
 
-def train_reference_check(dev, seed: int) -> dict:
+def train_reference_check(dev, seed: int, arch: str = MOE_ARCH) -> dict:
     """The train step on the card against the CPU, from the same weights:
-    the smoke config in f32 with grad_accum 2, AdamW with eps 1e-5, one
-    step on 4 × 64 tokens. The loss, every gradient (the router's by
-    name, which must not be zero), the step's loss and telemetry and the
-    weights after it agree within the ``TRAIN_*`` tolerances; AdamW on
-    the CPU's gradients agrees on both devices."""
+    ``arch``'s smoke config in f32 (the MoE with grad_accum 2; Mamba-2
+    and zamba2 with remat "full", the SSD scan's CUDA forward and
+    backward on the card, its plain versions on the CPU), AdamW with eps
+    1e-5, one step on 4 × 64 tokens. The loss, every gradient (the
+    router's by name, which must not be zero), the step's loss and
+    telemetry and the weights after it agree within the ``TRAIN_*``
+    tolerances; AdamW on the CPU's gradients agrees on both devices."""
     import copy
     import torch
-    from repro_torch import optim
+    from repro_torch import configs, optim
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model_zoo as zoo
-    cfg = moe_config(None, smoke=True).replace(dtype="float32",
-                                               grad_accum=2)
+    if arch == MOE_ARCH:
+        cfg = moe_config(None, smoke=True).replace(dtype="float32",
+                                                   grad_accum=2)
+    else:
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32",
+                                                     remat="full")
+    moe = cfg.family == "moe"
     cpu = torch.device("cpu")
     host = zoo.init_params(cfg, seed, device=cpu).requires_grad_(True)
     card = copy.deepcopy(host).to(dev)
@@ -2447,37 +2618,175 @@ def train_reference_check(dev, seed: int) -> dict:
     grad_err = {n: worst(g, b["grads"][n]) for n, g in a["grads"].items()}
     router = [n for n in grad_err if n.endswith("moe.router")]
     if loss_err > 1e-5 or max(grad_err.values()) > TRAIN_GRAD_TOL:
-        fail(f"train reference: loss rel {loss_err}, worst gradient "
+        fail(f"train reference {arch}: loss rel {loss_err}, worst gradient "
              f"{max(grad_err.items(), key=lambda kv: kv[1])}")
-    if not router or any(float(b["grads"][n].abs().max()) == 0.0
-                         for n in router):
+    if moe and (not router or any(float(b["grads"][n].abs().max()) == 0.0
+                                  for n in router)):
         fail("train reference: the router's gradient is zero on the card")
     for k in ("loss", "grad_norm", "lr"):
         if worst(a["metrics"][k], b["metrics"][k]) > 1e-5:
-            fail(f"train reference: step {k} differs")
+            fail(f"train reference {arch}: step {k} differs")
+    if set(a["metrics"]) != set(b["metrics"]):
+        fail(f"train reference {arch}: the step's metrics differ")
     for k in ("moe_drop_frac", "moe_max_load_frac", "moe_load"):
-        if not torch.equal(a["metrics"][k], b["metrics"][k]):
+        if moe and not torch.equal(a["metrics"][k], b["metrics"][k]):
             fail(f"train reference: routing telemetry {k} differs")
     w_err, opt_err = 0.0, 0.0
     for n, w in a["weights"].items():
         d = float((w - b["weights"][n]).abs().max())
         w_err = max(w_err, d / lr)
         if d > 1e-5 * float(w.abs().max()) + TRAIN_UPDATE_LR_TOL * lr:
-            fail(f"train reference: weight {n} after the step differs by "
-                 f"{d}")
+            fail(f"train reference {arch}: weight {n} after the step "
+                 f"differs by {d}")
         opt_err = max(opt_err, worst(a["same_grads"][n],
                                      b["same_grads"][n]))
     if opt_err > TRAIN_OPT_TOL:
-        fail(f"train reference: AdamW on the same gradients differs "
-             f"({opt_err})")
-    log(f"  smoke config in f32, one train step (grad_accum 2), card vs "
-        f"CPU: loss rel {loss_err:.2e}; gradients max rel "
-        f"{max(grad_err.values()):.2e} (router "
-        + ", ".join(f"{n} {grad_err[n]:.2e}" for n in router)
+        fail(f"train reference {arch}: AdamW on the same gradients "
+             f"differs ({opt_err})")
+    worst_name = max(grad_err, key=grad_err.get)
+    log(f"  {arch} smoke config in f32, one train step (grad_accum "
+        f"{cfg.grad_accum}, remat {cfg.remat!r}), card vs CPU: loss rel "
+        f"{loss_err:.2e}; gradients max rel "
+        f"{grad_err[worst_name]:.2e} ({worst_name}"
+        + (", router " + ", ".join(f"{n} {grad_err[n]:.2e}" for n in router)
+           if moe else "")
         + f"); weights after the step max |diff| {w_err:.3f} lr; AdamW on "
-        f"the same gradients max rel {opt_err:.2e}; routing telemetry equal")
+        f"the same gradients max rel {opt_err:.2e}"
+        + ("; routing telemetry equal" if moe else ""))
     return dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
                 weight_err_over_lr=w_err, adamw_rel_err=opt_err)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: training Mamba-2 and the zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+def ssm_train_steps(name: str, model, state, step, cfg, tokens, dev,
+                    n_steps: int, first: int = 1,
+                    check_launches: bool = True) -> dict:
+    """``n_steps`` train steps of ``step`` on the fixed batch ``tokens``
+    with the launch counts zeroed just before and read just after: the
+    loss and grad_norm finite at every step; on the card per step
+    ``ssd_scan`` launched once a layer a micro-step, twice under remat
+    "full" (the forward and its recompute), ``ssd_scan_bwd`` once, as
+    many ``chunked_attention`` calls as a forward and its recompute make
+    (``attention_calls``), and the plain ``ssd_chunked`` never on CUDA
+    tensors. Step ms, train tokens/s and peak device memory."""
+    import torch
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, S = tokens.shape
+    passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
+    expect = {"ssd_scan": cfg.n_layers * passes,
+              "ssd_scan_bwd": cfg.n_layers * cfg.grad_accum,
+              "chunked_attention": attention_calls(cfg, S) * passes}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    sync()
+    zero_counts()
+    for i in range(n_steps):
+        before = read_counts()
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, {"tokens": tokens})
+        sync()
+        dt = time.perf_counter() - t0
+        after = read_counts()
+        got = {k: after[k] - before[k] for k in expect}
+        row = dict(step=first + i, loss=float(m["loss"]), lr=float(m["lr"]),
+                   grad_norm=float(m["grad_norm"]), ms=dt * 1e3,
+                   tokens_per_s=B * S / dt, launches=got)
+        rows.append(row)
+        log(f"  {name} step {row['step']}: loss {row['loss']:.5f}, "
+            f"grad_norm {row['grad_norm']:.4f}, lr {row['lr']:.2e}, "
+            f"{row['ms']:.1f} ms = {row['tokens_per_s']:,.0f} tokens/s; "
+            f"launches ssd_scan {got['ssd_scan']}, ssd_scan_bwd "
+            f"{got['ssd_scan_bwd']}, chunked_attention calls "
+            f"{got['chunked_attention']}")
+        if not (math.isfinite(row["loss"])
+                and math.isfinite(row["grad_norm"])):
+            fail(f"{name}: loss or grad_norm not finite at step "
+                 f"{row['step']}")
+        if cuda and check_launches and got != expect:
+            fail(f"{name}: launches {got} at step {row['step']}, expected "
+                 f"{expect} (every SSM layer's forward and recompute, its "
+                 "backward once; the shared attention's calls)")
+    counts = read_counts()
+    check_counts(name, counts, "ssd_scan_bwd", dev, check_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    steady = rows[1:] or rows
+    out = dict(run=name, batch=[B, S], steps=rows,
+               step_ms_mean=sum(r["ms"] for r in steady) / len(steady),
+               tokens_per_s=B * S * len(steady)
+               / (sum(r["ms"] for r in steady) / 1e3),
+               peak_gb=peak, launches=counts)
+    log(f"  {name}: loss {rows[0]['loss']:.5f} -> {rows[-1]['loss']:.5f}; "
+        f"steps {rows[0]['step'] + (len(rows) > 1)}-{rows[-1]['step']} "
+        f"{out['step_ms_mean']:.1f} ms = {out['tokens_per_s']:,.0f} "
+        f"tokens/s; peak device memory {peak:.1f} GB")
+    return out
+
+
+def ssm_train_path(dev, seed: int, arch: str, batch: int, seq: int,
+                   steps: int = 5, long: tuple | None = None,
+                   smoke: bool = False, check_launches: bool = True) -> dict:
+    """(q) mamba2-130m or (r) zamba2-2.7b at full size, random bf16
+    weights from ``seed``, the config's remat "full" and grad_accum 1:
+    ``steps`` AdamW steps (warm-up 2) of ``make_train_step`` on one fixed
+    batch of ``batch`` × ``seq`` zipf(1.3) tokens (``ssm_train_steps``;
+    the loss must fall from the first step to the last); with ``long``
+    (B, S), one more step of the same model on a batch of that shape.
+    Logs the training state's reckoning beside the measured peak.
+    ``smoke`` takes the smoke config, for a rehearsal on the CPU."""
+    import gc
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.core import streams
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else configs.get_config(arch))
+    reck = train_reckoning(cfg)
+    log(f"  {arch}{' (smoke)' if smoke else ''}: {cfg.n_layers} layers, "
+        f"{reck['params']:,} parameters x {reck['bytes_per_param']} bytes "
+        f"of training state (bf16 weights and grads, f32 master, m, v) = "
+        f"{reck['state_gb']:.1f} GB; remat {cfg.remat!r}, grad_accum "
+        f"{cfg.grad_accum}, batch {batch} x {seq}")
+    cuda = dev.type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    model = zoo.init_params(cfg, seed, device=dev)
+    state = optim.init(model)
+    step = make_train_step(cfg, optim.AdamWConfig(
+        warmup_steps=2, total_steps=steps + (1 if long else 0)))
+
+    def zipf(B, S, salt):
+        return streams.sample_zipf_stream(seed + salt, B * S, cfg.vocab, 1.3,
+                                          device=dev).reshape(B, S)
+
+    name = f"train {arch} {cfg.n_layers}L B={batch} S={seq}"
+    out = dict(arch=arch, n_layers=cfg.n_layers, reckoning=reck,
+               run=ssm_train_steps(name, model, state, step, cfg,
+                                   zipf(batch, seq, 0), dev, steps,
+                                   check_launches=check_launches))
+    rows = out["run"]["steps"]
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail(f"{name}: the loss did not fall ({rows[0]['loss']} -> "
+             f"{rows[-1]['loss']})")
+    log(f"  {arch}: training state reckoned {reck['state_gb']:.1f} GB, "
+        f"peak device memory {out['run']['peak_gb']:.1f} GB")
+    if long:
+        B, S = long
+        out["long"] = ssm_train_steps(
+            f"train {arch} {cfg.n_layers}L B={B} S={S}", model, state, step,
+            cfg, zipf(B, S, 1), dev, 1, first=steps + 1,
+            check_launches=check_launches)
+    del model, state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
 
 
 def sample(spec: dict, seed: int, n_messages: int, dev):
@@ -2558,6 +2867,8 @@ def main() -> int:
         err[name] = max(err[name], edges)
     ssd_err = check_ssd(dev)
     err["ssd_scan"] = ssd_err["max_abs_err"]
+    bwd_err = check_ssd_bwd(dev)
+    err["ssd_scan_bwd"] = bwd_err["max_abs_err"]
     log_plans("phase 3 checks")
     from repro_torch.kernels.blocks import HHPolicy
     timing = {
@@ -2592,6 +2903,9 @@ def main() -> int:
     # zamba2's long prefill, phase 7 (o): 8 × 4,096 tokens
     timing["ssd_scan[zamba2 8x4096]"] = time_ssd(
         dev, *zamba2[:2], 4096, *zamba2[3:])
+    # the backward at phase 9's training shapes
+    for name, shape in zip(BWD_ROWS, ssd_train_shapes()):
+        timing[name] = time_ssd_bwd(dev, *shape)
     for name, t in timing.items():
         b, by = bound(t)
         extra = (f", {t['ranks_per_block']:.2f} ranks per block, "
@@ -2606,6 +2920,8 @@ def main() -> int:
         if "ctas_per_sm" in t:
             extra += (f", {t['ctas_per_sm']} CTAs an SM (planned "
                       f"{t['ctas_per_sm_planned']})")
+        if "reduce_ms" in t:
+            extra += f", of it the sum over heads {t['reduce_ms']:.4f} ms"
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch "
             f"(CUDA events), {t['device_ms']:.4f} ms device time, plain "
             f"{t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
@@ -2672,7 +2988,24 @@ def main() -> int:
     train["reference"] = train_reference_check(dev, args.seed)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
-    # 9. report
+    # 9. training Mamba-2 and the zamba2 hybrid
+    log("== SSM training: (q) mamba2-130m at full size, 5 AdamW steps of "
+        "8 x 4,096 tokens; (r) zamba2-2.7b at full size, 5 steps of "
+        "8 x 1,024, then one of 2 x 4,096 past the attention threshold "
+        "(remat full, grad_accum 1); both smoke configs' train step in "
+        "f32, card vs CPU")
+    t9 = time.perf_counter()
+    ssm_train = {
+        "mamba2-130m": ssm_train_path(dev, args.seed, "mamba2-130m", 8,
+                                      4096),
+        "zamba2-2.7b": ssm_train_path(dev, args.seed, "zamba2-2.7b", 8,
+                                      1024, long=(2, 4096))}
+    for arch in ssm_train:
+        ssm_train[arch]["reference"] = train_reference_check(dev, args.seed,
+                                                             arch)
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # 10. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -2696,6 +3029,15 @@ def main() -> int:
     launches["ssd_scan[zamba2 8x4096]"] = \
         zamba2_run["long"]["launches"]["ssd_scan"]
     launches["ssd_scan[mamba2]"] = mamba2_run["run"]["launches"]["ssd_scan"]
+    # phase 9's forwards and recomputes at the same shapes (its 2 × 4,096
+    # step's have no row of their shape)
+    q_run = ssm_train["mamba2-130m"]["run"]["launches"]
+    r_run = ssm_train["zamba2-2.7b"]["run"]["launches"]
+    r_long = ssm_train["zamba2-2.7b"]["long"]["launches"]
+    launches["ssd_scan"] += r_run["ssd_scan"]
+    launches["ssd_scan[mamba2]"] += q_run["ssd_scan"]
+    for name, run in zip(BWD_ROWS, (r_run, r_long, q_run)):
+        launches[name] = run["ssd_scan_bwd"]
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -2721,7 +3063,9 @@ def main() -> int:
             ("ssd_scan[zamba2 8x4096]", launches["ssd_scan[zamba2 8x4096]"],
              "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:66"),
             ("ssd_scan[mamba2]", launches["ssd_scan[mamba2]"], "ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:66")):
+             "src/repro/kernels/ssd_scan.py:66"),
+            *((name, launches[name], "ssd_scan.cu",
+               "src/repro/models/mamba2.py:65") for name in BWD_ROWS)):
         t = timing[name]
         b, by = bound(t)
         kernels.append(dict(
@@ -2737,7 +3081,8 @@ def main() -> int:
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
-            train=train, kernels=kernels),
+            train=train, ssd_bwd=bwd_err, ssm_train=ssm_train,
+            kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

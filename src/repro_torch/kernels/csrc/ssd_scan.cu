@@ -73,6 +73,7 @@
 // C interface (bound with ctypes): the launcher returns the cudaError_t
 // of the launch, 0 on success.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -712,6 +713,453 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward: f32 FMAs (ssd_scan_bwd_kernel, ssd_bwd_reduce_kernel)
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the reference has no VJP for its Pallas scan and
+// trains through XLA's autodiff of ssd_chunked (repro/models/mamba2.py,
+// _ssd). Computes, to float tolerance, the plain torch version
+// repro_torch/models/mamba2.py::ssd_chunked_bwd, whose docstring gives the
+// formulas: for a cotangent dy of y (from a zero initial state), dx, ddt,
+// dA, dB and dC.
+//
+// One CTA per (b, h), 8 warps, everything in f32 FMAs (tile_products):
+//   pass 1 walks the chunks in order and writes the state entering each
+//     to an f32 scratch [B, H, L/Q, P, N] (the state kept in shared
+//     memory, as the f32 forward keeps it);
+//   pass 2 walks them in reverse with dh [P, N] in shared memory. Per
+//     chunk x, dy, B and C are staged in their own dtype, and the Q x Q
+//     products G = C.B^T and D = dy.x^T are built kBT rows or columns at
+//     a time, twice: a column sweep (kBT columns j, rows i >= j) gives dx
+//     and dB of those columns and m_j = sum_i E G D, a row sweep (kBT rows
+//     i, columns j <= i) gives dC and sum_j T_ij of those rows. Then one
+//     warp forms ds, its reverse cumsum dda, ddt and the chunk's share of
+//     dA, and the block updates dh.
+// dB and dC are written per head as f32 partials [B, L, H, N], and dA per
+// (b, h); ssd_bwd_reduce_kernel then sums the heads of each group (and dA
+// over the batch) in a fixed order. No float atomics: the result is the
+// same from run to run.
+//
+// What bounds it: the operations. Per chunk the two sweeps build G and D
+// twice over the causal triangle and form dx, dB, dC over it, plus five
+// [P, N] x Q products (the state, the three inter-chunk terms, dh): in
+// f32 FMAs at 67 TF/s this is several times the bytes' time (PERF.md
+// section 6, row 5b). The design is the simple one: tensor cores, wgmma
+// and TMA wait for a later pass (ROADMAP Queue 2).
+
+constexpr int kBT = 32;          // rows or columns of a Q x Q tile at once
+constexpr int kBwdVecs = 10;     // [Q] vectors of the chunk
+constexpr int kWarps = kThreads / kWarp;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  return v;
+}
+
+// One warp: v[k] <- sum_{i >= k} v[i] for k < n (a reverse inclusive
+// scan, in place: a lane writes only the entries it read).
+__device__ void warp_rcumsum(float* v, int n) {
+  const int lane = threadIdx.x % kWarp;
+  float carry = 0.0f;
+  for (int r0 = 0; r0 < n; r0 += 4 * kWarp) {
+    float run[4];
+    float acc = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 4 * lane + e;  // r-th entry from the end
+      acc += r < n ? v[n - 1 - r] : 0.0f;
+      run[e] = acc;
+    }
+    float incl = acc;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const float up = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    float excl = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
+    excl = carry + (lane == 0 ? 0.0f : excl);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 4 * lane + e;
+      if (r < n) v[n - 1 - r] = excl + run[e];
+    }
+    carry += __shfl_sync(0xFFFFFFFFu, incl, kWarp - 1);
+  }
+  __syncwarp();
+}
+
+// Shared memory of the backward: f32 first (dh [P][N+1], three tile
+// regions of `rs` floats, the chunk's vectors, the block sum's per-warp
+// slots), then x, dy [Q][P+1] and B, C [Q][N+1] in the inputs' dtype. A
+// tile region holds a column tile [Q][kBT+1] or a row tile [kBT][Q+1],
+// or [kBT][max(P, N)+1] of a sweep's side product.
+struct BwdLayout {
+  size_t dh, r1, r2, r3, vec, red, nf;  // in floats
+  size_t x, dy, b, c, nt;               // in elements of the inputs' dtype
+  size_t rs, bytes;
+  __host__ __device__ BwdLayout(int Q, int P, int N, size_t esize) {
+    const size_t sp = P + 1, sn = N + 1;
+    const int most = Q > N ? (Q > P ? Q : P) : (N > P ? N : P);
+    const size_t col_tile = static_cast<size_t>(Q) * (kBT + 1);
+    const size_t row_tile = static_cast<size_t>(kBT) * (most + 1);
+    rs = col_tile > row_tile ? col_tile : row_tile;
+    dh = 0;
+    r1 = dh + P * sn;
+    r2 = r1 + rs;
+    r3 = r2 + rs;
+    vec = r3 + rs;
+    red = vec + static_cast<size_t>(kBwdVecs) * Q;
+    nf = red + kWarps;
+    x = 0;
+    dy = x + Q * sp;
+    b = dy + Q * sp;
+    c = b + Q * sn;
+    nt = c + Q * sn;
+    bytes = 4 * nf + esize * nt;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                        const float* __restrict__ A, const T* __restrict__ Bm,
+                        const T* __restrict__ Cm, const T* __restrict__ dy,
+                        T* __restrict__ dx, float* __restrict__ ddt,
+                        float* __restrict__ dB_part,
+                        float* __restrict__ dC_part,
+                        float* __restrict__ dA_part, float* states, int L,
+                        int H, int P, int G, int N, int Q) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const BwdLayout lay(Q, P, N, sizeof(T));
+  float* f = reinterpret_cast<float*>(bwd_smem);
+  float* dh = f + lay.dh;   // [P][sn]: the state in pass 1, dh in pass 2
+  float* r1 = f + lay.r1;
+  float* r2 = f + lay.r2;
+  float* r3 = f + lay.r3;
+  float* sdt = f + lay.vec;  // dt
+  float* s = sdt + Q;        // cumsum of dt * a
+  float* es = s + Q;         // e^{s_i}
+  float* ex = es + Q;        // e^{s_Q - s_j}
+  float* coef = ex + Q;      // dt_j e^{s_Q - s_j}
+  float* rowt = coef + Q;    // sum_j T_ij
+  float* mv = rowt + Q;      // m_j = sum_i E_ij G_ij D_ij
+  float* uv = mv + Q;        // u_j = e^{s_Q - s_j} x_j . (B_j dh^T)
+  float* rv = uv + Q;        // r_i = C_i . (dy_i h0)
+  float* dsv = rv + Q;       // ds, then dda
+  float* red = f + lay.red;  // the block sum's per-warp slots
+  T* sx = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.x;
+  T* sdy = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.dy;
+  T* sb = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.b;
+  T* sc = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.c;
+  const int sp = P + 1, sn = N + 1;
+
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int bh = blockIdx.x;
+  const int b = bh / H, hd = bh % H;
+  const int g = hd / (H / G);
+  const float a = A[hd];
+  const int nc = L / Q;
+  float* st = states + static_cast<size_t>(bh) * nc * P * N;
+  const auto none = [](int, int) { return 0.0f; };  // no second product
+
+  // chunk c's x, B and dt (and dy, C with `all`), its cumsum and the
+  // vectors made from it
+  const auto load = [&](int c, bool all) {
+    const size_t row0 =
+        static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+    for (int i = tid; i < Q * P; i += kThreads) {
+      const int j = i / P, p = i % P;
+      const size_t at = ((row0 + j) * H + hd) * P + p;
+      sx[j * sp + p] = x[at];
+      if (all) sdy[j * sp + p] = dy[at];
+    }
+    for (int i = tid; i < Q * N; i += kThreads) {
+      const int j = i / N, n = i % N;
+      const size_t at = ((row0 + j) * G + g) * N + n;
+      sb[j * sn + n] = Bm[at];
+      if (all) sc[j * sn + n] = Cm[at];
+    }
+    for (int j = tid; j < Q; j += kThreads) sdt[j] = dt[(row0 + j) * H + hd];
+    __syncthreads();
+    if (tid < kWarp) warp_cumsum(sdt, a, Q, Q, s);
+    __syncthreads();
+    const float s_last = s[Q - 1];
+    for (int j = tid; j < Q; j += kThreads) {
+      ex[j] = expf(s_last - s[j]);
+      coef[j] = sdt[j] * ex[j];
+      es[j] = expf(s[j]);
+    }
+    __syncthreads();
+  };
+
+  // pass 1: the state entering each chunk, to the scratch
+  for (int i = tid; i < P * sn; i += kThreads) dh[i] = 0.0f;
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();  // the last update of the state is done
+    float* out = st + static_cast<size_t>(c) * P * N;
+    for (int i = tid; i < P * N; i += kThreads)
+      out[i] = dh[(i / N) * sn + i % N];
+    if (c == nc - 1) break;  // the state leaving the last is not needed
+    load(c, false);
+    const float decay = expf(s[Q - 1]);
+    tile_products<4, 4>(
+        P, N, Q,
+        [&](int p, int j) { return to_f(sx[j * sp + p]) * coef[j]; },
+        [&](int j, int n) { return to_f(sb[j * sn + n]); }, 0, none, none,
+        [&](int p, int n, float v, float) {
+          dh[p * sn + n] = decay * dh[p * sn + n] + v;
+        });
+  }
+
+  // pass 2: the chunks in reverse, dh carried
+  __syncthreads();  // pass 1's scratch written, its last copy of h read
+  for (int i = tid; i < P * sn; i += kThreads) dh[i] = 0.0f;
+  float dA_acc = 0.0f;  // thread 0's sum over the chunks
+  for (int c = nc - 1; c >= 0; --c) {
+    __syncthreads();  // dh updated; the last chunk's operands read
+    load(c, true);
+    const float* h0 = st + static_cast<size_t>(c) * P * N;
+    const size_t row0 =
+        static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+    const float s_last = s[Q - 1];
+
+    // column sweep: dx, dB and m for kBT columns j at a time, rows i >= j
+    for (int j0 = 0; j0 < Q; j0 += kBT) {
+      const int cols = min(kBT, Q - j0), rows = Q - j0;
+      const int tw = kBT + 1;  // r1..r3[ii * tw + jj], i = j0 + ii
+      // r1 = E dt_j G (W), r2 = E dt_j D (V), r3 = E G D
+      tile_products<2, 2>(
+          rows, cols, N,
+          [&](int ii, int n) { return to_f(sc[(j0 + ii) * sn + n]); },
+          [&](int n, int jj) { return to_f(sb[(j0 + jj) * sn + n]); }, P,
+          [&](int ii, int p) { return to_f(sdy[(j0 + ii) * sp + p]); },
+          [&](int p, int jj) { return to_f(sx[(j0 + jj) * sp + p]); },
+          [&](int ii, int jj, float gij, float dij) {
+            float w = 0.0f, v = 0.0f, m = 0.0f;
+            if (jj <= ii) {
+              const float e = expf(s[j0 + ii] - s[j0 + jj]);
+              const float edt = e * sdt[j0 + jj];
+              w = edt * gij;
+              v = edt * dij;
+              m = e * gij * dij;
+            }
+            r1[ii * tw + jj] = w;
+            r2[ii * tw + jj] = v;
+            r3[ii * tw + jj] = m;
+          });
+      __syncthreads();
+      for (int jj = warp; jj < cols; jj += kWarps) {
+        float acc = 0.0f;
+        for (int ii = lane; ii < rows; ii += kWarp) acc += r3[ii * tw + jj];
+        acc = warp_sum(acc);
+        if (lane == 0) mv[j0 + jj] = acc;
+      }
+      __syncthreads();  // r3 now takes B_j dh^T [kBT][P+1]
+      // dx_j = sum_i W_ij dy_i + coef_j (B_j dh^T)
+      tile_products<2, 4>(
+          cols, P, rows, [&](int jj, int ii) { return r1[ii * tw + jj]; },
+          [&](int ii, int p) { return to_f(sdy[(j0 + ii) * sp + p]); }, N,
+          [&](int jj, int n) { return to_f(sb[(j0 + jj) * sn + n]); },
+          [&](int n, int p) { return dh[p * sn + n]; },
+          [&](int jj, int p, float intra, float bd) {
+            const int j = j0 + jj;
+            dx[((row0 + j) * H + hd) * P + p] =
+                from_f<T>(intra + coef[j] * bd);
+            r3[jj * sp + p] = bd;
+          });
+      // dB_j = sum_i V_ij C_i + coef_j (x_j dh), this head's share
+      tile_products<2, 4>(
+          cols, N, rows, [&](int jj, int ii) { return r2[ii * tw + jj]; },
+          [&](int ii, int n) { return to_f(sc[(j0 + ii) * sn + n]); }, P,
+          [&](int jj, int p) { return to_f(sx[(j0 + jj) * sp + p]); },
+          [&](int p, int n) { return dh[p * sn + n]; },
+          [&](int jj, int n, float intra, float xd) {
+            const int j = j0 + jj;
+            dB_part[((row0 + j) * H + hd) * N + n] = intra + coef[j] * xd;
+          });
+      __syncthreads();
+      for (int jj = warp; jj < cols; jj += kWarps) {
+        float acc = 0.0f;
+        for (int p = lane; p < P; p += kWarp)
+          acc += to_f(sx[(j0 + jj) * sp + p]) * r3[jj * sp + p];
+        acc = warp_sum(acc);
+        if (lane == 0) uv[j0 + jj] = ex[j0 + jj] * acc;
+      }
+      __syncthreads();  // the next tile rewrites r1..r3
+    }
+
+    // row sweep: dC and sum_j T_ij for kBT rows i at a time, columns j <= i
+    for (int i0 = 0; i0 < Q; i0 += kBT) {
+      const int rows = min(kBT, Q - i0), cols = i0 + rows;
+      const int tq = Q + 1;  // r1, r2[ii * tq + j], i = i0 + ii
+      // r1 = E dt_j D (V), r2 = E dt_j G D (T)
+      tile_products<2, 2>(
+          rows, cols, N,
+          [&](int ii, int n) { return to_f(sc[(i0 + ii) * sn + n]); },
+          [&](int n, int j) { return to_f(sb[j * sn + n]); }, P,
+          [&](int ii, int p) { return to_f(sdy[(i0 + ii) * sp + p]); },
+          [&](int p, int j) { return to_f(sx[j * sp + p]); },
+          [&](int ii, int j, float gij, float dij) {
+            float v = 0.0f, t = 0.0f;
+            if (j <= i0 + ii) {
+              v = expf(s[i0 + ii] - s[j]) * sdt[j] * dij;
+              t = v * gij;
+            }
+            r1[ii * tq + j] = v;
+            r2[ii * tq + j] = t;
+          });
+      __syncthreads();
+      for (int ii = warp; ii < rows; ii += kWarps) {
+        float acc = 0.0f;
+        for (int j = lane; j < cols; j += kWarp) acc += r2[ii * tq + j];
+        acc = warp_sum(acc);
+        if (lane == 0) rowt[i0 + ii] = acc;
+      }
+      __syncthreads();  // r2 now takes dy_i h0 [kBT][N+1]
+      // dC_i = sum_j V_ij B_j + e^{s_i} (dy_i h0), this head's share
+      tile_products<2, 4>(
+          rows, N, cols, [&](int ii, int j) { return r1[ii * tq + j]; },
+          [&](int j, int n) { return to_f(sb[j * sn + n]); }, P,
+          [&](int ii, int p) { return to_f(sdy[(i0 + ii) * sp + p]); },
+          [&](int p, int n) { return h0[p * N + n]; },
+          [&](int ii, int n, float intra, float dhv) {
+            const int i = i0 + ii;
+            dC_part[((row0 + i) * H + hd) * N + n] = intra + es[i] * dhv;
+            r2[ii * sn + n] = dhv;
+          });
+      __syncthreads();
+      for (int ii = warp; ii < rows; ii += kWarps) {
+        float acc = 0.0f;
+        for (int n = lane; n < N; n += kWarp)
+          acc += to_f(sc[(i0 + ii) * sn + n]) * r2[ii * sn + n];
+        acc = warp_sum(acc);
+        if (lane == 0) rv[i0 + ii] = acc;
+      }
+      __syncthreads();
+    }
+
+    // <h0, dh>, summed in a fixed order
+    float part = 0.0f;
+    for (int i = tid; i < P * N; i += kThreads)
+      part += h0[i] * dh[(i / N) * sn + i % N];
+    part = warp_sum(part);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    if (warp == 0) {
+      float hdot = 0.0f;
+      for (int w = 0; w < kWarps; ++w) hdot += red[w];
+      float su = 0.0f;
+      for (int j = lane; j < Q; j += kWarp) su += sdt[j] * uv[j];
+      su = warp_sum(su);
+      for (int i = lane; i < Q; i += kWarp) {
+        float v = rowt[i] - sdt[i] * mv[i] + es[i] * rv[i] - sdt[i] * uv[i];
+        if (i == Q - 1) v += expf(s_last) * hdot + su;
+        dsv[i] = v;
+      }
+      __syncwarp();
+      warp_rcumsum(dsv, Q);
+      float da = 0.0f;
+      for (int j = lane; j < Q; j += kWarp) {
+        ddt[(row0 + j) * H + hd] = a * dsv[j] + mv[j] + uv[j];
+        da += sdt[j] * dsv[j];
+      }
+      da = warp_sum(da);
+      if (lane == 0) dA_acc += da;
+    }
+    if (c == 0) break;
+    __syncthreads();  // the block sum read dh
+    // dh <- e^{s_Q} dh + sum_i e^{s_i} dy_i (x) C_i
+    const float decay = expf(s_last);
+    tile_products<4, 4>(
+        P, N, Q, [&](int p, int i) { return es[i] * to_f(sdy[i * sp + p]); },
+        [&](int i, int n) { return to_f(sc[i * sn + n]); }, 0, none, none,
+        [&](int p, int n, float v, float) {
+          dh[p * sn + n] = decay * dh[p * sn + n] + v;
+        });
+  }
+  if (tid == 0) dA_part[bh] = dA_acc;
+}
+
+// dBm, dCm [B, L, G, N] = the heads of each group of the partials
+// [B, L, H, N] summed in order; dA [H] = dA_part [B, H] summed over b.
+template <typename T>
+__global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
+                                      const float* __restrict__ dC_part,
+                                      const float* __restrict__ dA_part,
+                                      T* __restrict__ dBm,
+                                      T* __restrict__ dCm,
+                                      float* __restrict__ dA, int batch,
+                                      int L, int H, int G, int N) {
+  const int rep = H / G;
+  const size_t n_bc = static_cast<size_t>(batch) * L * G * N;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_bc + H; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    if (i < n_bc) {
+      const size_t n = i % N, lg = i / N;
+      const size_t grp = lg % G, bl = lg / G;
+      const size_t at = (bl * H + grp * rep) * N + n;
+      float sb = 0.0f, sc = 0.0f;
+      for (int k = 0; k < rep; ++k) {
+        sb += dB_part[at + static_cast<size_t>(k) * N];
+        sc += dC_part[at + static_cast<size_t>(k) * N];
+      }
+      dBm[i] = from_f<T>(sb);
+      dCm[i] = from_f<T>(sc);
+    } else {
+      const int h = static_cast<int>(i - n_bc);
+      float sa = 0.0f;
+      for (int bb = 0; bb < batch; ++bb) sa += dA_part[bb * H + h];
+      dA[h] = sa;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* dt, const void* A,
+                       const void* Bm, const void* Cm, const void* dy,
+                       void* dx, void* ddt, void* dBm, void* dCm, void* dA,
+                       void* dB_part, void* dC_part, void* dA_part,
+                       void* states, int batch, int L, int H, int P, int G,
+                       int N, int Q, size_t bytes, cudaStream_t st) {
+  static bool set[kMaxDevices] = {};
+  cudaError_t err = smem_ceiling(ssd_scan_bwd_kernel<T>, set);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_kernel<T><<<batch * H, kThreads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part),
+      static_cast<float*>(dA_part), static_cast<float*>(states), L, H, P, G,
+      N, Q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t work = static_cast<size_t>(batch) * L * G * N + H;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((work + kThreads - 1) / kThreads, 132 * 16));
+  ssd_bwd_reduce_kernel<T><<<blocks, kThreads, 0, st>>>(
+      static_cast<const float*>(dB_part), static_cast<const float*>(dC_part),
+      static_cast<const float*>(dA_part), static_cast<T*>(dBm),
+      static_cast<T*>(dCm), static_cast<float*>(dA), batch, L, H, G, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // CTAs of the kernel that one SM holds at once for these sizes
@@ -802,5 +1250,38 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
     default:
       err = cudaErrorInvalidValue;  // N = 40, 56, ...: not a template
   }
+  return static_cast<int>(err);
+}
+
+// The backward of ssd_scan_launch's y (from a zero state) for the
+// cotangent dy: dx, dBm, dCm in the inputs' dtype (0 = f32, 1 = bf16),
+// ddt [B, L, H] and dA [H] in f32. The caller's scratch: dB_part, dC_part
+// f32 [B, L, H, N], dA_part f32 [B, H], states f32 [B, H, L/Q, P, N].
+// smem_bytes is the wrapper's sum (ssd_scan.py::bwd_smem_bytes); a launch
+// whose sizes or bytes this kernel does not take is refused. Two kernels
+// launch: the scan, then the sum over heads.
+extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
+                                   const void* A, const void* Bm,
+                                   const void* Cm, const void* dy, void* dx,
+                                   void* ddt, void* dBm, void* dCm, void* dA,
+                                   void* dB_part, void* dC_part,
+                                   void* dA_part, void* states, int batch,
+                                   int L, int H, int P, int G, int N, int Q,
+                                   int dtype, int smem_bytes, void* stream) {
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (Q < 1 || L % Q || G < 1 || H % G || P < 1 || N < 1 || smem_bytes < 0 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = BwdLayout(Q, P, N, dtype == 0 ? 4 : 2).bytes;
+  if (bytes != static_cast<size_t>(smem_bytes) || bytes > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      dtype == 0
+          ? launch_bwd<float>(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm, dA,
+                              dB_part, dC_part, dA_part, states, batch, L, H,
+                              P, G, N, Q, bytes, st)
+          : launch_bwd<bf16>(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm, dA,
+                             dB_part, dC_part, dA_part, states, batch, L, H,
+                             P, G, N, Q, bytes, st);
   return static_cast<int>(err);
 }

@@ -14,7 +14,9 @@ The weights live in a ``Hybrid`` module: ``embed``, ``layers`` (an
 ``nn.ModuleList`` of ``n_groups`` ``nn.ModuleList``s of
 ``shared_attn_every`` ``MambaLayer``s, where the reference stacks each
 leaf on leading [n_groups, per_group] axes), ``shared`` and
-``final_norm``. ``loss_fn`` comes with ROADMAP Queue 1 item 8b.
+``final_norm``. ``loss_fn`` trains it: each group (its Mamba-2 layers,
+the shared attention and the shared MLP) runs under
+``transformer.remat``, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ from repro_torch.kernels.backend import resolve_device
 
 from .layers import (MLP, Attention, apply_rope, as_generator, attention,
                      drawn_param, linear, swiglu_mlp, torch_dtype)
-from .lm_common import Norm, embed_tokens, last_logits, norm, pad_cache_seq
+from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
+                        pad_cache_seq, shift_labels)
 from .mamba2 import MambaLayer, _dims, mamba_block, mamba_step
 from .sp_decode import seqpar_update_and_attend
+from .transformer import remat
 
 
 def _n_groups(cfg):
@@ -81,14 +85,33 @@ def _shared_mlp(x, shared: SharedBlock, cfg):
 
 
 def hidden_states(params: Hybrid, cfg, x, positions):
+    """The groups in turn, each under ``transformer.remat``: its Mamba-2
+    layers, then the shared attention and MLP."""
     shared = params.shared
-    for group in params.layers:
+
+    def group_body(x, group):
         for lp in group:
             x = x + mamba_block(norm(x, lp.norm, cfg), lp, cfg)
         x = x + attention(norm(x, shared.attn_norm, cfg), shared.attn, cfg,
                           positions=positions, causal=True)
-        x = _shared_mlp(x, shared, cfg)
+        return _shared_mlp(x, shared, cfg)
+
+    group_body = remat(group_body, cfg)
+    for group in params.layers:
+        x = group_body(x, group)
     return norm(x, params.final_norm, cfg)
+
+
+def loss_fn(params: Hybrid, cfg, batch):
+    """Next-token loss of ``batch["tokens"]`` [B, S] at positions
+    ``arange(S)``: the chunked cross-entropy against the tied table."""
+    embed = params.embed
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+    x = embed_tokens(embed, tokens, cfg.d_model)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=embed.device).expand(B, S)
+    x = hidden_states(params, cfg, x, positions)
+    return chunked_xent(x, embed, shift_labels(tokens))
 
 
 @torch.no_grad()

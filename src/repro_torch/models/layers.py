@@ -9,10 +9,9 @@ read a module's weights as attributes.
 Only what the MoE, Mamba-2 and hybrid archs run is here. Left out:
 ``shard_act`` and the activation-sharding rules, which are the identity
 on one device (the port runs on one device; the mesh tier is ROADMAP
-Queue 1 item 7); the rematerialisation of the chunked attention's scan
-(its backward here is autograd's over the stored chunks; it comes with
-the training of long prompts, ROADMAP Queue 1 item 8b). ``rmsnorm``
-carries the reference's custom VJP.
+Queue 1 item 7). ``rmsnorm`` carries the reference's custom VJP; the
+chunked attention's kv steps are rematerialised in the backward, as the
+reference's ``jax.checkpoint`` of each kv step does.
 ``layernorm``, biases, the sliding window and its local/global flag, a
 query offset, a decode window's lower bound and cross-attention's
 precomputed k/v belong to the dense, audio and VLM families (ROADMAP
@@ -22,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _RMS_EPS = 1e-6
 _NEG = -1e30            # the reference's mask value: finite, not -inf
@@ -173,7 +173,11 @@ def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
            kv_blocks) -> torch.Tensor:
     """Every q chunk i over the first ``kv_blocks(i)`` kv chunks, with
     the causal mask on absolute positions when ``causal``; the running
-    max starts at ``_NEG`` and the output is acc / max(l, 1e-30)."""
+    max starts at ``_NEG`` and the output is acc / max(l, 1e-30). When
+    q, k or v needs a gradient, each kv step runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward keeps its
+    inputs (the running max, sum and acc), not its [B, H, q_chunk,
+    kv_chunk] tiles, and recomputes them."""
     B, Sq, H, Dh = q.shape
     nq = _chunks(Sq, q_chunk, "query")
     k = _expand_kv(k, H)
@@ -183,6 +187,8 @@ def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
     ar_q = torch.arange(q_chunk, device=dev)
     ar_k = torch.arange(kv_chunk, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for i in range(nq):
         qc = q[:, i * q_chunk:(i + 1) * q_chunk]
@@ -193,8 +199,9 @@ def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
             mask = ((i * q_chunk + ar_q)[:, None]
                     >= (j * kv_chunk + ar_k)[None, :]) if causal else None
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
-            m, l, acc = _online_step(qc, k[:, ks], v[:, ks], mask, m, l,
-                                     acc, scale)
+            args = (qc, k[:, ks], v[:, ks], mask, m, l, acc, scale)
+            m, l, acc = (checkpoint(_online_step, *args, use_reentrant=False)
+                         if grad else _online_step(*args))
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None])
                     .transpose(1, 2))                    # [B, qc, H, Dh]
     return torch.cat(outs, dim=1).to(q.dtype)

@@ -11,11 +11,18 @@ same math:
 ``cfg.use_pallas`` picks one (``kernels.backend.use_kernel``). Decode
 keeps O(1) state: the [H, P, N] SSM state and the conv ring.
 
+Training (``loss_fn``) takes the scan's gradient from
+``kernels.ssd_scan.ssd_scan_with_grad``: on the card the CUDA forward
+and a hand-written CUDA backward, on the CPU ``ssd_chunked`` and its
+explicit backward ``ssd_chunked_bwd``; ``use_pallas="never"`` keeps
+autograd through ``ssd_chunked``, which is the reference's own gradient
+off a TPU. Each layer runs under ``transformer.remat``.
+
 The weights live in a ``Mamba2`` module: ``embed`` [V, d] (the tied
 head), ``layers`` (an ``nn.ModuleList`` of ``MambaLayer``s, where the
 reference stacks each leaf on a leading [L] axis and scans) and
-``final_norm``, held without gradients. ``loss_fn`` and training come
-with ROADMAP Queue 1 item 8b.
+``final_norm``, held without gradients until a train step turns them
+on.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, use_kernel
 
 from .layers import _param, as_generator, drawn_param, rmsnorm, torch_dtype
-from .lm_common import Norm, embed_tokens, last_logits, norm, pick_chunk
+from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
+                        pick_chunk, shift_labels)
+from .transformer import remat
 
 
 def _dims(cfg):
@@ -102,8 +111,9 @@ def init_params(cfg, key, device="cuda") -> Mamba2:
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     """x [B,L,H,P]; dt [B,L,H]; A [H]; Bm/Cm [B,L,G,N] → y [B,L,H,P]
-    (+ final state [B,H,P,N] f32 when return_state), in f32 and cast back
-    to x's dtype. L must be a multiple of ``chunk``.
+    (+ final state [B,H,P,N] f32 when return_state), in f32 (f64 for
+    f64 inputs) and cast back to x's dtype. L must be a multiple of
+    ``chunk``.
 
     B/C stay in group form [.., G, N] and expand to heads inside each
     chunk's step, as in the reference. Counts its calls on CUDA tensors
@@ -115,7 +125,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     nc = L // chunk
-    f32 = torch.float32
+    f32 = _acc_dtype(x)
 
     def rs(a):
         return a.to(f32).reshape(Bsz, nc, chunk, *a.shape[2:])
@@ -154,12 +164,133 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
 ssd_chunked.tally = dict(cuda_calls=0)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """What the plain scans accumulate in: f32, or f64 for f64 inputs
+    (``torch.autograd.gradcheck``)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
+    """The gradient of ``ssd_chunked``'s y (from a zero initial state) to
+    its five inputs for the cotangent ``dy`` [B,L,H,P]: (dx, ddt, dA, dBm,
+    dCm), by the explicit reverse-chunk formulas the CUDA backward
+    (``kernels/ssd_scan.py::ssd_scan_bwd``) runs, not by autograd.
+
+    Per chunk, with a = A[h], s = cumsum(dt·a) (inclusive), s_Q its last
+    entry and h0 the state entering the chunk, the forward is
+      y_i = Σ_{j≤i} e^{s_i−s_j} dt_j (C_i·B_j) x_j + e^{s_i} C_i·h0ᵀ
+      h1  = e^{s_Q} h0 + Σ_j e^{s_Q−s_j} dt_j x_j ⊗ B_j.
+    A pass over the chunks in order rebuilds each entering state; a pass
+    in reverse carries dh = ∂/∂h1 [P, N] (zero after the last chunk) and
+    forms, with G_ij = C_i·B_j, D_ij = dy_i·x_j, E_ij = [j≤i] e^{s_i−s_j}:
+      dx_j  = Σ_i E_ij dt_j G_ij dy_i + e^{s_Q−s_j} dt_j (B_j dhᵀ)
+      dB_j  = Σ_i E_ij dt_j D_ij C_i + e^{s_Q−s_j} dt_j (x_j dh)
+      dC_i  = Σ_j E_ij dt_j D_ij B_j + e^{s_i} (dy_i h0)
+      ds_i  = Σ_j T_ij − dt_i m_i + e^{s_i} r_i − dt_i u_i
+              (+ e^{s_Q}⟨h0, dh⟩ + Σ_j dt_j u_j at i = Q−1)
+    where T_ij = E_ij dt_j G_ij D_ij, m_j = Σ_i E_ij G_ij D_ij,
+    r_i = C_i·(dy_i h0) and u_j = e^{s_Q−s_j} B_j·(x_j dh); then
+    dda = the reverse cumsum of ds, ddt = a·dda + m + u, dA_h += Σ dt·dda,
+    and dh ← e^{s_Q} dh + Σ_i e^{s_i} dy_i ⊗ C_i. dB and dC are summed
+    over the heads of each group (H % G == 0).
+
+    Accumulates in f32 (f64 for f64 inputs); dx, dBm and dCm come back in
+    their inputs' dtypes, ddt and dA in the accumulation dtype. Counts its
+    calls on CUDA tensors in ``ssd_chunked.tally["cuda_calls"]``, as
+    ``ssd_chunked`` does.
+    """
+    ssd_chunked.tally["cuda_calls"] += x.device.type == "cuda"
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    nc = L // chunk
+    acc = _acc_dtype(x)
+
+    def rs(a):
+        return a.to(acc).reshape(Bsz, nc, chunk, *a.shape[2:])
+
+    xs, dts, dys = rs(x), rs(dt), rs(dy)
+    bs = torch.repeat_interleave(rs(Bm), rep, dim=3)     # [B,nc,Q,H,N]
+    cs = torch.repeat_interleave(rs(Cm), rep, dim=3)
+    A = A.to(acc)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    s = torch.cumsum(dts * A, dim=2)                     # [B,nc,Q,H]
+    s_last = s[:, :, -1]                                 # [B,nc,H]
+    ex = torch.exp(s_last[:, :, None] - s)               # e^{s_Q−s_j}
+    coef = dts * ex
+    # entering states, in order
+    h = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
+    h0s = []
+    for c in range(nc):
+        h0s.append(h)
+        h = torch.exp(s_last[:, c])[..., None, None] * h + torch.einsum(
+            "bqhp,bqhn->bhpn", xs[:, c] * coef[:, c, ..., None], bs[:, c])
+    dh = torch.zeros_like(h)
+    dx, ddt, dB, dC = ([None] * nc for _ in range(4))
+    dA = torch.zeros(H, dtype=acc, device=x.device)
+    for c in reversed(range(nc)):
+        xc, dtc, dyc, bc, cc, sc = (xs[:, c], dts[:, c], dys[:, c],
+                                    bs[:, c], cs[:, c], s[:, c])
+        h0 = h0s[c]
+        sm = sc.movedim(-1, 1)                           # [B,H,Q]
+        diff = sm[..., :, None] - sm[..., None, :]       # [B,H,Q(i),Q(j)]
+        E = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+        Gm = torch.einsum("bihn,bjhn->bhij", cc, bc)
+        Dm = torch.einsum("bihp,bjhp->bhij", dyc, xc)
+        dtj = dtc.movedim(-1, 1)[:, :, None, :]          # [B,H,1,Q(j)]
+        W = E * dtj * Gm
+        V = E * dtj * Dm
+        Mm = E * Gm * Dm
+        XD = torch.einsum("bjhp,bhpn->bjhn", xc, dh)
+        BD = torch.einsum("bjhn,bhpn->bjhp", bc, dh)
+        DH = torch.einsum("bihp,bhpn->bihn", dyc, h0)
+        es = torch.exp(sc)
+        dx[c] = torch.einsum("bhij,bihp->bjhp", W, dyc) \
+            + coef[:, c, ..., None] * BD
+        dB[c] = torch.einsum("bhij,bihn->bjhn", V, cc) \
+            + coef[:, c, ..., None] * XD
+        dC[c] = torch.einsum("bhij,bjhn->bihn", V, bc) + es[..., None] * DH
+        u = ex[:, c] * (bc * XD).sum(-1)                 # [B,Q,H]
+        r = (cc * DH).sum(-1)
+        row_t = (Mm * dtj).sum(-1).movedim(1, -1)        # Σ_j T_ij
+        m = Mm.sum(-2).movedim(1, -1)                    # Σ_i E G D
+        ds = row_t - dtc * m + es * r - dtc * u
+        ds[:, -1] += (torch.exp(s_last[:, c]) * (h0 * dh).sum((-1, -2))
+                      + (dtc * u).sum(1))
+        dda = torch.flip(torch.cumsum(torch.flip(ds, [1]), 1), [1])
+        ddt[c] = A * dda + m + u
+        dA = dA + (dtc * dda).sum((0, 1))
+        dh = torch.exp(s_last[:, c])[..., None, None] * dh + torch.einsum(
+            "bihp,bihn->bhpn", dyc * es[..., None], cc)
+
+    def cat(parts):
+        return torch.stack(parts, dim=1).reshape(Bsz, L, *parts[0].shape[2:])
+
+    def groups(parts, like):
+        return cat(parts).reshape(Bsz, L, G, rep, N).sum(3).to(like.dtype)
+
+    return (cat(dx).to(x.dtype), cat(ddt), dA, groups(dB, Bm),
+            groups(dC, Cm))
+
+
 def _ssd(x, dt, A, Bm, Cm, cfg, return_state: bool = False):
     """The SSD scan by ``cfg.use_pallas``: the CUDA kernel or the plain
     ``ssd_chunked``, at the chunk ``pick_chunk(L, cfg.ssm.chunk)`` (so a
-    length that 128 does not divide still runs)."""
+    length that 128 does not divide still runs). Under autograd, when an
+    input needs a gradient, "auto" and "always" take
+    ``ssd_scan_with_grad``, which follows the device (the CUDA kernels,
+    or ``ssd_chunked`` and ``ssd_chunked_bwd`` on the CPU); "never"
+    keeps autograd through ``ssd_chunked``."""
     chunk = pick_chunk(x.shape[1], cfg.ssm.chunk)
-    if use_kernel(cfg.use_pallas, x.device):
+    kernel = use_kernel(cfg.use_pallas, x.device)
+    if (not return_state and cfg.use_pallas != "never"
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, dt, A, Bm, Cm))):
+        return kops.ssd_scan_with_grad(x.contiguous(), dt, A,
+                                       Bm.contiguous(), Cm.contiguous(),
+                                       chunk=chunk)
+    if kernel:
         return kops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
                              Cm.contiguous(), chunk=chunk,
                              return_state=return_state)
@@ -208,9 +339,24 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
 
 
 def hidden_states(params: Mamba2, cfg, x):
+    """The layer stack, each layer under ``transformer.remat``."""
+    def body(x, lp):
+        return x + mamba_block(norm(x, lp.norm, cfg), lp, cfg)
+
+    body = remat(body, cfg)
     for lp in params.layers:
-        x = x + mamba_block(norm(x, lp.norm, cfg), lp, cfg)
+        x = body(x, lp)
     return norm(x, params.final_norm, cfg)
+
+
+def loss_fn(params: Mamba2, cfg, batch):
+    """Next-token loss of ``batch["tokens"]`` [B, S]: the chunked
+    cross-entropy of the final hidden states against the tied table."""
+    embed = params.embed
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = hidden_states(params, cfg, x)
+    return chunked_xent(x, embed, shift_labels(tokens))
 
 
 @torch.no_grad()

@@ -1,10 +1,10 @@
 """Family dispatcher: one API over the ported architectures (port of
 ``repro.models.model_zoo``; the MoE, Mamba-2 ("ssm") and hybrid
-families, serving; the MoE family's training loss).
+families, serving and training).
 
 API:
   init_params(cfg, key, device)           → the family's weights module
-  loss_fn(params, cfg, batch)             → scalar loss (MoE)
+  loss_fn(params, cfg, batch)             → scalar loss
   loss_and_metrics(params, cfg, batch)    → (loss, routing telemetry)
   prefill_step(params, cfg, batch, pad_to) → (last logits, decode cache)
   decode_step(params, cfg, cache, tokens)  → (logits, cache)
@@ -15,8 +15,7 @@ API:
     active_params(cfg, total) / metric_zeros(cfg)
 
 Another family raises ``NotImplementedError`` naming the ROADMAP item
-(Queue 1) that ports it; so does the training loss of the Mamba-2 and
-hybrid families.
+(Queue 1) that ports it.
 """
 from __future__ import annotations
 
@@ -31,9 +30,6 @@ from .lm_common import zeros_from_spec
 _FAMS = {"moe": moe_transformer, "ssm": mamba2, "hybrid": hybrid}
 _WEIGHTS = {"moe": moe_transformer.MoETransformer, "ssm": mamba2.Mamba2,
             "hybrid": hybrid.Hybrid}
-_NO_TRAINING = ("item 8b (training Mamba-2 and zamba2: the plain "
-                "ssd_chunked under autograd or a backward for ssd_scan)")
-
 _NOT_PORTED = {
     "dense": "item 10 (dense transformer)",
     "vlm": "item 10 (VLM)",
@@ -60,12 +56,11 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def loss_and_metrics(params, cfg: ModelConfig, batch):
     """(loss, aux metrics dict): the MoE models' loss with their
     CG-routing telemetry (``moe_drop_frac``, ``moe_max_load_frac``,
-    ``moe_load`` [E])."""
-    if family_module(cfg) is not moe_transformer:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family's training loss is "
-            f"not ported yet (ROADMAP Queue 1 {_NO_TRAINING})")
-    return moe_transformer.loss_fn(params, cfg, batch, with_metrics=True)
+    ``moe_load`` [E]); the other families' loss with {}."""
+    mod = family_module(cfg)
+    if mod is moe_transformer:
+        return moe_transformer.loss_fn(params, cfg, batch, with_metrics=True)
+    return mod.loss_fn(params, cfg, batch), {}
 
 
 def metric_zeros(cfg: ModelConfig, device="cuda") -> dict:

@@ -100,6 +100,29 @@ def test_chunks_that_do_not_divide_raise(causal, Sq, Sk, qc, kc):
                                  kv_chunk=kc)
 
 
+@pytest.mark.parametrize("needs_grad", [False, True])
+def test_kv_steps_checkpoint_only_when_a_gradient_is_needed(monkeypatch,
+                                                            needs_grad):
+    """With grad mode on, each kv step runs under a checkpoint only when
+    q, k or v needs a gradient; the output is the same either way."""
+    calls = []
+
+    def counting(fn, *args, **kw):
+        calls.append(fn)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kw)
+
+    monkeypatch.setattr(layers, "checkpoint", counting)
+    q, k, v = (torch.from_numpy(x).requires_grad_(needs_grad)
+               for x in qkv(1, 32, 32, 2, 2, 8, 5))
+    got = layers.chunked_attention(q, k, v, causal=False, q_chunk=16,
+                                   kv_chunk=16)
+    assert len(calls) == (4 if needs_grad else 0)
+    with torch.no_grad():
+        want = layers.chunked_attention(q, k, v, causal=False, q_chunk=16,
+                                        kv_chunk=16)
+    assert torch.equal(got.detach(), want)
+
+
 # the smoke configs with the threshold lowered below the prompt, so every
 # attention call of the prefill takes chunked_attention (2 q chunks of 16
 # against kv chunks of 8 in the triangular schedule)

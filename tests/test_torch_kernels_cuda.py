@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card: the
 snapshot kernels (``porc_snapshot.cu``), the rank-sequential strict
 kernels (``porc_assign.cu``), the MoE dispatch (``cg_dispatch.cu``) and
-the Mamba-2 SSD scan (``ssd_scan.cu``).
+the Mamba-2 SSD scan and its backward (``ssd_scan.cu``).
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels
 build with ``nvcc`` at first use); without a card they skip. The file
@@ -880,3 +880,122 @@ def test_ssd_wrapper_checks_its_inputs(dev):
     big = ssd_inputs(1, 512, 2, 256, 1, 256, dev)
     with pytest.raises(ValueError):
         ssd_scan(*big, chunk=512)                        # shared memory
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan's backward
+# ---------------------------------------------------------------------------
+
+# the backward against the plain ssd_chunked_bwd: what is f32 (every
+# gradient of f32 inputs, ddt and dA of bf16 ones) within 1e-4 (sums in
+# another order); dx, dB, dC of bf16 inputs within the bf16 bound
+SSD_BWD_F32 = 1e-4
+
+
+def ssd_bwd_both(inputs, Q, seed):
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.models.mamba2 import ssd_chunked_bwd
+    gen = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    dy = torch.randn(inputs[0].shape, generator=gen,
+                     device=inputs[0].device).to(inputs[0].dtype)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*inputs, dy, chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    return got, ssd_chunked_bwd(*inputs, dy, Q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", [
+    (2, 128, 4, 32, 1, 64, 32), (1, 256, 8, 64, 2, 128, 64),
+    (1, 256, 6, 16, 3, 32, 128), (2, 1023, 8, 64, 1, 64, 93),
+    (2, 64, 4, 8, 2, 16, 16)])
+def test_ssd_bwd_kernel_matches_plain(dev, B, L, H, P, G, N, Q, dtype):
+    """Every gradient of the CUDA backward against ``ssd_chunked_bwd`` on
+    the same CUDA tensors: the JAX tests' grid (G 1, 2, 3), a chunk of 93
+    and the smoke configs' P 8, N 16, in f32 and bf16; the dtypes of
+    ``ssd_chunked_bwd``'s."""
+    got, want = ssd_bwd_both(ssd_inputs(B, L, H, P, G, N, dev, dtype,
+                                        seed=L + H), Q, seed=P)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(g.isfinite().all())
+        tol = SSD_BWD_F32 if g.dtype == torch.float32 else SSD_BF16
+        assert relerr(w, g) < tol
+
+
+@pytest.mark.parametrize("L,H,P,N", [(1024, 80, 64, 64),
+                                     (4096, 24, 64, 128)])
+def test_ssd_bwd_kernel_training_shapes(dev, L, H, P, N):
+    """zamba2's and mamba2's training shapes in bf16 (batch 2), and the
+    same result from a second launch (no atomics: deterministic)."""
+    inputs = ssd_inputs(2, L, H, P, 1, N, dev, torch.bfloat16, seed=H)
+    got, want = ssd_bwd_both(inputs, 128, seed=1)
+    again, _ = ssd_bwd_both(inputs, 128, seed=1)
+    for g, w, a in zip(got, want, again):
+        tol = SSD_BWD_F32 if g.dtype == torch.float32 else SSD_BF16
+        assert relerr(w, g) < tol and torch.equal(g, a)
+
+
+def test_ssd_bwd_kernel_chunk_invariance_and_zero_c(dev):
+    inputs = ssd_inputs(1, 128, 4, 16, 1, 32, dev)
+    at128, _ = ssd_bwd_both(inputs, 128, seed=2)
+    for Q in (16, 32, 64):
+        got, _ = ssd_bwd_both(inputs, Q, seed=2)
+        for a, g in zip(at128, got):
+            assert relerr(a, g) < SSD_REF
+    x, dt, A, Bm, Cm = inputs
+    got, want = ssd_bwd_both((x, dt, A, Bm, torch.zeros_like(Cm)), 16, 3)
+    assert all(float(g.abs().max()) == 0.0 for g in got[:4])
+    assert relerr(want[4], got[4]) < SSD_BWD_F32
+
+
+def test_ssd_with_grad_launches_both_kernels(dev):
+    """``ssd_scan_with_grad`` on CUDA tensors: one forward launch, one
+    backward launch, no plain version; under a checkpoint the forward
+    runs again in the backward."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_with_grad)
+    from repro_torch.models.mamba2 import ssd_chunked
+    inputs = [t.requires_grad_(True)
+              for t in ssd_inputs(1, 64, 4, 8, 1, 16, dev, seed=4)]
+    fwd, bwd = ssd_scan.launches, ssd_scan_bwd.launches
+    plain = ssd_chunked.tally["cuda_calls"]
+    y = checkpoint(lambda *a: ssd_scan_with_grad(*a, chunk=16), *inputs,
+                   use_reentrant=False)
+    y.sum().backward()
+    assert ssd_scan.launches == fwd + 2 and ssd_scan_bwd.launches == bwd + 1
+    assert ssd_chunked.tally["cuda_calls"] == plain
+    assert all(t.grad is not None and bool(t.grad.isfinite().all())
+               for t in inputs)
+
+
+def test_ssd_with_grad_refuses_an_oversized_backward_up_front(dev):
+    """f32 at mamba2's P 64, N 128 and chunk 128 does not fit the
+    backward's CTA: ``ssd_scan_with_grad`` raises before its forward
+    launches."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_with_grad
+    big = [t.requires_grad_(True)
+           for t in ssd_inputs(1, 128, 1, 64, 1, 128, dev)]
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan_with_grad(*big, chunk=128)
+    assert ssd_scan.launches == before
+
+
+def test_ssd_bwd_wrapper_checks_its_inputs(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    x, dt, A, Bm, Cm = ssd_inputs(1, 96, 4, 16, 2, 32, dev)
+    dy = torch.randn_like(x)
+    with pytest.raises(ValueError):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=64)          # 96 % 64
+    with pytest.raises(ValueError):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, dy.to(torch.bfloat16), chunk=32)
+    with pytest.raises(ValueError):
+        ssd_scan_bwd(x.half(), dt, A, Bm.half(), Cm.half(), dy.half(),
+                     chunk=32)
+    # f32 at mamba2's P 64, N 128 and chunk 128: over 227 KB
+    big = ssd_inputs(1, 128, 1, 64, 1, 128, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan_bwd(*big, torch.randn_like(big[0]), chunk=128)

@@ -31,10 +31,11 @@ sys.path.insert(0, str(ROOT))
 
 
 def profile(name: str, fn, steps: int, dev,
-            kernel: str = "cg_dispatch") -> dict:
+            kernel: str = "cg_dispatch", also: tuple = ()) -> dict:
     """Run ``fn`` (``steps`` steps) once unprofiled and once under the
-    profiler; ``kernel`` names the hand-written kernel whose device time
-    is reported beside the totals."""
+    profiler; ``kernel`` (and each of ``also``) names hand-written
+    kernels, by a part of their name, whose device time is reported
+    beside the totals."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -53,8 +54,8 @@ def profile(name: str, fn, steps: int, dev,
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    kernel_us = sum(e.time_range.elapsed_us() for e in kernels
-                    if kernel in e.name)
+    named = {k: sum(e.time_range.elapsed_us() for e in kernels
+                    if k in e.name) / 1e3 for k in (kernel, *also)}
     # host ops by input shape, ranked by the device time of their kernels
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.key.startswith("aten::")]
@@ -64,7 +65,7 @@ def profile(name: str, fn, steps: int, dev,
                device_ms=device_us / 1e3,
                device_busy_share=device_us / 1e6 / wall_prof,
                kernels_per_step=len(kernels) / steps,
-               **{f"{kernel}_device_ms": kernel_us / 1e3},
+               **{f"{k}_device_ms": ms for k, ms in named.items()},
                top_device_ops=[(e.key, str(e.input_shapes)[:90], e.count,
                                 e.device_time_total / 1e3)
                                for e in top])
@@ -72,7 +73,8 @@ def profile(name: str, fn, steps: int, dev,
           f"{out['ms_per_step']:.2f} ms/step; profiled: device busy "
           f"{out['device_busy_share']:.4f} ({out['device_ms']:.2f} ms of "
           f"{wall_prof * 1e3:.2f}), {out['kernels_per_step']:.1f} kernels/"
-          f"step, {kernel} {out[f'{kernel}_device_ms']:.3f} ms",
+          f"step, " + ", ".join(f"{k} {ms:.3f} ms"
+                                for k, ms in named.items()),
           flush=True)
     print("  top ops by the device time of their kernels (op, input "
           "shapes, calls, ms):", flush=True)
