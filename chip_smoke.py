@@ -134,6 +134,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -243,13 +244,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def kernel_ms(fn, reps: int, match: str) -> float:
-    """Mean device time of one kernel launch over ``reps`` calls of
-    ``fn``: the summed intervals of the CUDA kernels whose name holds
-    ``match`` in a ``torch.profiler`` trace, over their count. Unlike
-    ``cuda_ms`` it leaves out the gaps in which the device waits for the
-    host to issue the next launch. A trace may drop a record at its edge:
-    one that holds fewer than ``reps`` - 1 launches is taken again, up to
-    three times; one that holds more than ``reps`` fails."""
+    """Mean device time of one launch of the kernel whose name holds
+    ``match``, launched once a call of ``fn``, over ``reps`` calls
+    (``call_kernels_ms``). Unlike ``cuda_ms`` it leaves out the gaps in
+    which the device waits for the host to issue the next launch."""
+    return call_kernels_ms(fn, reps, match)[0]
+
+
+def call_kernels_ms(fn, reps: int, match: str) -> tuple[float, dict]:
+    """Device time of one call of ``fn`` summed over the CUDA kernels whose
+    name holds ``match``, each launched once a call: per kernel the mean
+    of its launches in a ``torch.profiler`` trace of ``reps`` calls, and
+    the sum of those means. A trace may drop a record at its edge: one in
+    which a kernel has fewer than ``reps`` - 1 launches is taken again, up
+    to three times; one with more than ``reps`` fails. Returns the sum and
+    the per-kernel means by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -261,14 +270,18 @@ def kernel_ms(fn, reps: int, match: str) -> float:
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages() if match in e.key]
-        count = sum(e.count for e in hits)
-        counts.append(count)
-        if count > reps:
+        count = {e.key: e.count for e in hits}
+        counts.append(sorted(count.values()))
+        if not hits:
+            continue
+        if max(count.values()) > reps:
             break
-        if count >= reps - 1:
-            return sum(e.self_device_time_total for e in hits) / 1e3 / count
-    fail(f"kernel_ms: {counts} launches of {match!r} in the traces of "
-         f"{reps} calls each")
+        if min(count.values()) >= reps - 1:
+            each = {e.key: e.self_device_time_total / 1e3 / e.count
+                    for e in hits}
+            return sum(each.values()), each
+    fail(f"call_kernels_ms: launches {counts} of the kernels matching "
+         f"{match!r} in the traces of {reps} calls each")
 
 
 def probes_used(keys, assign, n_bins: int, budget: int):
@@ -1402,30 +1415,34 @@ def check_ssd_bwd(dev) -> dict:
 
 
 def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
-                 N: int, Q: int) -> dict:
+                 N: int, Q: int, plain: bool = True) -> dict:
     """ssd_scan_bwd at a training shape of phase 9, bf16 as the model runs
-    it: ``ms`` between CUDA events, ``device_ms`` of its two kernels
-    (the scan and the sum over heads, ``reduce_ms`` the latter alone),
-    the plain ``ssd_chunked_bwd`` on the same inputs. The operations, the
-    backward's own on the causal triangle (the kernel builds G and D
-    twice; that is not counted), are held against the bf16 tensor-core
-    rate, the card's peak for the operands' type, as ``time_ssd`` holds
-    the forward; ``bound_f32_ms`` keeps them at the f32 FMA rate, on
-    which the kernel runs today."""
+    it: ``ms`` between CUDA events, ``device_ms`` the sum of the device
+    times of every kernel the call launches (names holding "_bwd_"; each
+    kernel's own in ``kernels_ms``), the plain ``ssd_chunked_bwd`` on the
+    same inputs, and the CTAs an SM holds of the chunk body (the
+    occupancy calculator, and ``bwd_plan``'s count from shared memory and
+    threads; None for a tree without them). The operations, the
+    backward's own on the causal triangle, are held against the bf16
+    tensor-core rate, the card's peak for the operands' type, as
+    ``time_ssd`` holds the forward; ``bound_f32_ms`` keeps them at the f32
+    FMA rate, the yardstick of the FMA kernel, which f32 inputs run on."""
+    import importlib
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     from repro_torch.models.mamba2 import ssd_chunked_bwd
+    mod = importlib.import_module("repro_torch.kernels.ssd_scan")
     inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=13)
     dy = ssd_cotangent(inputs[0], 14)
 
     def run():
-        return ssd_scan_bwd(*inputs, dy, chunk=Q)
+        return mod.ssd_scan_bwd(*inputs, dy, chunk=Q)
 
     ms = cuda_ms(run, reps=10)
-    reduce_ms = kernel_ms(run, 10, "ssd_bwd_reduce")
-    device_ms = kernel_ms(run, 10, "ssd_scan_bwd_kernel") + reduce_ms
+    device_ms, each = call_kernels_ms(run, 10, "_bwd_")
     plain_ms = cuda_ms(lambda: ssd_chunked_bwd(*inputs, dy, Q), reps=2,
-                       warmup=1)
+                       warmup=1) if plain else None
+    resident = getattr(mod, "bwd_resident_ctas", None)
+    plan = getattr(mod, "bwd_plan", None)
     # x, dy, B, C in bf16 and dt, A in f32 read once; dx, dB, dC in bf16
     # and ddt, dA in f32 written once
     nbytes = (2 * 2 * B * L * H * P + 4 * B * L * H + 4 * H
@@ -1439,10 +1456,15 @@ def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
     ops = B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 10 * Q * P * N)
     return dict(shape=f"{arch} train B={B} L={L} H={H} P={P} G={G} N={N} "
                 f"Q={Q} bf16", ms=ms, device_ms=device_ms,
-                reduce_ms=reduce_ms, plain_ms=plain_ms, bytes=nbytes,
-                ops=ops, ops_per_s=BF16_TC_OPS_PER_S,
+                kernels_ms={re.search(r"\w*_bwd_\w*(<\d+>)?", k)[0]: v
+                            for k, v in each.items()},
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                ops_per_s=BF16_TC_OPS_PER_S,
                 bound_f32_ms=max(nbytes / HBM_BYTES_PER_S,
-                                 ops / OPS_PER_S) * 1e3)
+                                 ops / OPS_PER_S) * 1e3,
+                ctas_per_sm=resident(P, N, Q) if resident else None,
+                ctas_per_sm_planned=(plan(B, L, H, P, G, N, Q)[
+                    "ctas_per_sm"]["chunk"] if plan else None))
 
 
 def bound(t: dict) -> tuple[float, str]:
@@ -2920,8 +2942,9 @@ def main() -> int:
         if "ctas_per_sm" in t:
             extra += (f", {t['ctas_per_sm']} CTAs an SM (planned "
                       f"{t['ctas_per_sm_planned']})")
-        if "reduce_ms" in t:
-            extra += f", of it the sum over heads {t['reduce_ms']:.4f} ms"
+        if "kernels_ms" in t:
+            extra += ", of it " + ", ".join(
+                f"{k} {v:.4f}" for k, v in t["kernels_ms"].items())
         log(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms/launch "
             f"(CUDA events), {t['device_ms']:.4f} ms device time, plain "
             f"{t['plain_ms']:.3f} ms, bound {b:.6f} ms ({by}){extra}")
@@ -3073,7 +3096,9 @@ def main() -> int:
             launches=count,
             max_abs_err=err.get(name, err[name.split("[")[0]]), ms=t["ms"],
             device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=b,
-            bound_by=by, library_ms=None))
+            bound_by=by, library_ms=None,
+            **({"ctas_per_sm": t["ctas_per_sm"]} if "ctas_per_sm" in t
+               else {})))
     log(f"  the whole run took {time.perf_counter() - t_start:.1f} s")
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

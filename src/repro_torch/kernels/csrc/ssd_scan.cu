@@ -199,13 +199,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows [0, Qp) of a tile of row length R from `src` (row stride
-// `stride` elements): rows from `rows` on and columns from `cols` on are
-// zero-filled.
+// `stride` elements), by a CTA of kThr threads: rows from `rows` on and
+// columns from `cols` on are zero-filled.
+template <int kThr = kTcThreads>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
                                            size_t stride, int rows, int Qp,
                                            int cols, int R) {
   const int cpr = R >> 3;
-  for (int i = threadIdx.x; i < Qp * cpr; i += kTcThreads) {
+  for (int i = threadIdx.x; i < Qp * cpr; i += kThr) {
     const int r = i / cpr, c = i % cpr;
     const bool ok = r < rows && 8 * c < cols;
     cp_async16(dst + swz(r, 8 * c, R), ok ? src + r * stride + 8 * c : src,
@@ -714,62 +715,107 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: f32 FMAs (ssd_scan_bwd_kernel, ssd_bwd_reduce_kernel)
+// The backward
 // ---------------------------------------------------------------------------
 //
 // Replaces no TPU kernel: the reference has no VJP for its Pallas scan and
 // trains through XLA's autodiff of ssd_chunked (repro/models/mamba2.py,
 // _ssd). Computes, to float tolerance, the plain torch version
 // repro_torch/models/mamba2.py::ssd_chunked_bwd, whose docstring gives the
-// formulas: for a cotangent dy of y (from a zero initial state), dx, ddt,
-// dA, dB and dC.
+// formulas and the order of work: for a cotangent dy of y (from a zero
+// initial state), dx, ddt, dA, dB and dC. No float atomics anywhere: every
+// sum runs in a fixed order, so two launches give the same bits.
 //
-// One CTA per (b, h), 8 warps, everything in f32 FMAs (tile_products):
+// bf16 (the models): six kernels, parallel over (b, chunk, head) rather
+// than (b, head), every product with a bf16 operand on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation). An operand computed in f32 (the
+// weights W and V, h0, dh, x.coef, dy.e^s) enters as a hi + lo bf16 pair,
+// so each product has one bf16 operand as stored and at most one f32
+// operand as a pair (~16 bits); none is rounded once to bf16:
+//   1. ssd_bwd_increments_kernel, a CTA per (b, h, chunk): the chunk's state
+//      increment S_c = sum_j coef_j x_j (x) B_j and its cotangent increment
+//      Lam_c = sum_i e^{s_i} dy_i (x) C_i, [P, N] each (the forward's state
+//      update, twice), and e^{s_Q} of the chunk;
+//   2. ssd_bwd_states_kernel, a thread per four entries of [P, N] of a
+//      (b, h): h0_{c+1} = e^{s_Q,c} h0_c + S_c in order and dh_c =
+//      e^{s_Q,c+1} dh_{c+1} + Lam_{c+1} in reverse, in place (S becomes the
+//      entering states, Lam their cotangents);
+//   3. ssd_bwd_chunk_kernel, a CTA per (b, chunk, group, tile of up to
+//      kBwdTile heads of the group), 4 warps: G^T = B C^T of the chunk is
+//      built once for the tile (it does not depend on the head) and kept in
+//      shared memory as accumulator fragments; then per head B dh^T (dh
+//      staged once), D^T = x dy^T, and from the fragments W = E dt G,
+//      V = E dt D and M = E G D (expf once per entry of the triangle);
+//      dx = W^T dy + coef (B dh^T), u (from B dh^T), m and sum_j T_ij (the
+//      row and column sums of M). V summed over the tile's heads (Vbar)
+//      stays in registers and is written once a tile;
+//   4. ssd_bwd_group_kernel, a CTA per (b, chunk, group, tile, N-slab), 8
+//      warps: dB = Vbar^T C + sum_h coef^h (x^h dh^h) and dC = Vbar B +
+//      sum_h e^{s^h} (dy^h h0^h) over the tile's heads, and each head's
+//      share of r_i = C_i . (dy_i h0) and of <h0, dh> over the slab. The
+//      head sum of dB and dC runs inside these products (Vbar) and in
+//      registers, so no per-head partial of them is written;
+//   5. ssd_bwd_ds_kernel, a warp per (b, h, chunk): ds, its reverse cumsum,
+//      ddt and the chunk's share of dA;
+//   6. ssd_bwd_sum_kernel: the tiles' partials of dB and dC (only when a
+//      group has more heads than a tile) and dA over batch and chunks, in
+//      a fixed order.
+// Work tiles: the chunk body's warp w owns row blocks w and nrb - 1 - w (16
+// rows each) of the chunk, which balances the causal triangle (9 tiles of
+// 16 x 16 a warp at a chunk of 128); a warp's tiles sit in static register
+// slots (pass 0 from slot 0 up, pass 1 from slot 8 down), so Vbar never
+// leaves the registers. The states [P, N] stream through shared memory in
+// slabs as hi/lo bf16.
+//
+// What bounds it on this card: the function's own bound is its bytes or
+// its bf16 products (PERF.md section 6, row 5b). This design moves more
+// bytes than that: the entering states and their cotangents, f32
+// [B, H, L/Q, P, N] each, are written by 1, rewritten by 2 and read by 3
+// and 4, and Vbar, f32 [B, L/Q, G, tiles, Q, Q], once each way; in
+// exchange every kernel's grid grows with the chunks, and the chunk body,
+// which holds two CTAs an SM, waits on a slab's loads once per head.
+//
+// f32 (ssd_scan_bwd_kernel, ssd_bwd_reduce_kernel) keeps the simple FMA
+// design below, for the f32 checks and configs: one CTA per (b, h), 8
+// warps, everything in f32 FMAs (tile_products):
 //   pass 1 walks the chunks in order and writes the state entering each
 //     to an f32 scratch [B, H, L/Q, P, N] (the state kept in shared
 //     memory, as the f32 forward keeps it);
 //   pass 2 walks them in reverse with dh [P, N] in shared memory. Per
-//     chunk x, dy, B and C are staged in their own dtype, and the Q x Q
-//     products G = C.B^T and D = dy.x^T are built kBT rows or columns at
-//     a time, twice: a column sweep (kBT columns j, rows i >= j) gives dx
-//     and dB of those columns and m_j = sum_i E G D, a row sweep (kBT rows
-//     i, columns j <= i) gives dC and sum_j T_ij of those rows. Then one
-//     warp forms ds, its reverse cumsum dda, ddt and the chunk's share of
-//     dA, and the block updates dh.
+//     chunk x, dy, B and C are staged, and the Q x Q products G = C.B^T
+//     and D = dy.x^T are built kBT rows or columns at a time, twice: a
+//     column sweep (kBT columns j, rows i >= j) gives dx and dB of those
+//     columns and m_j = sum_i E G D, a row sweep (kBT rows i, columns
+//     j <= i) gives dC and sum_j T_ij of those rows. Then one warp forms
+//     ds, its reverse cumsum dda, ddt and the chunk's share of dA, and the
+//     block updates dh.
 // dB and dC are written per head as f32 partials [B, L, H, N], and dA per
 // (b, h); ssd_bwd_reduce_kernel then sums the heads of each group (and dA
-// over the batch) in a fixed order. No float atomics: the result is the
-// same from run to run.
-//
-// What bounds it: the operations. Per chunk the two sweeps build G and D
-// twice over the causal triangle and form dx, dB, dC over it, plus five
-// [P, N] x Q products (the state, the three inter-chunk terms, dh): in
-// f32 FMAs at 67 TF/s this is several times the bytes' time (PERF.md
-// section 6, row 5b). The design is the simple one: tensor cores, wgmma
-// and TMA wait for a later pass (ROADMAP Queue 2).
+// over the batch) in a fixed order.
 
-constexpr int kBT = 32;          // rows or columns of a Q x Q tile at once
-constexpr int kBwdVecs = 10;     // [Q] vectors of the chunk
-constexpr int kWarps = kThreads / kWarp;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+constexpr int kBwdTile = 8;        // heads of a group in one chunk-body CTA
+constexpr int kSlots = 9;          // 16 x 16 tiles a chunk-body warp owns
+constexpr int kGroupWarps = 8;
+constexpr int kGroupThreads = kGroupWarps * kWarp;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
   return v;
+}
+
+// Sum over the four lanes of a fragment row (lanes of equal g8).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+  return v + __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+}
+
+// Sum over the eight fragment rows (lanes of equal t2).
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+  v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+  return v + __shfl_xor_sync(0xFFFFFFFFu, v, 16);
 }
 
 // One warp: v[k] <- sum_{i >= k} v[i] for k < n (a reverse inclusive
@@ -804,16 +850,1085 @@ __device__ void warp_rcumsum(float* v, int n) {
   __syncwarp();
 }
 
-// Shared memory of the backward: f32 first (dh [P][N+1], three tile
+// Columns [n0, n0 + NS) of the f32 [P, N] state a (and b, unless it is
+// null) as hi/lo bf16 tiles [Pp][NS] (zeros past P or N), by a CTA of kThr
+// threads; returns this thread's share of sum(a * b) when `dot`. A thread
+// issues all its loads before it converts and stores any.
+template <int NS, int kThr>
+__device__ __forceinline__ float stage_states(
+    bf16* ahi, bf16* alo, bf16* bhi, bf16* blo, const float* a,
+    const float* b, int P, int Pp, int N, int n0, bool dot) {
+  constexpr int kC4 = NS / 4;
+  constexpr int kPer = (kTcMaxP * kC4 + kThr - 1) / kThr;
+  float4 va[kPer], vb[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThr;
+    const int p = i / kC4, n = 4 * (i % kC4);
+    va[k] = vb[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (p < P && p < Pp && n0 + n < N) {
+      const size_t off = static_cast<size_t>(p) * N + n0 + n;
+      va[k] = *reinterpret_cast<const float4*>(a + off);
+      if (b != nullptr) vb[k] = *reinterpret_cast<const float4*>(b + off);
+    }
+  }
+  float part = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + k * kThr;
+    if (i >= Pp * kC4) break;
+    const int p = i / kC4, n = 4 * (i % kC4);
+    const int at = swz(p, n, NS);
+    uint32_t h0, l0, h1, l1;
+    split(va[k].x, va[k].y, h0, l0);
+    split(va[k].z, va[k].w, h1, l1);
+    *reinterpret_cast<uint2*>(ahi + at) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(alo + at) = make_uint2(l0, l1);
+    if (b == nullptr) continue;
+    if (dot)
+      part += va[k].x * vb[k].x + va[k].y * vb[k].y + va[k].z * vb[k].z +
+              va[k].w * vb[k].w;
+    split(vb[k].x, vb[k].y, h0, l0);
+    split(vb[k].z, vb[k].w, h1, l1);
+    *reinterpret_cast<uint2*>(bhi + at) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(blo + at) = make_uint2(l0, l1);
+  }
+  return part;
+}
+
+// One warp, after `dt` of a chunk is staged: s = cumsum(dt a), and
+// es = e^{s}, coef = dt e^{s_Q - s} over [0, Qp) (dt is zero past Q).
+__device__ __forceinline__ void chunk_vectors(const float* dt, float a,
+                                              int Q, int Qp, float* s,
+                                              float* es, float* coef) {
+  const float s_last = warp_cumsum(dt, a, Q, Qp, s);
+  for (int j = threadIdx.x % kWarp; j < Qp; j += kWarp) {
+    es[j] = expf(s[j]);
+    coef[j] = __fmul_rn(dt[j], expf(__fsub_rn(s_last, s[j])));
+  }
+}
+
+// 1. The chunk increments. Shared memory: x, dy [Qp][Pp], B, C [Qp][kN]
+// (bf16), then dt, s, coef, e^s [Qp] (f32).
+struct IncrLayout {
+  size_t x, dy, b, c, vec, bytes;
+  __host__ __device__ IncrLayout(int Qp, int Pp, int Np) {
+    x = 0;
+    dy = x + 2ull * Qp * Pp;
+    b = dy + 2ull * Qp * Pp;
+    c = b + 2ull * Qp * Np;
+    vec = c + 2ull * Qp * Np;
+    bytes = vec + 4ull * 4 * Qp;
+  }
+};
+
+template <int kN>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_bwd_increments_kernel(const bf16* __restrict__ x,
+                              const float* __restrict__ dt,
+                              const float* __restrict__ A,
+                              const bf16* __restrict__ Bm,
+                              const bf16* __restrict__ Cm,
+                              const bf16* __restrict__ dy,
+                              float* __restrict__ incr,
+                              float* __restrict__ lam,
+                              float* __restrict__ decay, int L, int H, int P,
+                              int G, int N, int Q) {
+  extern __shared__ __align__(128) unsigned char in_smem[];
+  const int Qp = round16(Q), Pp = round16(P);
+  const IncrLayout lay(Qp, Pp, kN);
+  bf16* xs = reinterpret_cast<bf16*>(in_smem + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(in_smem + lay.dy);
+  bf16* bs = reinterpret_cast<bf16*>(in_smem + lay.b);
+  bf16* cs = reinterpret_cast<bf16*>(in_smem + lay.c);
+  float* dtc = reinterpret_cast<float*>(in_smem + lay.vec);
+  float* s = dtc + Qp;
+  float* coef = s + Qp;
+  float* es = coef + Qp;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g8 = lane >> 2, t2 = 2 * (lane & 3);
+  const int lr = lane & 7, lm = lane >> 3;
+
+  const int nc = L / Q;
+  const int blk = blockIdx.x;  // ((b * H) + h) * nc + c
+  const int c = blk % nc, bh = blk / nc;
+  const int b = bh / H, hd = bh % H;
+  const int grp = hd / (H / G);
+  const size_t row0 = static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+  stage_tile(xs, x + (row0 * H + hd) * P, static_cast<size_t>(H) * P, Q, Qp,
+             P, Pp);
+  stage_tile(dys, dy + (row0 * H + hd) * P, static_cast<size_t>(H) * P, Q,
+             Qp, P, Pp);
+  stage_tile(bs, Bm + (row0 * G + grp) * N, static_cast<size_t>(G) * N, Q,
+             Qp, N, kN);
+  stage_tile(cs, Cm + (row0 * G + grp) * N, static_cast<size_t>(G) * N, Q,
+             Qp, N, kN);
+  for (int j = threadIdx.x; j < Qp; j += kTcThreads)
+    cp_async4(dtc + j, dt + (row0 + (j < Q ? j : 0)) * H + hd, j < Q ? 4 : 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  if (warp == 0) {
+    chunk_vectors(dtc, A[hd], Q, Qp, s, es, coef);
+    if (lane == 0) decay[blk] = expf(s[Q - 1]);
+  }
+  __syncthreads();
+
+  // warp w: rows [16w, 16w + 16) of S and Lam; S of the last chunk and Lam
+  // of the first are never read
+  const int p0 = 16 * warp;
+  if (p0 >= Pp) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    if (which == 0 ? c == nc - 1 : c == 0) continue;
+    const bf16* lhs = which == 0 ? xs : dys;
+    const bf16* rhs = which == 0 ? bs : cs;
+    const float* scale = which == 0 ? coef : es;
+    float acc[kN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kTcMaxQ / 16; ++kk) {
+      if (16 * kk >= Qp) break;
+      uint32_t xf[4], ah[4], al[4];
+      ldsm_x4_t(xf, lhs + swz(16 * kk + (lm >> 1) * 8 + lr,
+                              p0 + (lm & 1) * 8, Pp));
+      const int ja = 16 * kk + t2, jb = ja + 8;
+      const float2 ca = make_float2(scale[ja], scale[ja + 1]);
+      const float2 cb = make_float2(scale[jb], scale[jb + 1]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 v = unpack(xf[r]);
+        const float2 cv = r < 2 ? ca : cb;
+        split(__fmul_rn(v.x, cv.x), __fmul_rn(v.y, cv.y), ah[r], al[r]);
+      }
+#pragma unroll
+      for (int q = 0; q < kN / 16; ++q) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, rhs + swz(16 * kk + (lm & 1) * 8 + lr,
+                                16 * q + (lm >> 1) * 8, kN));
+        mma(acc[2 * q], ah, bf[0], bf[1]);
+        mma(acc[2 * q + 1], ah, bf[2], bf[3]);
+        mma(acc[2 * q], al, bf[0], bf[1]);
+        mma(acc[2 * q + 1], al, bf[2], bf[3]);
+      }
+    }
+    float* out = (which == 0 ? incr : lam) + static_cast<size_t>(blk) * P * N;
+    const int pa = p0 + g8, pb = pa + 8;
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      const int n = 8 * nt + t2;
+      if (n >= N) break;
+      if (pa < P)
+        *reinterpret_cast<float2*>(out + pa * N + n) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if (pb < P)
+        *reinterpret_cast<float2*>(out + pb * N + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// 2. The states, in place: a thread per float4 of [P, N] of one (b, h),
+// blocks of 256 threads, `per_bh` blocks per (b, h). The recurrence in
+// order and the one in reverse run interleaved, each reading kAhead
+// chunks ahead, so a thread keeps loads in flight.
+constexpr int kAhead = 4;
+
+__global__ void __launch_bounds__(256)
+    ssd_bwd_states_kernel(float* __restrict__ incr, float* __restrict__ lam,
+                          const float* __restrict__ decay, int nc, int pn4,
+                          int per_bh) {
+  const int bh = blockIdx.x / per_bh;
+  const int e = (blockIdx.x % per_bh) * 256 + threadIdx.x;
+  if (e >= pn4) return;
+  const size_t base = static_cast<size_t>(bh) * nc * pn4 + e;
+  float4* s4 = reinterpret_cast<float4*>(incr) + base;
+  float4* l4 = reinterpret_cast<float4*>(lam) + base;
+  const float* dec = decay + static_cast<size_t>(bh) * nc;
+  const auto step = [](float f, float4 h, float4 v) {
+    return make_float4(__fadd_rn(__fmul_rn(f, h.x), v.x),
+                       __fadd_rn(__fmul_rn(f, h.y), v.y),
+                       __fadd_rn(__fmul_rn(f, h.z), v.z),
+                       __fadd_rn(__fmul_rn(f, h.w), v.w));
+  };
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // S_c for c < nc - 1 and Lam_c for c > 0 are read; the others are not
+  // written by the increments
+  const auto s_at = [&](int c) {
+    return c < nc - 1 ? s4[static_cast<size_t>(c) * pn4] : zero;
+  };
+  const auto l_at = [&](int c) {
+    return c > 0 ? l4[static_cast<size_t>(c) * pn4] : zero;
+  };
+  float4 fwd[kAhead], rev[kAhead];
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) {
+    fwd[k] = s_at(k);
+    rev[k] = l_at(nc - 1 - k);
+  }
+  float4 h = zero, d = zero;
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int c = c0 + k, cr = nc - 1 - c;
+      if (c >= nc) break;
+      const float4 vf = fwd[k], vr = rev[k];
+      fwd[k] = s_at(c + kAhead);
+      rev[k] = l_at(cr - kAhead);
+      s4[static_cast<size_t>(c) * pn4] = h;   // h0_c
+      h = step(dec[c], h, vf);
+      l4[static_cast<size_t>(cr) * pn4] = d;  // dh_cr
+      d = step(dec[cr], d, vr);
+    }
+  }
+}
+
+// 3. The chunk body. Shared memory: x, dy [Qp][Pp] (bf16); G^T as
+// accumulator fragments, a warp's kSlots tiles of 256 f32 each; a B slab
+// [Qp][NS] (bf16); a dh slab as hi/lo bf16 [Pp][NS] (a C slab [Qp][NS]
+// while G^T is built); each warp's second row block of coef (B dh^T)
+// [16, Pp] f32 until its turn; dt, s, e^{s_Q - s} and coef [Qp]; the
+// column sums of M per row block [8][Qp].
+struct ChunkLayout {
+  size_t x, dy, gt, b, dhh, dhl, keep, vec, rowt, bytes;
+  __host__ __device__ ChunkLayout(int Qp, int Pp, int ns) {
+    x = 0;
+    dy = x + 2ull * Qp * Pp;
+    gt = dy + 2ull * Qp * Pp;
+    b = gt + 4ull * kTcWarps * kSlots * 256;
+    dhh = b + 2ull * Qp * ns;
+    dhl = dhh + 2ull * Pp * ns;
+    const size_t dh_end = dhl + 2ull * Pp * ns, c_end = dhh + 2ull * Qp * ns;
+    keep = dh_end > c_end ? dh_end : c_end;
+    vec = keep + 4ull * kTcWarps * 16 * Pp;
+    rowt = vec + 4ull * 4 * Qp;
+    bytes = rowt + 4ull * 8 * Qp;
+  }
+};
+
+template <int kN>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_bwd_chunk_kernel(const bf16* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const bf16* __restrict__ Bm,
+                         const bf16* __restrict__ Cm,
+                         const bf16* __restrict__ dy,
+                         const float* __restrict__ dhs,
+                         bf16* __restrict__ dx, float* __restrict__ rowt_out,
+                         float* __restrict__ m_out, float* __restrict__ u_out,
+                         float* __restrict__ vbar, int L, int H, int P, int G,
+                         int N, int Q, int tile, int T) {
+  constexpr int NS = kN < 32 ? kN : 32;
+  extern __shared__ __align__(128) unsigned char ck_smem[];
+  const int Qp = round16(Q), Pp = round16(P), nrb = Qp / 16;
+  const ChunkLayout lay(Qp, Pp, NS);
+  bf16* xs = reinterpret_cast<bf16*>(ck_smem + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(ck_smem + lay.dy);
+  float* gt = reinterpret_cast<float*>(ck_smem + lay.gt);
+  bf16* bs = reinterpret_cast<bf16*>(ck_smem + lay.b);
+  bf16* dhh = reinterpret_cast<bf16*>(ck_smem + lay.dhh);
+  bf16* dhl = reinterpret_cast<bf16*>(ck_smem + lay.dhl);
+  float* keep = reinterpret_cast<float*>(ck_smem + lay.keep);
+  float* dtc = reinterpret_cast<float*>(ck_smem + lay.vec);
+  float* s = dtc + Qp;
+  float* ex = s + Qp;      // e^{s_Q - s_j}
+  float* coef = ex + Qp;   // dt_j e^{s_Q - s_j}
+  float* rowtp = reinterpret_cast<float*>(ck_smem + lay.rowt);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g8 = lane >> 2, t2 = 2 * (lane & 3);
+  const int lr = lane & 7, lm = lane >> 3;
+
+  const int nc = L / Q;
+  int blk = blockIdx.x;  // ((b * nc + c) * G + g) * T + t
+  const int t = blk % T;
+  blk /= T;
+  const int g = blk % G;
+  blk /= G;
+  const int c = blk % nc, b = blk / nc;
+  const int rep = H / G, h_first = g * rep + t * tile;
+  const int n_heads = min(tile, rep - t * tile);
+  const size_t row0 = static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+  // the warp's row blocks: rb[0] = w, rb[1] = nrb - 1 - w
+  const int rbs[2] = {warp, nrb - 1 - warp};
+  const bool acts[2] = {warp < (nrb + 1) / 2,
+                        warp < (nrb + 1) / 2 && nrb - 1 - warp > warp};
+  float* kept = keep + (warp * 16 * Pp + lane * 4);  // [nt][lane][4]
+
+  // the tile's G^T, then Vbar, in the warp's slots: pass 0's tile (rb0,
+  // rb0 + d) in slot d, pass 1's (rb1, rb1 + d) in slot 8 - d. The C slab
+  // takes the dh slab's place while G^T is built.
+  bf16* cs = dhh;
+  float vb[kSlots][2][4];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) vb[k][e / 4][e % 4] = 0.0f;
+  for (int n0 = 0; n0 < kN; n0 += NS) {
+    __syncthreads();
+    stage_tile(bs, Bm + (row0 * G + g) * N + n0, static_cast<size_t>(G) * N,
+               Q, Qp, N - n0, NS);
+    stage_tile(cs, Cm + (row0 * G + g) * N + n0, static_cast<size_t>(G) * N,
+               Q, Qp, N - n0, NS);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const int rb = rbs[pass];
+      if (!acts[pass]) continue;
+#pragma unroll
+      for (int kk = 0; kk < NS / 16; ++kk) {
+        uint32_t ba[4];
+        ldsm_x4(ba, bs + swz(16 * rb + (lm & 1) * 8 + lr,
+                             16 * kk + (lm >> 1) * 8, NS));
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          const int ib = rb + d;
+          if (ib >= nrb) break;
+          const int slot = pass == 0 ? d : 8 - d;
+          uint32_t f[4];
+          ldsm_x4(f, cs + swz(16 * ib + (lm >> 1) * 8 + lr,
+                              16 * kk + (lm & 1) * 8, NS));
+          mma(vb[slot][0], ba, f[0], f[1]);
+          mma(vb[slot][1], ba, f[2], f[3]);
+        }
+      }
+    }
+  }
+  float* gw = gt + warp * kSlots * 256 + lane * 8;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    *reinterpret_cast<float4*>(gw + k * 256) =
+        make_float4(vb[k][0][0], vb[k][0][1], vb[k][0][2], vb[k][0][3]);
+    *reinterpret_cast<float4*>(gw + k * 256 + 4) =
+        make_float4(vb[k][1][0], vb[k][1][1], vb[k][1][2], vb[k][1][3]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) vb[k][e / 4][e % 4] = 0.0f;
+  }
+
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int hd = h_first + hh;
+    const float* dh = dhs + ((static_cast<size_t>(b) * H + hd) * nc + c) * P * N;
+    const size_t vrow = (static_cast<size_t>(b) * H + hd) * L + c * Q;
+    // B dh^T [16, P] of both row blocks, over N, a slab of NS columns at a
+    // time; the head's x, dy and dt come with the first slab
+    float bd[2][kTcMaxP / 8][4];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int nt = 0; nt < kTcMaxP / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bd[pass][nt][e] = 0.0f;
+    for (int n0 = 0; n0 < kN; n0 += NS) {
+      __syncthreads();  // the last slab's (and head's) readers are done
+      if (n0 == 0) {
+        stage_tile(xs, x + (row0 * H + hd) * P, static_cast<size_t>(H) * P,
+                   Q, Qp, P, Pp);
+        stage_tile(dys, dy + (row0 * H + hd) * P, static_cast<size_t>(H) * P,
+                   Q, Qp, P, Pp);
+        for (int j = threadIdx.x; j < Qp; j += kTcThreads)
+          cp_async4(dtc + j, dt + (row0 + (j < Q ? j : 0)) * H + hd,
+                    j < Q ? 4 : 0);
+      }
+      stage_tile(bs, Bm + (row0 * G + g) * N + n0,
+                 static_cast<size_t>(G) * N, Q, Qp, N - n0, NS);
+      cp_async_commit();
+      stage_states<NS, kTcThreads>(dhh, dhl, nullptr, nullptr, dh, nullptr,
+                                   P, Pp, N, n0, false);
+      cp_async_wait_all();
+      __syncthreads();
+      if (n0 == 0 && warp == 0) {
+        // the chunk's vectors (published by the sync after the slabs)
+        const float s_last = warp_cumsum(dtc, A[hd], Q, Qp, s);
+        for (int j = lane; j < Qp; j += kWarp) {
+          ex[j] = expf(__fsub_rn(s_last, s[j]));
+          coef[j] = __fmul_rn(dtc[j], ex[j]);
+        }
+      }
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        const int rb = rbs[pass];
+        if (!acts[pass]) continue;
+#pragma unroll
+        for (int kk = 0; kk < NS / 16; ++kk) {
+          uint32_t ba[4];
+          ldsm_x4(ba, bs + swz(16 * rb + (lm & 1) * 8 + lr,
+                               16 * kk + (lm >> 1) * 8, NS));
+#pragma unroll
+          for (int q = 0; q < kTcMaxP / 16; ++q) {
+            if (16 * q >= Pp) break;
+            uint32_t fh[4], fl[4];
+            const int at = swz(16 * q + (lm >> 1) * 8 + lr,
+                               16 * kk + (lm & 1) * 8, NS);
+            ldsm_x4(fh, dhh + at);
+            ldsm_x4(fl, dhl + at);
+            mma(bd[pass][2 * q], ba, fh[0], fh[1]);
+            mma(bd[pass][2 * q + 1], ba, fh[2], fh[3]);
+            mma(bd[pass][2 * q], ba, fl[0], fl[1]);
+            mma(bd[pass][2 * q + 1], ba, fl[2], fl[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the vectors are published
+    // u_j = e^{s_Q - s_j} x_j . (B_j dh^T), from the x rows as A fragments
+    // (their layout is the accumulators' of two n8 tiles); dx starts as
+    // coef_j (B_j dh^T), the second row block's kept in shared memory
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const int rb = rbs[pass];
+      if (!acts[pass]) continue;
+      const int ja = 16 * rb + g8, jb = ja + 8;
+      float ua = 0.0f, ub = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kTcMaxP / 16; ++kk) {
+        if (16 * kk >= Pp) break;
+        uint32_t xf[4];
+        ldsm_x4(xf, xs + swz(16 * rb + (lm & 1) * 8 + lr,
+                             16 * kk + (lm >> 1) * 8, Pp));
+#pragma unroll
+        for (int hn = 0; hn < 2; ++hn) {
+          const float2 x0 = unpack(xf[2 * hn]), x1 = unpack(xf[2 * hn + 1]);
+          const int nt = 2 * kk + hn;
+          ua += x0.x * bd[pass][nt][0] + x0.y * bd[pass][nt][1];
+          ub += x1.x * bd[pass][nt][2] + x1.y * bd[pass][nt][3];
+        }
+      }
+      ua = quad_sum(ua);
+      ub = quad_sum(ub);
+      if ((lane & 3) == 0) {
+        if (ja < Q) u_out[vrow + ja] = __fmul_rn(ex[ja], ua);
+        if (jb < Q) u_out[vrow + jb] = __fmul_rn(ex[jb], ub);
+      }
+      const float ca = coef[ja], cb = coef[jb];
+#pragma unroll
+      for (int nt = 0; nt < kTcMaxP / 8; ++nt) {
+        if (8 * nt >= Pp) break;
+        bd[pass][nt][0] = __fmul_rn(bd[pass][nt][0], ca);
+        bd[pass][nt][1] = __fmul_rn(bd[pass][nt][1], ca);
+        bd[pass][nt][2] = __fmul_rn(bd[pass][nt][2], cb);
+        bd[pass][nt][3] = __fmul_rn(bd[pass][nt][3], cb);
+        if (pass == 1)
+          *reinterpret_cast<float4*>(kept + nt * 128) =
+              make_float4(bd[1][nt][0], bd[1][nt][1], bd[1][nt][2],
+                          bd[1][nt][3]);
+      }
+    }
+
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const int rb = rbs[pass];
+      if (!acts[pass]) continue;
+      const int ja = 16 * rb + g8, jb = ja + 8;
+      float acc[kTcMaxP / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kTcMaxP / 8; ++nt) {
+        if (pass == 0 || 8 * nt >= Pp) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = pass == 0 ? bd[0][nt][e]
+                                                             : 0.0f;
+        } else {
+          const float4 v = *reinterpret_cast<const float4*>(kept + nt * 128);
+          acc[nt][0] = v.x;
+          acc[nt][1] = v.y;
+          acc[nt][2] = v.z;
+          acc[nt][3] = v.w;
+        }
+      }
+      uint32_t xa[kTcMaxP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTcMaxP / 16; ++kk) {
+        if (16 * kk >= Pp) break;
+        ldsm_x4(xa[kk], xs + swz(16 * rb + (lm & 1) * 8 + lr,
+                                 16 * kk + (lm >> 1) * 8, Pp));
+      }
+
+      // the row block's tiles (rb, ib >= rb)
+      const float sj[2] = {s[ja], s[jb]}, dj[2] = {dtc[ja], dtc[jb]};
+      float mrow[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        const int ib = rb + d;
+        if (ib >= nrb) break;
+        const int slot = pass == 0 ? d : 8 - d;
+        // D^T_ji = x_j . dy_i
+        float dd[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kTcMaxP / 16; ++kk) {
+          if (16 * kk >= Pp) break;
+          uint32_t f[4];
+          ldsm_x4(f, dys + swz(16 * ib + (lm >> 1) * 8 + lr,
+                               16 * kk + (lm & 1) * 8, Pp));
+          mma(dd[0], xa[kk], f[0], f[1]);
+          mma(dd[1], xa[kk], f[2], f[3]);
+        }
+        const float4 g0 = *reinterpret_cast<const float4*>(gw + slot * 256);
+        const float4 g1 =
+            *reinterpret_cast<const float4*>(gw + slot * 256 + 4);
+        const float gg[2][4] = {{g0.x, g0.y, g0.z, g0.w},
+                                {g1.x, g1.y, g1.z, g1.w}};
+        float w[2][4];
+#pragma unroll
+        for (int hn = 0; hn < 2; ++hn) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 16 * ib + 8 * hn + t2 + e;
+            const float si = s[i];
+            float col = 0.0f;  // sum over this thread's rows j of M_ij dt_j
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int k = 2 * hr + e;
+              const int j = hr == 0 ? ja : jb;
+              float wv = 0.0f, vv = 0.0f, mm = 0.0f;
+              if (j <= i && i < Q) {
+                const float ee = __expf(__fsub_rn(si, sj[hr]));
+                const float edt = __fmul_rn(ee, dj[hr]);
+                wv = __fmul_rn(edt, gg[hn][k]);
+                vv = __fmul_rn(edt, dd[hn][k]);
+                mm = __fmul_rn(__fmul_rn(ee, gg[hn][k]), dd[hn][k]);
+              }
+              w[hn][k] = wv;
+              vb[slot][hn][k] += vv;
+              mrow[hr] += mm;
+              col += mm * dj[hr];
+            }
+            col = column_sum(col);
+            if (g8 == 0) rowtp[rb * Qp + i] = col;
+          }
+        }
+        // dx_j += sum_i W^T_ji dy_i, W^T as its hi + lo pair
+        uint32_t ah[4], al[4];
+        split(w[0][0], w[0][1], ah[0], al[0]);
+        split(w[0][2], w[0][3], ah[1], al[1]);
+        split(w[1][0], w[1][1], ah[2], al[2]);
+        split(w[1][2], w[1][3], ah[3], al[3]);
+#pragma unroll
+        for (int q = 0; q < kTcMaxP / 16; ++q) {
+          if (16 * q >= Pp) break;
+          uint32_t f[4];
+          ldsm_x4_t(f, dys + swz(16 * ib + (lm & 1) * 8 + lr,
+                                 16 * q + (lm >> 1) * 8, Pp));
+          mma(acc[2 * q], ah, f[0], f[1]);
+          mma(acc[2 * q + 1], ah, f[2], f[3]);
+          mma(acc[2 * q], al, f[0], f[1]);
+          mma(acc[2 * q + 1], al, f[2], f[3]);
+        }
+      }
+      mrow[0] = quad_sum(mrow[0]);
+      mrow[1] = quad_sum(mrow[1]);
+      if ((lane & 3) == 0) {
+        if (ja < Q) m_out[vrow + ja] = mrow[0];
+        if (jb < Q) m_out[vrow + jb] = mrow[1];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTcMaxP / 8; ++nt) {
+        const int p = 8 * nt + t2;
+        if (p >= P) break;
+        if (ja < Q)
+          *reinterpret_cast<__nv_bfloat162*>(dx + ((row0 + ja) * H + hd) * P +
+                                             p) =
+              __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
+        if (jb < Q)
+          *reinterpret_cast<__nv_bfloat162*>(dx + ((row0 + jb) * H + hd) * P +
+                                             p) =
+              __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
+      }
+    }
+    // sum_j T_ij: the row blocks' column sums of M dt, in order
+    __syncthreads();
+    for (int i = threadIdx.x; i < Q; i += kTcThreads) {
+      float rt = 0.0f;
+      for (int jb = 0; jb <= i / 16; ++jb) rt += rowtp[jb * Qp + i];
+      rowt_out[vrow + i] = rt;
+    }
+  }
+
+  // Vbar^T of the tile, [Qp][Qp] f32 (rows j, columns i); only the tiles
+  // ib >= jb are written, and only they are read
+  float* vout = vbar + static_cast<size_t>(blockIdx.x) * Qp * Qp;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    const int rb = rbs[pass];
+    if (!acts[pass]) continue;
+    const int ja = 16 * rb + g8, jb = ja + 8;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      const int ib = rb + d;
+      if (ib >= nrb) break;
+      const int slot = pass == 0 ? d : 8 - d;
+#pragma unroll
+      for (int hn = 0; hn < 2; ++hn) {
+        const int i = 16 * ib + 8 * hn + t2;
+        *reinterpret_cast<float2*>(vout + ja * Qp + i) =
+            make_float2(vb[slot][hn][0], vb[slot][hn][1]);
+        *reinterpret_cast<float2*>(vout + jb * Qp + i) =
+            make_float2(vb[slot][hn][2], vb[slot][hn][3]);
+      }
+    }
+  }
+}
+
+// 4. The group products, with each head's share of r_i = dy_i . (C_i h0^T)
+// and of <h0, dh> over the slab's columns. Shared memory: region 1, per
+// head x, dy [Qp][Pp] and the dh, h0 slabs as hi/lo bf16 [Pp][NS], then
+// Vbar^T as hi/lo bf16 [Qp][Qp]; B, C slabs [Qp][NS] (bf16); dt, s, coef,
+// e^s [Qp]; a slot a warp.
+struct GroupLayout {
+  size_t x, dy, dhh, dhl, h0h, h0l, vth, vtl, b, c, vec, red, bytes;
+  __host__ __device__ GroupLayout(int Qp, int Pp, int ns) {
+    x = 0;
+    dy = x + 2ull * Qp * Pp;
+    dhh = dy + 2ull * Qp * Pp;
+    dhl = dhh + 2ull * Pp * ns;
+    h0h = dhl + 2ull * Pp * ns;
+    h0l = h0h + 2ull * Pp * ns;
+    const size_t heads = h0l + 2ull * Pp * ns, vt = 4ull * Qp * Qp;
+    vth = 0;
+    vtl = 2ull * Qp * Qp;
+    b = heads > vt ? heads : vt;
+    c = b + 2ull * Qp * ns;
+    vec = c + 2ull * Qp * ns;
+    red = vec + 4ull * 4 * Qp;
+    bytes = red + 4ull * kGroupWarps;
+  }
+};
+
+template <int kN>
+__global__ void __launch_bounds__(kGroupThreads, 2)
+    ssd_bwd_group_kernel(const bf16* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const bf16* __restrict__ Bm,
+                         const bf16* __restrict__ Cm,
+                         const bf16* __restrict__ dy,
+                         const float* __restrict__ h0s,
+                         const float* __restrict__ dhs,
+                         const float* __restrict__ vbar,
+                         bf16* __restrict__ dBm, bf16* __restrict__ dCm,
+                         float* __restrict__ dB_part,
+                         float* __restrict__ dC_part,
+                         float* __restrict__ r_part,
+                         float* __restrict__ hdot_part, int batch, int L,
+                         int H, int P, int G, int N, int Q, int tile,
+                         int T) {
+  constexpr int NS = kN < 64 ? kN : 64;
+  extern __shared__ __align__(128) unsigned char gr_smem[];
+  const int Qp = round16(Q), Pp = round16(P), nrb = Qp / 16;
+  const GroupLayout lay(Qp, Pp, NS);
+  bf16* xs = reinterpret_cast<bf16*>(gr_smem + lay.x);
+  bf16* dys = reinterpret_cast<bf16*>(gr_smem + lay.dy);
+  bf16* dhh = reinterpret_cast<bf16*>(gr_smem + lay.dhh);
+  bf16* dhl = reinterpret_cast<bf16*>(gr_smem + lay.dhl);
+  bf16* h0h = reinterpret_cast<bf16*>(gr_smem + lay.h0h);
+  bf16* h0l = reinterpret_cast<bf16*>(gr_smem + lay.h0l);
+  bf16* vth = reinterpret_cast<bf16*>(gr_smem + lay.vth);
+  bf16* vtl = reinterpret_cast<bf16*>(gr_smem + lay.vtl);
+  bf16* bs = reinterpret_cast<bf16*>(gr_smem + lay.b);
+  bf16* cs = reinterpret_cast<bf16*>(gr_smem + lay.c);
+  float* dtc = reinterpret_cast<float*>(gr_smem + lay.vec);
+  float* s = dtc + Qp;
+  float* coef = s + Qp;
+  float* es = coef + Qp;
+  float* red = reinterpret_cast<float*>(gr_smem + lay.red);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g8 = lane >> 2, t2 = 2 * (lane & 3);
+  const int lr = lane & 7, lm = lane >> 3;
+
+  const int nc = L / Q;
+  int blk = blockIdx.x;  // ((b * nc + c) * G + g) * T + t
+  const int t = blk % T;
+  blk /= T;
+  const int g = blk % G;
+  blk /= G;
+  const int c = blk % nc, b = blk / nc;
+  const int n0 = blockIdx.y * NS;
+  const int rep = H / G, h_first = g * rep + t * tile;
+  const int n_heads = min(tile, rep - t * tile);
+  const size_t row0 = static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+  const int rb = warp;  // rows j of dB and rows i of dC
+  const bool act = rb < nrb;
+  const int ja = 16 * rb + g8, jb = ja + 8;
+
+  stage_tile<kGroupThreads>(bs, Bm + (row0 * G + g) * N + n0,
+                            static_cast<size_t>(G) * N, Q, Qp, N - n0, NS);
+  stage_tile<kGroupThreads>(cs, Cm + (row0 * G + g) * N + n0,
+                            static_cast<size_t>(G) * N, Q, Qp, N - n0, NS);
+  float db[NS / 8][4], dc[NS / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < NS / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[nt][e] = dc[nt][e] = 0.0f;
+
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int hd = h_first + hh;
+    const size_t st = ((static_cast<size_t>(b) * H + hd) * nc + c) * P * N;
+    __syncthreads();  // the last head's readers are done
+    stage_tile<kGroupThreads>(xs, x + (row0 * H + hd) * P,
+                              static_cast<size_t>(H) * P, Q, Qp, P, Pp);
+    stage_tile<kGroupThreads>(dys, dy + (row0 * H + hd) * P,
+                              static_cast<size_t>(H) * P, Q, Qp, P, Pp);
+    for (int j = threadIdx.x; j < Qp; j += kGroupThreads)
+      cp_async4(dtc + j, dt + (row0 + (j < Q ? j : 0)) * H + hd,
+                j < Q ? 4 : 0);
+    cp_async_commit();
+    const float hpart = warp_sum(stage_states<NS, kGroupThreads>(
+        dhh, dhl, h0h, h0l, dhs + st, h0s + st, P, Pp, N, n0, true));
+    if (lane == 0) red[warp] = hpart;
+    cp_async_wait_all();
+    __syncthreads();
+    // the slab's rows of this head's r and <h0, dh>, [slab][B][H][..]
+    const size_t slot = static_cast<size_t>(blockIdx.y) * batch * H +
+                        static_cast<size_t>(b) * H + hd;
+    if (warp == 0) {
+      chunk_vectors(dtc, A[hd], Q, Qp, s, es, coef);
+      if (lane == 0) {
+        float hdot = 0.0f;
+        for (int w = 0; w < kGroupWarps; ++w) hdot += red[w];
+        hdot_part[slot * nc + c] = hdot;
+      }
+    }
+    __syncthreads();
+    if (!act) continue;
+    // dB_j += coef_j (x_j dh), then dC_i += e^{s_i} (dy_i h0) with r_i's
+    // share sum_n C_in (dy_i h0)_n, over the slab's columns
+    float ra = 0.0f, rb2 = 0.0f;
+    const auto side = [&](const bf16* lhs, const bf16* rhi, const bf16* rlo,
+                          float fa, float fb, float (&acc)[NS / 8][4],
+                          bool with_r) {
+      uint32_t la[kTcMaxP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTcMaxP / 16; ++kk) {
+        if (16 * kk >= Pp) break;
+        ldsm_x4(la[kk], lhs + swz(16 * rb + (lm & 1) * 8 + lr,
+                                  16 * kk + (lm >> 1) * 8, Pp));
+      }
+#pragma unroll
+      for (int q = 0; q < NS / 16; ++q) {
+        float tt[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kTcMaxP / 16; ++kk) {
+          if (16 * kk >= Pp) break;
+          uint32_t fh[4], fl[4];
+          const int at = swz(16 * kk + (lm & 1) * 8 + lr,
+                             16 * q + (lm >> 1) * 8, NS);
+          ldsm_x4_t(fh, rhi + at);
+          ldsm_x4_t(fl, rlo + at);
+          mma(tt[0], la[kk], fh[0], fh[1]);
+          mma(tt[1], la[kk], fh[2], fh[3]);
+          mma(tt[0], la[kk], fl[0], fl[1]);
+          mma(tt[1], la[kk], fl[2], fl[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[2 * q + e][0] += fa * tt[e][0];
+          acc[2 * q + e][1] += fa * tt[e][1];
+          acc[2 * q + e][2] += fb * tt[e][2];
+          acc[2 * q + e][3] += fb * tt[e][3];
+          if (with_r) {
+            const int col = 16 * q + 8 * e + t2;
+            const float2 ca = unpack(
+                *reinterpret_cast<const uint32_t*>(cs + swz(ja, col, NS)));
+            const float2 cb = unpack(
+                *reinterpret_cast<const uint32_t*>(cs + swz(jb, col, NS)));
+            ra += ca.x * tt[e][0] + ca.y * tt[e][1];
+            rb2 += cb.x * tt[e][2] + cb.y * tt[e][3];
+          }
+        }
+      }
+    };
+    side(xs, dhh, dhl, coef[ja], coef[jb], db, false);
+    side(dys, h0h, h0l, es[ja], es[jb], dc, true);
+    ra = quad_sum(ra);
+    rb2 = quad_sum(rb2);
+    if ((lane & 3) == 0) {
+      const size_t at = slot * L + static_cast<size_t>(c) * Q;
+      if (ja < Q) r_part[at + ja] = ra;
+      if (jb < Q) r_part[at + jb] = rb2;
+    }
+  }
+
+  // Vbar^T of the tile as hi/lo bf16, its tiles ib >= jb
+  __syncthreads();
+  const float* vin = vbar + static_cast<size_t>(blockIdx.x) * Qp * Qp;
+  const int c4 = Qp / 4;
+  for (int i = threadIdx.x; i < Qp * c4; i += kGroupThreads) {
+    const int r = i / c4, col = 4 * (i % c4);
+    if (col / 16 < r / 16) continue;
+    const float4 v = *reinterpret_cast<const float4*>(vin + r * Qp + col);
+    uint32_t h0, l0, h1, l1;
+    split(v.x, v.y, h0, l0);
+    split(v.z, v.w, h1, l1);
+    const int at = swz(r, col, Qp);
+    *reinterpret_cast<uint2*>(vth + at) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(vtl + at) = make_uint2(l0, l1);
+  }
+  cp_async_wait_all();  // B and C, when the tile had no head to wait on
+  __syncthreads();
+  if (!act) return;
+  // dB_j += sum_{i >= j} Vbar^T_ji C_i
+  for (int ib = rb; ib < nrb; ++ib) {
+    uint32_t ah[4], al[4];
+    const int at = swz(16 * rb + (lm & 1) * 8 + lr, 16 * ib + (lm >> 1) * 8,
+                       Qp);
+    ldsm_x4(ah, vth + at);
+    ldsm_x4(al, vtl + at);
+#pragma unroll
+    for (int q = 0; q < NS / 16; ++q) {
+      uint32_t f[4];
+      ldsm_x4_t(f, cs + swz(16 * ib + (lm & 1) * 8 + lr,
+                            16 * q + (lm >> 1) * 8, NS));
+      mma(db[2 * q], ah, f[0], f[1]);
+      mma(db[2 * q + 1], ah, f[2], f[3]);
+      mma(db[2 * q], al, f[0], f[1]);
+      mma(db[2 * q + 1], al, f[2], f[3]);
+    }
+  }
+  // dC_i += sum_{j <= i} Vbar_ij B_j: Vbar's rows are Vbar^T's columns,
+  // read with ldmatrix.trans
+  for (int jb2 = 0; jb2 <= rb; ++jb2) {
+    uint32_t ah[4], al[4];
+    const int at = swz(16 * jb2 + (lm >> 1) * 8 + lr, 16 * rb + (lm & 1) * 8,
+                       Qp);
+    ldsm_x4_t(ah, vth + at);
+    ldsm_x4_t(al, vtl + at);
+#pragma unroll
+    for (int q = 0; q < NS / 16; ++q) {
+      uint32_t f[4];
+      ldsm_x4_t(f, bs + swz(16 * jb2 + (lm & 1) * 8 + lr,
+                            16 * q + (lm >> 1) * 8, NS));
+      mma(dc[2 * q], ah, f[0], f[1]);
+      mma(dc[2 * q + 1], ah, f[2], f[3]);
+      mma(dc[2 * q], al, f[0], f[1]);
+      mma(dc[2 * q + 1], al, f[2], f[3]);
+    }
+  }
+  const size_t n_bc = static_cast<size_t>(gridDim.x / T) * Q * N;  // B L G N
+#pragma unroll
+  for (int nt = 0; nt < NS / 8; ++nt) {
+    const int n = n0 + 8 * nt + t2;
+    if (n >= N) break;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = hr == 0 ? ja : jb;
+      if (j >= Q) continue;
+      const size_t at = ((row0 + j) * G + g) * N + n;
+      const float2 vb2 = make_float2(db[nt][2 * hr], db[nt][2 * hr + 1]);
+      const float2 vc2 = make_float2(dc[nt][2 * hr], dc[nt][2 * hr + 1]);
+      if (T == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dBm + at) =
+            __floats2bfloat162_rn(vb2.x, vb2.y);
+        *reinterpret_cast<__nv_bfloat162*>(dCm + at) =
+            __floats2bfloat162_rn(vc2.x, vc2.y);
+      } else {
+        *reinterpret_cast<float2*>(dB_part + t * n_bc + at) = vb2;
+        *reinterpret_cast<float2*>(dC_part + t * n_bc + at) = vc2;
+      }
+    }
+  }
+}
+
+// 5. ds, its reverse cumsum, ddt and the chunk's share of dA, a warp per
+// (b, h, chunk), from the chunk body's sum_j T_ij, m and u and the group
+// kernel's slabs of r and <h0, dh> (all [.., B, H, L] or [.., B, H, L/Q]):
+//   ds_i = sum_j T_ij - dt_i m_i + e^{s_i} r_i - dt_i u_i
+//          (+ e^{s_Q} <h0, dh> + sum_j dt_j u_j at i = Q - 1).
+constexpr int kDsWarps = 4;
+
+__global__ void __launch_bounds__(kDsWarps * kWarp)
+    ssd_bwd_ds_kernel(const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ rowt,
+                      const float* __restrict__ mvec,
+                      const float* __restrict__ uvec,
+                      const float* __restrict__ r_part,
+                      const float* __restrict__ hdot_part,
+                      float* __restrict__ ddt, float* __restrict__ dA_part,
+                      int batch, int L, int H, int Q, int slabs) {
+  __shared__ float sm[kDsWarps][3][kTcMaxQ];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nc = L / Q, Qp = round16(Q);
+  const int idx = blockIdx.x * kDsWarps + warp;  // (b * H + h) * nc + c
+  if (idx >= batch * H * nc) return;
+  const int c = idx % nc, bh = idx / nc;
+  const int b = bh / H, h = bh % H;
+  float* dtw = sm[warp][0];
+  float* s = sm[warp][1];
+  float* ds = sm[warp][2];
+  const size_t row0 = static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
+  const size_t v0 = static_cast<size_t>(bh) * L + static_cast<size_t>(c) * Q;
+  const size_t n_v = static_cast<size_t>(batch) * H * L;
+  const float a = A[h];
+  for (int j = lane; j < Qp; j += kWarp)
+    dtw[j] = j < Q ? dt[(row0 + j) * H + h] : 0.0f;
+  __syncwarp();
+  const float s_last = warp_cumsum(dtw, a, Q, Qp, s);
+  float hdot = 0.0f;
+  for (int k = 0; k < slabs; ++k)
+    hdot += hdot_part[(k * static_cast<size_t>(batch) * H + bh) * nc + c];
+  float su = 0.0f;
+  for (int j = lane; j < Q; j += kWarp) su += dtw[j] * uvec[v0 + j];
+  su = warp_sum(su);
+  for (int i = lane; i < Q; i += kWarp) {
+    float r = 0.0f;
+    for (int k = 0; k < slabs; ++k) r += r_part[k * n_v + v0 + i];
+    float v = rowt[v0 + i] - dtw[i] * mvec[v0 + i] + expf(s[i]) * r -
+              dtw[i] * uvec[v0 + i];
+    if (i == Q - 1) v += expf(s_last) * hdot + su;
+    ds[i] = v;
+  }
+  __syncwarp();
+  warp_rcumsum(ds, Q);
+  float da = 0.0f;
+  for (int j = lane; j < Q; j += kWarp) {
+    ddt[(row0 + j) * H + h] = a * ds[j] + mvec[v0 + j] + uvec[v0 + j];
+    da += dtw[j] * ds[j];
+  }
+  da = warp_sum(da);
+  if (lane == 0) dA_part[(static_cast<size_t>(b) * nc + c) * H + h] = da;
+}
+
+// 6. dBm, dCm [n_bc] = the T tiles' partials summed in order (n_bc = 0
+// when one tile holds a group's heads: the group kernel wrote them);
+// dA [H] = dA_part [B * L/Q, H] summed over batch and chunks in order.
+__global__ void ssd_bwd_sum_kernel(const float* __restrict__ dB_part,
+                                   const float* __restrict__ dC_part,
+                                   const float* __restrict__ dA_part,
+                                   bf16* __restrict__ dBm,
+                                   bf16* __restrict__ dCm,
+                                   float* __restrict__ dA, size_t n_bc, int T,
+                                   int n_bchunks, int H) {
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_bc + H; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    if (i < n_bc) {
+      float sb = 0.0f, sc = 0.0f;
+      for (int t = 0; t < T; ++t) {
+        sb += dB_part[t * n_bc + i];
+        sc += dC_part[t * n_bc + i];
+      }
+      dBm[i] = __float2bfloat16_rn(sb);
+      dCm[i] = __float2bfloat16_rn(sc);
+    } else {
+      const int h = static_cast<int>(i - n_bc);
+      float sa = 0.0f;
+      for (int k = 0; k < n_bchunks; ++k) sa += dA_part[k * H + h];
+      dA[h] = sa;
+    }
+  }
+}
+
+// The bf16 backward's f32 scratch, offsets in floats of one buffer: the
+// increments (then entering states) and their cotangents [B, H, L/Q, P, N],
+// e^{s_Q} [B, H, L/Q], the tiles' Vbar [B * L/Q * G * T, Qp, Qp], the
+// tiles' dB and dC [T, B, L, G, N] (only when T > 1), sum_j T_ij, m and u
+// [B, H, L], the slabs' r [slabs, B, H, L] and <h0, dh> [slabs, B, H, L/Q],
+// dA's shares [B, L/Q, H].
+struct BwdScratch {
+  size_t incr, lam, decay, vbar, dB, dC, rowt, m, u, r, hdot, dA, floats;
+  int T, slabs;
+  BwdScratch(int batch, int L, int H, int P, int G, int N, int Q, int tile) {
+    const size_t nc = L / Q, Qp = round16(Q), Np = round16(N);
+    const size_t bh = static_cast<size_t>(batch) * H;
+    T = (H / G + tile - 1) / tile;
+    slabs = static_cast<int>(Np / (Np < 64 ? Np : 64));
+    const size_t states = bh * nc * P * N;
+    const size_t parts = T > 1 ? static_cast<size_t>(T) * batch * L * G * N
+                               : 0;
+    incr = 0;
+    lam = incr + states;
+    decay = lam + states;
+    vbar = decay + bh * nc;
+    dB = vbar + static_cast<size_t>(batch) * nc * G * T * Qp * Qp;
+    dC = dB + parts;
+    rowt = dC + parts;
+    m = rowt + bh * L;
+    u = m + bh * L;
+    r = u + bh * L;
+    hdot = r + slabs * bh * L;
+    dA = hdot + slabs * bh * nc;
+    floats = dA + static_cast<size_t>(batch) * nc * H;
+  }
+};
+
+template <int kN>
+cudaError_t launch_bwd_tc(const void* x, const void* dt, const void* A,
+                          const void* Bm, const void* Cm, const void* dy,
+                          void* dx, void* ddt, void* dBm, void* dCm, void* dA,
+                          float* scratch, const BwdScratch& sc, int batch,
+                          int L, int H, int P, int G, int N, int Q, int tile,
+                          size_t incr_bytes, size_t chunk_bytes,
+                          size_t group_bytes, cudaStream_t st) {
+  static bool set1[kMaxDevices] = {}, set3[kMaxDevices] = {},
+              set4[kMaxDevices] = {};
+  cudaError_t err = smem_ceiling(ssd_bwd_increments_kernel<kN>, set1);
+  if (err == cudaSuccess) err = smem_ceiling(ssd_bwd_chunk_kernel<kN>, set3);
+  if (err == cudaSuccess) err = smem_ceiling(ssd_bwd_group_kernel<kN>, set4);
+  if (err != cudaSuccess) return err;
+  const int nc = L / Q;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* dtf = static_cast<const float*>(dt);
+  const auto* Af = static_cast<const float*>(A);
+  const auto* Bb = static_cast<const bf16*>(Bm);
+  const auto* Cb = static_cast<const bf16*>(Cm);
+  const auto* dyb = static_cast<const bf16*>(dy);
+  float* incr = scratch + sc.incr;
+  float* lam = scratch + sc.lam;
+  ssd_bwd_increments_kernel<kN><<<batch * H * nc, kTcThreads, incr_bytes,
+                                   st>>>(xb, dtf, Af, Bb, Cb, dyb, incr, lam,
+                                         scratch + sc.decay, L, H, P, G, N,
+                                         Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int pn4 = P * N / 4, per_bh = (pn4 + 255) / 256;
+  ssd_bwd_states_kernel<<<batch * H * per_bh, 256, 0, st>>>(
+      incr, lam, scratch + sc.decay, nc, pn4, per_bh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int tiles = batch * nc * G * sc.T;
+  ssd_bwd_chunk_kernel<kN><<<tiles, kTcThreads, chunk_bytes, st>>>(
+      xb, dtf, Af, Bb, Cb, dyb, lam, static_cast<bf16*>(dx),
+      scratch + sc.rowt, scratch + sc.m, scratch + sc.u, scratch + sc.vbar, L,
+      H, P, G, N, Q, tile, sc.T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_group_kernel<kN><<<dim3(tiles, sc.slabs), kGroupThreads,
+                              group_bytes, st>>>(
+      xb, dtf, Af, Bb, Cb, dyb, incr, lam, scratch + sc.vbar,
+      static_cast<bf16*>(dBm), static_cast<bf16*>(dCm), scratch + sc.dB,
+      scratch + sc.dC, scratch + sc.r, scratch + sc.hdot, batch, L, H, P, G,
+      N, Q, tile, sc.T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n_chunks = batch * H * nc;
+  ssd_bwd_ds_kernel<<<(n_chunks + kDsWarps - 1) / kDsWarps,
+                      kDsWarps * kWarp, 0, st>>>(
+      dtf, Af, scratch + sc.rowt, scratch + sc.m, scratch + sc.u,
+      scratch + sc.r, scratch + sc.hdot, static_cast<float*>(ddt),
+      scratch + sc.dA, batch, L, H, Q, sc.slabs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t n_bc = sc.T > 1 ? static_cast<size_t>(batch) * L * G * N : 0;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((n_bc + H + 255) / 256, 132 * 16));
+  ssd_bwd_sum_kernel<<<blocks, 256, 0, st>>>(
+      scratch + sc.dB, scratch + sc.dC, scratch + sc.dA,
+      static_cast<bf16*>(dBm), static_cast<bf16*>(dCm),
+      static_cast<float*>(dA), n_bc, sc.T, batch * nc, H);
+  return cudaGetLastError();
+}
+
+constexpr int kBT = 32;          // rows or columns of a Q x Q tile at once
+constexpr int kBwdVecs = 10;     // [Q] vectors of the chunk
+constexpr int kWarps = kThreads / kWarp;
+
+// Shared memory of the f32 backward, in floats: dh [P][N+1], three tile
 // regions of `rs` floats, the chunk's vectors, the block sum's per-warp
-// slots), then x, dy [Q][P+1] and B, C [Q][N+1] in the inputs' dtype. A
-// tile region holds a column tile [Q][kBT+1] or a row tile [kBT][Q+1],
-// or [kBT][max(P, N)+1] of a sweep's side product.
+// slots, then x, dy [Q][P+1] and B, C [Q][N+1]. A tile region holds a
+// column tile [Q][kBT+1] or a row tile [kBT][Q+1], or [kBT][max(P, N)+1]
+// of a sweep's side product.
 struct BwdLayout {
-  size_t dh, r1, r2, r3, vec, red, nf;  // in floats
-  size_t x, dy, b, c, nt;               // in elements of the inputs' dtype
+  size_t dh, r1, r2, r3, vec, red, nf;  // the f32 work space
+  size_t x, dy, b, c, nt;               // the chunk's inputs
   size_t rs, bytes;
-  __host__ __device__ BwdLayout(int Q, int P, int N, size_t esize) {
+  __host__ __device__ BwdLayout(int Q, int P, int N) {
     const size_t sp = P + 1, sn = N + 1;
     const int most = Q > N ? (Q > P ? Q : P) : (N > P ? N : P);
     const size_t col_tile = static_cast<size_t>(Q) * (kBT + 1);
@@ -831,22 +1946,24 @@ struct BwdLayout {
     b = dy + Q * sp;
     c = b + Q * sn;
     nt = c + Q * sn;
-    bytes = 4 * nf + esize * nt;
+    bytes = 4 * (nf + nt);
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                        const float* __restrict__ A, const T* __restrict__ Bm,
-                        const T* __restrict__ Cm, const T* __restrict__ dy,
-                        T* __restrict__ dx, float* __restrict__ ddt,
+    ssd_scan_bwd_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ A,
+                        const float* __restrict__ Bm,
+                        const float* __restrict__ Cm,
+                        const float* __restrict__ dy, float* __restrict__ dx,
+                        float* __restrict__ ddt,
                         float* __restrict__ dB_part,
                         float* __restrict__ dC_part,
                         float* __restrict__ dA_part, float* states, int L,
                         int H, int P, int G, int N, int Q) {
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  const BwdLayout lay(Q, P, N, sizeof(T));
+  const BwdLayout lay(Q, P, N);
   float* f = reinterpret_cast<float*>(bwd_smem);
   float* dh = f + lay.dh;   // [P][sn]: the state in pass 1, dh in pass 2
   float* r1 = f + lay.r1;
@@ -863,10 +1980,10 @@ __global__ void __launch_bounds__(kThreads)
   float* rv = uv + Q;        // r_i = C_i . (dy_i h0)
   float* dsv = rv + Q;       // ds, then dda
   float* red = f + lay.red;  // the block sum's per-warp slots
-  T* sx = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.x;
-  T* sdy = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.dy;
-  T* sb = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.b;
-  T* sc = reinterpret_cast<T*>(bwd_smem + 4 * lay.nf) + lay.c;
+  float* sx = f + lay.nf + lay.x;
+  float* sdy = f + lay.nf + lay.dy;
+  float* sb = f + lay.nf + lay.b;
+  float* sc = f + lay.nf + lay.c;
   const int sp = P + 1, sn = N + 1;
 
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
@@ -920,8 +2037,8 @@ __global__ void __launch_bounds__(kThreads)
     const float decay = expf(s[Q - 1]);
     tile_products<4, 4>(
         P, N, Q,
-        [&](int p, int j) { return to_f(sx[j * sp + p]) * coef[j]; },
-        [&](int j, int n) { return to_f(sb[j * sn + n]); }, 0, none, none,
+        [&](int p, int j) { return (sx[j * sp + p]) * coef[j]; },
+        [&](int j, int n) { return (sb[j * sn + n]); }, 0, none, none,
         [&](int p, int n, float v, float) {
           dh[p * sn + n] = decay * dh[p * sn + n] + v;
         });
@@ -946,10 +2063,10 @@ __global__ void __launch_bounds__(kThreads)
       // r1 = E dt_j G (W), r2 = E dt_j D (V), r3 = E G D
       tile_products<2, 2>(
           rows, cols, N,
-          [&](int ii, int n) { return to_f(sc[(j0 + ii) * sn + n]); },
-          [&](int n, int jj) { return to_f(sb[(j0 + jj) * sn + n]); }, P,
-          [&](int ii, int p) { return to_f(sdy[(j0 + ii) * sp + p]); },
-          [&](int p, int jj) { return to_f(sx[(j0 + jj) * sp + p]); },
+          [&](int ii, int n) { return (sc[(j0 + ii) * sn + n]); },
+          [&](int n, int jj) { return (sb[(j0 + jj) * sn + n]); }, P,
+          [&](int ii, int p) { return (sdy[(j0 + ii) * sp + p]); },
+          [&](int p, int jj) { return (sx[(j0 + jj) * sp + p]); },
           [&](int ii, int jj, float gij, float dij) {
             float w = 0.0f, v = 0.0f, m = 0.0f;
             if (jj <= ii) {
@@ -974,20 +2091,20 @@ __global__ void __launch_bounds__(kThreads)
       // dx_j = sum_i W_ij dy_i + coef_j (B_j dh^T)
       tile_products<2, 4>(
           cols, P, rows, [&](int jj, int ii) { return r1[ii * tw + jj]; },
-          [&](int ii, int p) { return to_f(sdy[(j0 + ii) * sp + p]); }, N,
-          [&](int jj, int n) { return to_f(sb[(j0 + jj) * sn + n]); },
+          [&](int ii, int p) { return (sdy[(j0 + ii) * sp + p]); }, N,
+          [&](int jj, int n) { return (sb[(j0 + jj) * sn + n]); },
           [&](int n, int p) { return dh[p * sn + n]; },
           [&](int jj, int p, float intra, float bd) {
             const int j = j0 + jj;
             dx[((row0 + j) * H + hd) * P + p] =
-                from_f<T>(intra + coef[j] * bd);
+                intra + coef[j] * bd;
             r3[jj * sp + p] = bd;
           });
       // dB_j = sum_i V_ij C_i + coef_j (x_j dh), this head's share
       tile_products<2, 4>(
           cols, N, rows, [&](int jj, int ii) { return r2[ii * tw + jj]; },
-          [&](int ii, int n) { return to_f(sc[(j0 + ii) * sn + n]); }, P,
-          [&](int jj, int p) { return to_f(sx[(j0 + jj) * sp + p]); },
+          [&](int ii, int n) { return (sc[(j0 + ii) * sn + n]); }, P,
+          [&](int jj, int p) { return (sx[(j0 + jj) * sp + p]); },
           [&](int p, int n) { return dh[p * sn + n]; },
           [&](int jj, int n, float intra, float xd) {
             const int j = j0 + jj;
@@ -997,7 +2114,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = warp; jj < cols; jj += kWarps) {
         float acc = 0.0f;
         for (int p = lane; p < P; p += kWarp)
-          acc += to_f(sx[(j0 + jj) * sp + p]) * r3[jj * sp + p];
+          acc += (sx[(j0 + jj) * sp + p]) * r3[jj * sp + p];
         acc = warp_sum(acc);
         if (lane == 0) uv[j0 + jj] = ex[j0 + jj] * acc;
       }
@@ -1011,10 +2128,10 @@ __global__ void __launch_bounds__(kThreads)
       // r1 = E dt_j D (V), r2 = E dt_j G D (T)
       tile_products<2, 2>(
           rows, cols, N,
-          [&](int ii, int n) { return to_f(sc[(i0 + ii) * sn + n]); },
-          [&](int n, int j) { return to_f(sb[j * sn + n]); }, P,
-          [&](int ii, int p) { return to_f(sdy[(i0 + ii) * sp + p]); },
-          [&](int p, int j) { return to_f(sx[j * sp + p]); },
+          [&](int ii, int n) { return (sc[(i0 + ii) * sn + n]); },
+          [&](int n, int j) { return (sb[j * sn + n]); }, P,
+          [&](int ii, int p) { return (sdy[(i0 + ii) * sp + p]); },
+          [&](int p, int j) { return (sx[j * sp + p]); },
           [&](int ii, int j, float gij, float dij) {
             float v = 0.0f, t = 0.0f;
             if (j <= i0 + ii) {
@@ -1035,8 +2152,8 @@ __global__ void __launch_bounds__(kThreads)
       // dC_i = sum_j V_ij B_j + e^{s_i} (dy_i h0), this head's share
       tile_products<2, 4>(
           rows, N, cols, [&](int ii, int j) { return r1[ii * tq + j]; },
-          [&](int j, int n) { return to_f(sb[j * sn + n]); }, P,
-          [&](int ii, int p) { return to_f(sdy[(i0 + ii) * sp + p]); },
+          [&](int j, int n) { return (sb[j * sn + n]); }, P,
+          [&](int ii, int p) { return (sdy[(i0 + ii) * sp + p]); },
           [&](int p, int n) { return h0[p * N + n]; },
           [&](int ii, int n, float intra, float dhv) {
             const int i = i0 + ii;
@@ -1047,7 +2164,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int ii = warp; ii < rows; ii += kWarps) {
         float acc = 0.0f;
         for (int n = lane; n < N; n += kWarp)
-          acc += to_f(sc[(i0 + ii) * sn + n]) * r2[ii * sn + n];
+          acc += (sc[(i0 + ii) * sn + n]) * r2[ii * sn + n];
         acc = warp_sum(acc);
         if (lane == 0) rv[i0 + ii] = acc;
       }
@@ -1087,8 +2204,8 @@ __global__ void __launch_bounds__(kThreads)
     // dh <- e^{s_Q} dh + sum_i e^{s_i} dy_i (x) C_i
     const float decay = expf(s_last);
     tile_products<4, 4>(
-        P, N, Q, [&](int p, int i) { return es[i] * to_f(sdy[i * sp + p]); },
-        [&](int i, int n) { return to_f(sc[i * sn + n]); }, 0, none, none,
+        P, N, Q, [&](int p, int i) { return es[i] * (sdy[i * sp + p]); },
+        [&](int i, int n) { return (sc[i * sn + n]); }, 0, none, none,
         [&](int p, int n, float v, float) {
           dh[p * sn + n] = decay * dh[p * sn + n] + v;
         });
@@ -1098,12 +2215,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // dBm, dCm [B, L, G, N] = the heads of each group of the partials
 // [B, L, H, N] summed in order; dA [H] = dA_part [B, H] summed over b.
-template <typename T>
 __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
                                       const float* __restrict__ dC_part,
                                       const float* __restrict__ dA_part,
-                                      T* __restrict__ dBm,
-                                      T* __restrict__ dCm,
+                                      float* __restrict__ dBm,
+                                      float* __restrict__ dCm,
                                       float* __restrict__ dA, int batch,
                                       int L, int H, int G, int N) {
   const int rep = H / G;
@@ -1119,8 +2235,8 @@ __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
         sb += dB_part[at + static_cast<size_t>(k) * N];
         sc += dC_part[at + static_cast<size_t>(k) * N];
       }
-      dBm[i] = from_f<T>(sb);
-      dCm[i] = from_f<T>(sc);
+      dBm[i] = sb;
+      dCm[i] = sc;
     } else {
       const int h = static_cast<int>(i - n_bc);
       float sa = 0.0f;
@@ -1130,7 +2246,6 @@ __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dB_part,
   }
 }
 
-template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* dy,
                        void* dx, void* ddt, void* dBm, void* dCm, void* dA,
@@ -1138,13 +2253,13 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* A,
                        void* states, int batch, int L, int H, int P, int G,
                        int N, int Q, size_t bytes, cudaStream_t st) {
   static bool set[kMaxDevices] = {};
-  cudaError_t err = smem_ceiling(ssd_scan_bwd_kernel<T>, set);
+  cudaError_t err = smem_ceiling(ssd_scan_bwd_kernel, set);
   if (err != cudaSuccess) return err;
-  ssd_scan_bwd_kernel<T><<<batch * H, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const T*>(dy),
-      static_cast<T*>(dx), static_cast<float*>(ddt),
+  ssd_scan_bwd_kernel<<<batch * H, kThreads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(dy),
+      static_cast<float*>(dx), static_cast<float*>(ddt),
       static_cast<float*>(dB_part), static_cast<float*>(dC_part),
       static_cast<float*>(dA_part), static_cast<float*>(states), L, H, P, G,
       N, Q);
@@ -1153,12 +2268,13 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* A,
   const size_t work = static_cast<size_t>(batch) * L * G * N + H;
   const int blocks = static_cast<int>(
       std::min<size_t>((work + kThreads - 1) / kThreads, 132 * 16));
-  ssd_bwd_reduce_kernel<T><<<blocks, kThreads, 0, st>>>(
+  ssd_bwd_reduce_kernel<<<blocks, kThreads, 0, st>>>(
       static_cast<const float*>(dB_part), static_cast<const float*>(dC_part),
-      static_cast<const float*>(dA_part), static_cast<T*>(dBm),
-      static_cast<T*>(dCm), static_cast<float*>(dA), batch, L, H, G, N);
+      static_cast<const float*>(dA_part), static_cast<float*>(dBm),
+      static_cast<float*>(dCm), static_cast<float*>(dA), batch, L, H, G, N);
   return cudaGetLastError();
 }
+
 
 }  // namespace
 
@@ -1253,13 +2369,14 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   return static_cast<int>(err);
 }
 
+
 // The backward of ssd_scan_launch's y (from a zero state) for the
-// cotangent dy: dx, dBm, dCm in the inputs' dtype (0 = f32, 1 = bf16),
-// ddt [B, L, H] and dA [H] in f32. The caller's scratch: dB_part, dC_part
-// f32 [B, L, H, N], dA_part f32 [B, H], states f32 [B, H, L/Q, P, N].
-// smem_bytes is the wrapper's sum (ssd_scan.py::bwd_smem_bytes); a launch
-// whose sizes or bytes this kernel does not take is refused. Two kernels
-// launch: the scan, then the sum over heads.
+// cotangent dy, f32 (dtype 0) only: dx, dBm, dCm in f32, ddt [B, L, H] and
+// dA [H]. The caller's scratch: dB_part, dC_part f32 [B, L, H, N], dA_part
+// f32 [B, H], states f32 [B, H, L/Q, P, N]. smem_bytes is the wrapper's sum
+// (ssd_scan.py::bwd_smem_bytes); a launch whose sizes or bytes this kernel
+// does not take is refused. Two kernels launch: the scan, then the sum
+// over heads. bf16 takes ssd_scan_bwd_tc_launch.
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const void* A, const void* Bm,
                                    const void* Cm, const void* dy, void* dx,
@@ -1270,18 +2387,115 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    int dtype, int smem_bytes, void* stream) {
   auto* st = static_cast<cudaStream_t>(stream);
   if (Q < 1 || L % Q || G < 1 || H % G || P < 1 || N < 1 || smem_bytes < 0 ||
-      (dtype != 0 && dtype != 1))
+      dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = BwdLayout(Q, P, N, dtype == 0 ? 4 : 2).bytes;
+  const size_t bytes = BwdLayout(Q, P, N).bytes;
   if (bytes != static_cast<size_t>(smem_bytes) || bytes > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      dtype == 0
-          ? launch_bwd<float>(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm, dA,
-                              dB_part, dC_part, dA_part, states, batch, L, H,
-                              P, G, N, Q, bytes, st)
-          : launch_bwd<bf16>(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm, dA,
-                             dB_part, dC_part, dA_part, states, batch, L, H,
-                             P, G, N, Q, bytes, st);
+  return static_cast<int>(launch_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm,
+                                     dA, dB_part, dC_part, dA_part, states,
+                                     batch, L, H, P, G, N, Q, bytes, st));
+}
+
+// The bf16 backward (six kernels, see the header of the backward).
+// `scratch` is the caller's f32 buffer of ssd_scan_bwd_scratch_floats
+// floats (BwdScratch). incr_bytes, chunk_bytes and group_bytes are the
+// wrapper's sums (ssd_scan.py::bwd_plan); a launch whose sizes or bytes the
+// kernels do not take is refused.
+extern "C" int ssd_scan_bwd_tc_launch(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* dy, void* dx, void* ddt, void* dBm, void* dCm,
+    void* dA, void* scratch, int batch, int L, int H, int P, int G, int N,
+    int Q, int tile, int incr_bytes, int chunk_bytes, int group_bytes,
+    void* stream) {
+  auto* st = static_cast<cudaStream_t>(stream);
+  const int Qp = round16(Q), Pp = round16(P), Np = round16(N);
+  if (Q < 1 || L % Q || G < 1 || H % G || P % 8 || N % 8 || P < 1 ||
+      N < 1 || Qp > kTcMaxQ || Pp > kTcMaxP || tile < 1 ||
+      tile > kBwdTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ns = Np < 32 ? Np : 32, ns4 = Np < 64 ? Np : 64;
+  const size_t bytes[3] = {IncrLayout(Qp, Pp, Np).bytes,
+                           ChunkLayout(Qp, Pp, ns).bytes,
+                           GroupLayout(Qp, Pp, ns4).bytes};
+  const int want[3] = {incr_bytes, chunk_bytes, group_bytes};
+  for (int k = 0; k < 3; ++k)
+    if (want[k] < 0 || bytes[k] != static_cast<size_t>(want[k]) ||
+        bytes[k] > kMaxSmem)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const BwdScratch sc(batch, L, H, P, G, N, Q, tile);
+  cudaError_t err;
+#define SSD_BWD_TC(NP)                                                      \
+  launch_bwd_tc<NP>(x, dt, A, Bm, Cm, dy, dx, ddt, dBm, dCm, dA,            \
+                    static_cast<float*>(scratch), sc, batch, L, H, P, G, N, \
+                    Q, tile, bytes[0], bytes[1], bytes[2], st)
+  switch (Np) {
+    case 16:
+      err = SSD_BWD_TC(16);
+      break;
+    case 32:
+      err = SSD_BWD_TC(32);
+      break;
+    case 64:
+      err = SSD_BWD_TC(64);
+      break;
+    case 128:
+      err = SSD_BWD_TC(128);
+      break;
+    default:
+      err = cudaErrorInvalidValue;  // N = 40, 56, ...: not a template
+  }
+#undef SSD_BWD_TC
   return static_cast<int>(err);
+}
+
+// Floats of the bf16 backward's scratch at these sizes (BwdScratch).
+extern "C" long long ssd_scan_bwd_scratch_floats(int batch, int L, int H,
+                                                 int P, int G, int N, int Q,
+                                                 int tile) {
+  if (Q < 1 || L % Q || G < 1 || H % G || tile < 1) return -1;
+  return static_cast<long long>(
+      BwdScratch(batch, L, H, P, G, N, Q, tile).floats);
+}
+
+// CTAs of one of the bf16 backward's kernels that one SM holds at once
+// for these sizes (cudaOccupancyMaxActiveBlocksPerMultiprocessor: shared
+// memory, registers and threads): kernel 0 the increments, 1 the chunk
+// body, 2 the group products; -1 for sizes they do not take.
+extern "C" int ssd_scan_bwd_resident_ctas(int P, int N, int Q, int kernel) {
+  const int Qp = round16(Q), Pp = round16(P), Np = round16(N);
+  const int ns = Np < 32 ? Np : 32, ns4 = Np < 64 ? Np : 64;
+  int ctas = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+#define SSD_BWD_OCC(NP)                                                      \
+  if (kernel == 0)                                                           \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
+        &ctas, ssd_bwd_increments_kernel<NP>, kTcThreads,                    \
+        IncrLayout(Qp, Pp, NP).bytes);                                       \
+  else if (kernel == 1)                                                      \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
+        &ctas, ssd_bwd_chunk_kernel<NP>, kTcThreads,                         \
+        ChunkLayout(Qp, Pp, ns).bytes);                                      \
+  else if (kernel == 2)                                                      \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
+        &ctas, ssd_bwd_group_kernel<NP>, kGroupThreads,                      \
+        GroupLayout(Qp, Pp, ns4).bytes);
+  switch (Np) {
+    case 16:
+      SSD_BWD_OCC(16)
+      break;
+    case 32:
+      SSD_BWD_OCC(32)
+      break;
+    case 64:
+      SSD_BWD_OCC(64)
+      break;
+    case 128:
+      SSD_BWD_OCC(128)
+      break;
+    default:
+      break;
+  }
+#undef SSD_BWD_OCC
+  return err == cudaSuccess ? ctas : -1;
 }

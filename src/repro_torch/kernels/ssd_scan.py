@@ -19,6 +19,7 @@ is ``ssd_scan_bwd``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -50,6 +51,12 @@ def _lib():
     lib.ssd_scan_resident_ctas.restype = _I
     lib.ssd_scan_bwd_launch.argtypes = [_P] * 15 + [_I] * 9 + [_P]
     lib.ssd_scan_bwd_launch.restype = _I
+    lib.ssd_scan_bwd_tc_launch.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+    lib.ssd_scan_bwd_tc_launch.restype = _I
+    lib.ssd_scan_bwd_scratch_floats.argtypes = [_I] * 8
+    lib.ssd_scan_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_resident_ctas.argtypes = [_I] * 4
+    lib.ssd_scan_bwd_resident_ctas.restype = _I
     return lib
 
 
@@ -162,25 +169,105 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan.launches = 0
 
 
-# the backward's tiles: rows or columns of a Q x Q product built at once
-# (kBT), the chunk's [Q] vectors (kBwdVecs) and the block sum's slots
+# the f32 backward's tiles: rows or columns of a Q x Q product built at
+# once (kBT), the chunk's [Q] vectors (kBwdVecs) and the block sum's slots
 _BT, _BWD_VECS, _BWD_WARPS = 32, 10, 8
+# the bf16 backward: heads of a group a chunk-body CTA takes (kBwdTile),
+# the 16 x 16 tiles a chunk-body warp owns (kSlots); threads of its six
+# kernels
+_BWD_TILE, _BWD_SLOTS = 8, 9
+_BWD_KERNELS = ("increments", "states", "chunk", "group", "ds", "sum")
+_BWD_THREADS = dict(increments=32 * _TC_WARPS, states=256,
+                    chunk=32 * _TC_WARPS, group=256, ds=128, sum=256)
+
+
+def _bwd_tc_smem(P: int, N: int, Q: int) -> dict:
+    """Dynamic shared memory of the bf16 backward's kernels, in bytes, Q,
+    P, N padded to multiples of 16 (the launcher refuses other sums):
+    - increments: x, dy [Q, P] and B, C [Q, N] in bf16, four [Q] vectors;
+    - chunk (the chunk body): x, dy [Q, P] in bf16; G^T as f32 fragments,
+      nine 16 x 16 tiles a warp; a B slab [Q, 32]; the dh slab [P, 32] as
+      a hi/lo bf16 pair, or the C slab [Q, 32]; a warp's second row block
+      of dx [16, P] in f32; four [Q] vectors and the column sums of M
+      [8, Q];
+    - group: the larger of x, dy [Q, P] with the dh, h0 slabs [P, 64] as
+      hi/lo pairs and Vbar^T [Q, Q] as a hi/lo pair; B, C slabs [Q, 64];
+      four [Q] vectors and a slot a warp.
+    Slabs are N wide where N is narrower."""
+    Qp, Pp, Np = _round16(Q), _round16(P), _round16(N)
+    ns, ns4 = min(32, Np), min(64, Np)
+    return dict(
+        increments=4 * Qp * Pp + 4 * Qp * Np + 16 * Qp,
+        chunk=(4 * Qp * Pp + 4 * _TC_WARPS * _BWD_SLOTS * 256 + 2 * Qp * ns
+               + max(4 * Pp * ns, 2 * Qp * ns) + 4 * _TC_WARPS * 16 * Pp
+               + 16 * Qp + 32 * Qp),
+        group=(max(4 * Qp * Pp + 8 * Pp * ns4, 4 * Qp * Qp) + 4 * Qp * ns4
+               + 16 * Qp + 32))
+
+
+def _bwd_takes(P: int, N: int, Q: int) -> None:
+    """``ValueError`` where the bf16 kernels do not take the sizes."""
+    if not tc_takes(P, N, Q):
+        raise ValueError(
+            f"ssd_scan_bwd: the bf16 kernels take P, N multiples of 8 with "
+            f"P <= {_TC_MAX_P} and N padded to 16 in {_TC_N}, and chunks of "
+            f"at most {_TC_MAX_Q}; got P={P} N={N} Q={Q}")
+
+
+def bwd_plan(Bsz: int, L: int, H: int, P: int, G: int, N: int,
+             Q: int) -> dict:
+    """The bf16 backward's launch plan at these sizes: the head tile of
+    the chunk body (``tile`` heads of a group, ``tiles`` of them a
+    group), each kernel's shared memory (``smem``), grid (CTAs) and CTAs
+    an SM by shared memory and threads (``ctas_per_sm``), and
+    the scratch it allocates in bytes (``scratch``). ``ValueError`` where
+    the tensor-core kernels do not take the sizes (``tc_takes``)."""
+    _bwd_takes(P, N, Q)
+    Qp, Np = _round16(Q), _round16(N)
+    rep, nc = H // G, L // Q
+    tile = min(rep, _BWD_TILE)
+    tiles = -(-rep // tile)
+    smem = _bwd_tc_smem(P, N, Q)
+    per_bh = -(-(P * N // 4) // 256)
+    grid = dict(increments=Bsz * H * nc, states=Bsz * H * per_bh,
+                chunk=Bsz * nc * G * tiles,
+                group=Bsz * nc * G * tiles * (Np // min(64, Np)),
+                ds=-(-(Bsz * H * nc) // 4),
+                sum=min(-(-(Bsz * L * G * N * (tiles > 1) + H) // 256),
+                        132 * 16))
+    ctas = {k: min(_SM_SMEM // (smem.get(k, 0) + 1024),
+                   2048 // _BWD_THREADS[k]) for k in _BWD_KERNELS}
+    f32, slabs = 4, Np // min(64, Np)
+    scratch = dict(states=2 * f32 * Bsz * H * nc * P * N,
+                   decay=f32 * Bsz * H * nc,
+                   vbar=f32 * Bsz * nc * G * tiles * Qp * Qp,
+                   parts=2 * f32 * tiles * Bsz * L * G * N * (tiles > 1),
+                   vectors=f32 * Bsz * H * ((3 + slabs) * L + slabs * nc),
+                   dA=f32 * Bsz * nc * H)
+    return dict(tile=tile, tiles=tiles, smem=smem, grid=grid,
+                ctas_per_sm=ctas, scratch=scratch)
 
 
 def bwd_smem_bytes(P: int, N: int, Q: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of one CTA of the backward, in bytes (the
     launcher refuses another sum): in f32, dh [P, N+1], three tile
     regions each holding a column tile [Q, 33], a row tile [32, Q+1] or
-    a side product [32, max(P, N)+1], ten [Q] vectors and eight slots;
-    then x and dy [Q, P+1] and B and C [Q, N+1] in the inputs' dtype."""
-    esize = 4 if dtype == torch.float32 else 2
+    a side product [32, max(P, N)+1], ten [Q] vectors and eight slots,
+    then x and dy [Q, P+1] and B and C [Q, N+1], all f32; in bf16 the
+    largest of the tensor-core kernels' (``bwd_plan``)."""
+    if dtype != torch.float32:
+        return max(_bwd_tc_smem(P, N, Q).values())
     rs = max(Q * (_BT + 1), _BT * (max(Q, N, P) + 1))
     floats = P * (N + 1) + 3 * rs + _BWD_VECS * Q + _BWD_WARPS
-    return 4 * floats + esize * (2 * Q * (P + 1) + 2 * Q * (N + 1))
+    return 4 * floats + 4 * (2 * Q * (P + 1) + 2 * Q * (N + 1))
 
 
 def _bwd_fits(P: int, N: int, Q: int, dtype) -> int:
-    """``bwd_smem_bytes``, or ``ValueError`` where it outgrows a CTA."""
+    """``bwd_smem_bytes``, or ``ValueError`` where the kernels do not take
+    the sizes: in f32 where the CTA outgrows 227 KB, in bf16 outside
+    ``tc_takes``."""
+    if dtype == torch.bfloat16:
+        _bwd_takes(P, N, Q)
     smem = bwd_smem_bytes(P, N, Q, dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"ssd_scan_bwd: {smem} bytes of shared memory "
@@ -189,23 +276,40 @@ def _bwd_fits(P: int, N: int, Q: int, dtype) -> int:
     return smem
 
 
+def bwd_resident_ctas(P: int, N: int, Q: int, kernel: str = "chunk") -> int:
+    """CTAs of one of the bf16 backward's kernels ("increments", "chunk"
+    or "group") that one SM of the current card holds at once for these
+    sizes (the CUDA occupancy calculator: shared memory, registers and
+    threads), against ``bwd_plan``'s ``ctas_per_sm``. Needs the card."""
+    return _lib().ssd_scan_bwd_resident_ctas(
+        P, N, Q, ("increments", "chunk", "group").index(kernel))
+
+
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
                  chunk: int = 128):
     """The gradient of ``ssd_scan``'s y (from a zero state) to its inputs
-    for the cotangent ``dy``: (dx, ddt, dA, dBm, dCm), by the reverse-chunk
-    formulas of ``models.mamba2.ssd_chunked_bwd``, accumulated in f32 FMAs.
-    dx, dBm and dCm come back in x's dtype, ddt [B, L, H] and dA [H] in
-    f32.
+    for the cotangent ``dy``: (dx, ddt, dA, dBm, dCm), by the formulas of
+    ``models.mamba2.ssd_chunked_bwd``, accumulated in f32. dx, dBm and dCm
+    come back in x's dtype, ddt [B, L, H] and dA [H] in f32.
 
-    On CUDA tensors the hand-written kernel (``ssd_scan_bwd_kernel``, one
-    CTA per (b, h), then ``ssd_bwd_reduce_kernel``, which sums the heads
-    of each group in a fixed order); on CPU tensors the plain version.
-    Its own refusals (``ValueError``): x f32 or bf16, B, C and dy in x's
-    dtype, L a multiple of ``chunk``, H of G, and ``bwd_smem_bytes``
-    within a CTA's 227 KB (f32 at mamba2's P 64, N 128 and chunk 128 does
-    not fit; bf16 does). Scratch: the entering states [B, H, L/Q, P, N]
-    and the per-head dB, dC [B, L, H, N], all f32."""
+    On CUDA tensors the hand-written kernels, one launch counted a call:
+    in bf16 six kernels in the order of ``ssd_chunked_bwd``'s stages (the
+    chunks' increments, the states, the chunk body a tile of heads at a
+    time, the group products of dB and dC, ds a chunk at a time, a
+    fixed-order sum; ``bwd_plan``), on the tensor cores where an operand
+    is bf16; in f32 the FMA kernel (``ssd_scan_bwd_kernel``, one CTA
+    per (b, h), then ``ssd_bwd_reduce_kernel``); on CPU tensors the plain
+    version. Its own refusals (``ValueError``): x f32 or bf16, B, C and
+    dy in x's dtype, L a multiple of ``chunk``, H of G; in bf16 the sizes
+    of ``tc_takes``, as the forward; in f32 ``bwd_smem_bytes`` within a
+    CTA's 227 KB (mamba2's P 64, N 128 and chunk 128 does not fit).
+    Scratch, all f32: in bf16 one buffer (``bwd_plan``'s ``scratch``):
+    the states and their cotangents [B, H, L/Q, P, N], the tiles' Vbar
+    [B, L/Q, G, tiles, Q, Q], the tiles' dB, dC [tiles, B, L, G, N] when
+    a group has more heads than a tile, and [B, H, L] vectors for ds; in
+    f32 the entering states
+    [B, H, L/Q, P, N] and the per-head dB, dC [B, L, H, N]."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = chunk
@@ -239,17 +343,38 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         for t in (dx, ddt, dA, dBm, dCm):
             t.zero_()
         return dx, ddt, dA, dBm, dCm
-    dB_part = torch.empty((Bsz, L, H, N), **f32)
-    dC_part = torch.empty((Bsz, L, H, N), **f32)
-    dA_part = torch.empty((Bsz, H), **f32)
-    states = torch.empty((Bsz, H, L // Q, P, N), **f32)
-    err = _lib().ssd_scan_bwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(), dB_part.data_ptr(),
-        dC_part.data_ptr(), dA_part.data_ptr(), states.data_ptr(),
-        Bsz, L, H, P, G, N, Q, _DTYPES[x.dtype], smem,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nc = L // Q
+    if x.dtype == torch.bfloat16:
+        plan = bwd_plan(Bsz, L, H, P, G, N, Q)
+        # the kernels copy rows 16 bytes at a time
+        x, Bm, Cm, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (x, Bm, Cm, dy))
+        floats = sum(plan["scratch"].values()) // 4
+        if _lib().ssd_scan_bwd_scratch_floats(
+                Bsz, L, H, P, G, N, Q, plan["tile"]) != floats:
+            raise ValueError("ssd_scan_bwd: the plan's scratch differs from "
+                             "the launcher's")
+        scratch = torch.empty(floats, **f32)
+        smem = plan["smem"]
+        err = _lib().ssd_scan_bwd_tc_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
+            scratch.data_ptr(), Bsz, L, H, P, G, N, Q, plan["tile"],
+            smem["increments"], smem["chunk"], smem["group"], stream)
+    else:
+        dB_part = torch.empty((Bsz, L, H, N), **f32)
+        dC_part = torch.empty((Bsz, L, H, N), **f32)
+        dA_part = torch.empty((Bsz, H), **f32)
+        states = torch.empty((Bsz, H, nc, P, N), **f32)
+        err = _lib().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
+            dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr(),
+            states.data_ptr(), Bsz, L, H, P, G, N, Q, _DTYPES[x.dtype], smem,
+            stream)
     raise_on(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dBm, dCm

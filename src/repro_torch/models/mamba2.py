@@ -194,6 +194,14 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
     and dh ← e^{s_Q} dh + Σ_i e^{s_i} dy_i ⊗ C_i. dB and dC are summed
     over the heads of each group (H % G == 0).
 
+    The work runs in the order of the CUDA kernels: (a) for every chunk at
+    once, the state increment S_c = Σ_j e^{s_Q−s_j} dt_j x_j ⊗ B_j and the
+    cotangent increment Λ_c = Σ_i e^{s_i} dy_i ⊗ C_i; (b) one short loop
+    over the chunks, elementwise on [P, N]: h0_{c+1} = e^{s_Q,c} h0_c + S_c
+    in order and dh_c = e^{s_Q,c+1} dh_{c+1} + Λ_{c+1} in reverse; (c)
+    every chunk's local terms above, batched over the chunks; (d) dB and
+    dC summed over the heads of each group, dA over batch and chunks.
+
     Accumulates in f32 (f64 for f64 inputs); dx, dBm and dCm come back in
     their inputs' dtypes, ddt and dA in the accumulation dtype. Counts its
     calls on CUDA tensors in ``ssd_chunked.tally["cuda_calls"]``, as
@@ -209,69 +217,63 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, dy, chunk: int):
     def rs(a):
         return a.to(acc).reshape(Bsz, nc, chunk, *a.shape[2:])
 
-    xs, dts, dys = rs(x), rs(dt), rs(dy)
+    xs, dts, dys = rs(x), rs(dt), rs(dy)                 # [B,nc,Q,H,..]
     bs = torch.repeat_interleave(rs(Bm), rep, dim=3)     # [B,nc,Q,H,N]
     cs = torch.repeat_interleave(rs(Cm), rep, dim=3)
     A = A.to(acc)
+    s = torch.cumsum(dts * A, dim=2)                     # [B,nc,Q,H]
+    decay = torch.exp(s[:, :, -1])                       # e^{s_Q} [B,nc,H]
+    ex = torch.exp(s[:, :, -1:] - s)                     # e^{s_Q−s_j}
+    coef = dts * ex
+    es = torch.exp(s)
+
+    # (a) the chunks' state and cotangent increments [B,nc,H,P,N]
+    incr = torch.einsum("bcqhp,bcqhn->bchpn", xs * coef[..., None], bs)
+    lam = torch.einsum("bcqhp,bcqhn->bchpn", dys * es[..., None], cs)
+
+    # (b) the entering states in order, their cotangents in reverse
+    h0s, dhs = [torch.zeros_like(incr[:, 0])], [torch.zeros_like(lam[:, 0])]
+    for c in range(1, nc):
+        h0s.append(decay[:, c - 1, :, None, None] * h0s[-1] + incr[:, c - 1])
+        dhs.append(decay[:, nc - c, :, None, None] * dhs[-1]
+                   + lam[:, nc - c])
+    h0 = torch.stack(h0s, dim=1)                         # [B,nc,H,P,N]
+    dh = torch.stack(dhs[::-1], dim=1)
+
+    # (c) every chunk's local terms
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    s = torch.cumsum(dts * A, dim=2)                     # [B,nc,Q,H]
-    s_last = s[:, :, -1]                                 # [B,nc,H]
-    ex = torch.exp(s_last[:, :, None] - s)               # e^{s_Q−s_j}
-    coef = dts * ex
-    # entering states, in order
-    h = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
-    h0s = []
-    for c in range(nc):
-        h0s.append(h)
-        h = torch.exp(s_last[:, c])[..., None, None] * h + torch.einsum(
-            "bqhp,bqhn->bhpn", xs[:, c] * coef[:, c, ..., None], bs[:, c])
-    dh = torch.zeros_like(h)
-    dx, ddt, dB, dC = ([None] * nc for _ in range(4))
-    dA = torch.zeros(H, dtype=acc, device=x.device)
-    for c in reversed(range(nc)):
-        xc, dtc, dyc, bc, cc, sc = (xs[:, c], dts[:, c], dys[:, c],
-                                    bs[:, c], cs[:, c], s[:, c])
-        h0 = h0s[c]
-        sm = sc.movedim(-1, 1)                           # [B,H,Q]
-        diff = sm[..., :, None] - sm[..., None, :]       # [B,H,Q(i),Q(j)]
-        E = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
-        Gm = torch.einsum("bihn,bjhn->bhij", cc, bc)
-        Dm = torch.einsum("bihp,bjhp->bhij", dyc, xc)
-        dtj = dtc.movedim(-1, 1)[:, :, None, :]          # [B,H,1,Q(j)]
-        W = E * dtj * Gm
-        V = E * dtj * Dm
-        Mm = E * Gm * Dm
-        XD = torch.einsum("bjhp,bhpn->bjhn", xc, dh)
-        BD = torch.einsum("bjhn,bhpn->bjhp", bc, dh)
-        DH = torch.einsum("bihp,bhpn->bihn", dyc, h0)
-        es = torch.exp(sc)
-        dx[c] = torch.einsum("bhij,bihp->bjhp", W, dyc) \
-            + coef[:, c, ..., None] * BD
-        dB[c] = torch.einsum("bhij,bihn->bjhn", V, cc) \
-            + coef[:, c, ..., None] * XD
-        dC[c] = torch.einsum("bhij,bjhn->bihn", V, bc) + es[..., None] * DH
-        u = ex[:, c] * (bc * XD).sum(-1)                 # [B,Q,H]
-        r = (cc * DH).sum(-1)
-        row_t = (Mm * dtj).sum(-1).movedim(1, -1)        # Σ_j T_ij
-        m = Mm.sum(-2).movedim(1, -1)                    # Σ_i E G D
-        ds = row_t - dtc * m + es * r - dtc * u
-        ds[:, -1] += (torch.exp(s_last[:, c]) * (h0 * dh).sum((-1, -2))
-                      + (dtc * u).sum(1))
-        dda = torch.flip(torch.cumsum(torch.flip(ds, [1]), 1), [1])
-        ddt[c] = A * dda + m + u
-        dA = dA + (dtc * dda).sum((0, 1))
-        dh = torch.exp(s_last[:, c])[..., None, None] * dh + torch.einsum(
-            "bihp,bihn->bhpn", dyc * es[..., None], cc)
+    sm = s.movedim(3, 2)                                 # [B,nc,H,Q]
+    diff = sm[..., :, None] - sm[..., None, :]           # [..,Q(i),Q(j)]
+    E = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    Gm = torch.einsum("bcihn,bcjhn->bchij", cs, bs)
+    Dm = torch.einsum("bcihp,bcjhp->bchij", dys, xs)
+    dtj = dts.movedim(3, 2)[..., None, :]                # [B,nc,H,1,Q(j)]
+    V = E * dtj * Dm
+    Mm = E * Gm * Dm
+    XD = torch.einsum("bcjhp,bchpn->bcjhn", xs, dh)
+    BD = torch.einsum("bcjhn,bchpn->bcjhp", bs, dh)
+    DH = torch.einsum("bcihp,bchpn->bcihn", dys, h0)
+    dx = torch.einsum("bchij,bcihp->bcjhp", E * dtj * Gm, dys) \
+        + coef[..., None] * BD
+    dB = torch.einsum("bchij,bcihn->bcjhn", V, cs) + coef[..., None] * XD
+    dC = torch.einsum("bchij,bcjhn->bcihn", V, bs) + es[..., None] * DH
+    u = ex * (bs * XD).sum(-1)                           # [B,nc,Q,H]
+    r = (cs * DH).sum(-1)
+    row_t = (Mm * dtj).sum(-1).movedim(2, -1)            # Σ_j T_ij
+    m = Mm.sum(-2).movedim(2, -1)                        # Σ_i E G D
+    ds = row_t - dts * m + es * r - dts * u
+    ds[:, :, -1] += decay * (h0 * dh).sum((-1, -2)) + (dts * u).sum(2)
+    dda = torch.flip(torch.cumsum(torch.flip(ds, [2]), 2), [2])
+    ddt = A * dda + m + u
+    dA_part = (dts * dda).sum(2)                         # [B,nc,H]
 
-    def cat(parts):
-        return torch.stack(parts, dim=1).reshape(Bsz, L, *parts[0].shape[2:])
+    # (d) the heads of each group, and dA over batch and chunks
+    def groups(a, like):
+        return a.reshape(Bsz, L, G, rep, N).sum(3).to(like.dtype)
 
-    def groups(parts, like):
-        return cat(parts).reshape(Bsz, L, G, rep, N).sum(3).to(like.dtype)
-
-    return (cat(dx).to(x.dtype), cat(ddt), dA, groups(dB, Bm),
-            groups(dC, Cm))
+    return (dx.reshape(Bsz, L, H, P).to(x.dtype), ddt.reshape(Bsz, L, H),
+            dA_part.sum((0, 1)), groups(dB, Bm), groups(dC, Cm))
 
 
 def _ssd(x, dt, A, Bm, Cm, cfg, return_state: bool = False):

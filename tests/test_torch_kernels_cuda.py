@@ -937,6 +937,41 @@ def test_ssd_bwd_kernel_training_shapes(dev, L, H, P, N):
         assert relerr(w, g) < tol and torch.equal(g, a)
 
 
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", [
+    (1, 256, 10, 64, 1, 64, 128), (1, 256, 6, 64, 3, 32, 64),
+    (1, 4096, 2, 64, 1, 128, 128), (1, 4096, 3, 64, 1, 64, 128)])
+def test_ssd_bwd_kernel_head_tiles_and_long_sequences(dev, B, L, H, P, G,
+                                                      N, Q):
+    """bf16 where a group's heads do not fill the chunk body's tiles of
+    ``bwd_plan``'s ``tile`` heads (H 10 in one group: tiles of 8 and 2;
+    H 6 in three groups of 2), and at 2 × 4,096-like proportions at a
+    small batch (few (b, h), 32 chunks each); two launches give equal
+    bits."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    plan = bwd_plan(B, L, H, P, G, N, Q)
+    assert plan["tiles"] == -(-(H // G) // plan["tile"])
+    inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=H + G)
+    got, want = ssd_bwd_both(inputs, Q, seed=5)
+    again, _ = ssd_bwd_both(inputs, Q, seed=5)
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and bool(g.isfinite().all())
+        tol = SSD_BWD_F32 if g.dtype == torch.float32 else SSD_BF16
+        assert relerr(w, g) < tol and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("P,N", [(64, 64), (64, 128)])
+def test_ssd_bwd_resident_ctas(dev, P, N):
+    """At zamba2's (P 64, N 64) and mamba2's (N 128) chunk of 128 the
+    card holds at least two CTAs of the chunk body an SM, and as many of
+    each bf16 backward kernel as ``bwd_plan`` plans from shared memory
+    and threads, or fewer only by registers."""
+    from repro_torch.kernels.ssd_scan import bwd_plan, bwd_resident_ctas
+    plan = bwd_plan(1, 128, 1, P, 1, N, 128)["ctas_per_sm"]
+    assert bwd_resident_ctas(P, N, 128) >= 2
+    for kernel in ("increments", "chunk", "group"):
+        assert 1 <= bwd_resident_ctas(P, N, 128, kernel) <= plan[kernel]
+
+
 def test_ssd_bwd_kernel_chunk_invariance_and_zero_c(dev):
     inputs = ssd_inputs(1, 128, 4, 16, 1, 32, dev)
     at128, _ = ssd_bwd_both(inputs, 128, seed=2)

@@ -20,9 +20,9 @@ import torch
 
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch import configs
-from repro_torch.kernels.ssd_scan import (_SMEM_LIMIT, bwd_smem_bytes,
-                                          ssd_scan, ssd_scan_bwd,
-                                          ssd_scan_with_grad)
+from repro_torch.kernels.ssd_scan import (_SMEM_LIMIT, bwd_plan,
+                                          bwd_smem_bytes, ssd_scan,
+                                          ssd_scan_bwd, ssd_scan_with_grad)
 from repro_torch.models import mamba2
 
 CHUNKED, REF, BF16 = 1e-5, 1e-4, 3e-2
@@ -164,13 +164,60 @@ def test_gradcheck_f64():
         lambda *a: ssd_scan_with_grad(*a, chunk=4), tuple(t))
 
 
+# phase 9's training shapes (B, L, H, P, G, N, Q): zamba2-2.7b on 8 × 1,024
+# and 2 × 4,096 tokens, mamba2-130m on 8 × 4,096
+TRAIN = [(8, 1024, 80, 64, 1, 64, 128), (2, 4096, 80, 64, 1, 64, 128),
+         (8, 4096, 24, 64, 1, 128, 128)]
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", TRAIN)
+def test_bwd_tc_plan_at_the_training_shapes(B, L, H, P, G, N, Q):
+    """The bf16 backward's plan: every kernel's shared memory within a
+    CTA's 227 KB and at least two CTAs an SM by shared memory and threads;
+    a chunk-body CTA per (b, chunk, group, tile of 8 heads), so the grid
+    grows with the chunks; the scratch: the states and their cotangents
+    [B, H, L/Q, P, N], the tiles' Vbar [Q, Q] and their dB, dC partials,
+    [B, H, L] vectors for ds, all f32, and no per-head dB, dC partial
+    [B, L, H, N]."""
+    plan = bwd_plan(B, L, H, P, G, N, Q)
+    nc, rep = L // Q, H // G
+    assert plan["tile"] == 8 and plan["tiles"] == -(-rep // 8)
+    assert max(plan["smem"].values()) <= _SMEM_LIMIT
+    assert bwd_smem_bytes(P, N, Q) == max(plan["smem"].values())
+    assert min(plan["ctas_per_sm"].values()) >= 2
+    grid = plan["grid"]
+    assert grid["chunk"] == B * nc * G * plan["tiles"] >= 640
+    assert grid["increments"] == B * H * nc
+    assert grid["group"] == grid["chunk"] * (N // min(64, N))
+    tiles, slabs = plan["tiles"], N // 64
+    assert plan["scratch"] == dict(
+        states=2 * 4 * B * H * nc * P * N, decay=4 * B * H * nc,
+        vbar=4 * B * nc * G * tiles * Q * Q,
+        parts=2 * 4 * tiles * B * L * G * N,
+        vectors=4 * B * H * ((3 + slabs) * L + slabs * nc),
+        dA=4 * B * nc * H)
+    assert sum(plan["scratch"].values()) < 2 * 4 * B * L * H * N
+
+
+def test_bwd_tc_plan_head_tiles():
+    """A group of 10 heads takes tiles of 8 and 2, a group of 2 one tile of
+    2 (its dB and dC go straight to the output: no partials); the bf16
+    kernels refuse the sizes ``tc_takes`` refuses."""
+    ten = bwd_plan(1, 256, 10, 64, 1, 64, 128)
+    assert (ten["tile"], ten["tiles"]) == (8, 2)
+    two = bwd_plan(1, 256, 6, 64, 3, 32, 64)
+    assert (two["tile"], two["tiles"], two["scratch"]["parts"]) == (2, 1, 0)
+    with pytest.raises(ValueError, match="bf16 kernels take"):
+        bwd_plan(1, 256, 4, 72, 1, 64, 128)
+
+
 def test_bwd_shared_memory_plan():
     """The backward's shared memory: bf16 fits at both models' training
     shapes (zamba2 P 64, N 64; mamba2 N 128; chunk 128), f32 at zamba2's
     but not at mamba2's, which the card refuses with ``ValueError``."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert bwd_smem_bytes(64, 64, 128, bf16) < bwd_smem_bytes(
-        64, 128, 128, bf16) == 188_192 <= _SMEM_LIMIT
+    assert bwd_smem_bytes(64, 64, 128, bf16) <= bwd_smem_bytes(
+        64, 128, 128, bf16) <= _SMEM_LIMIT
     assert bwd_smem_bytes(64, 64, 128, f32) <= _SMEM_LIMIT
     assert bwd_smem_bytes(64, 128, 128, f32) > _SMEM_LIMIT
     for (_, _, _, P, _, N, Q) in GRID:

@@ -11,19 +11,28 @@ Builds ``porc_snapshot.cu`` and ``ssd_scan.cu`` of the package under
   each from the state that ten slots leave: 78 blocks of 128 keys, the
   slot's 16-key tail, and a block-1 slot of 10,000 keys;
 - ``ssd_scan`` in bf16 with the final state at zamba2-2.7b's 8 × 1,024
-  and 8 × 4,096 prefills and mamba2-130m's 8 × 4,096.
+  and 8 × 4,096 prefills and mamba2-130m's 8 × 4,096;
+- ``ssd_scan_bwd`` in bf16 at phase 9's training shapes, zamba2-2.7b on
+  8 × 1,024 and 2 × 4,096 tokens and mamba2-130m on 8 × 4,096
+  (``chip_smoke.time_ssd_bwd``): its device time a call is the sum over
+  every kernel the call launches, so trees that split the backward into
+  different kernels are counted alike.
 With ``--e2e`` also the main paths that run them: (a) ``cg.run`` at
 block 128 on 22M WP messages and at block 1 on the 2.2M prefix
-(messages/s, imbalance of the first and last three slots, moves), and
-the prefills of phase 7 with random bf16 weights: zamba2-2.7b on 8 ×
+(messages/s, imbalance of the first and last three slots, moves), the
+prefills of phase 7 with random bf16 weights: zamba2-2.7b on 8 ×
 1,024 and 8 × 4,096 tokens, mamba2-130m on 8 × 4,096 (tokens/s, after a
 warm-up of the same shape), with phase 7's prefill(prompt[:-1]) +
-decode(last) against prefill(prompt) gap at (k)'s and (l)'s shapes.
-Prints one JSON line: per shape the pair [the kernel's own device time
-per launch (``torch.profiler``), the time per call between CUDA events
-(host issue included)], for ``ssd_scan`` followed by the CTAs an SM
-holds (the occupancy calculator; null for a tree without it), the
-end-to-end results, and the card with its power limit.
+decode(last) against prefill(prompt) gap at (k)'s and (l)'s shapes, and
+phase 9's train steps (``chip_smoke.ssm_train_path``): (q) mamba2-130m,
+5 steps of 8 × 4,096, and (r) zamba2-2.7b, 5 steps of 8 × 1,024 and one
+of 2 × 4,096 (per step ms, tokens/s and loss; the mean of the steady
+steps and the peak device memory). Prints one JSON line: per shape the
+pair [the kernels' own device time per call (``torch.profiler``), the
+time per call between CUDA events (host issue included)], for
+``ssd_scan`` and ``ssd_scan_bwd`` followed by the CTAs an SM holds (the
+occupancy calculator; null for a tree without it), the end-to-end
+results, and the card with its power limit.
 
 To compare two trees, run it once per tree in one machine, in turns:
 ``git archive`` the other commit into an ignored directory and pass its
@@ -49,7 +58,8 @@ def main() -> int:
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--e2e", action="store_true",
-                    help="also (a)'s cg.run and the Mamba-2 prefills")
+                    help="also (a)'s cg.run, the Mamba-2 prefills and "
+                         "phase 9's train steps")
     args = ap.parse_args()
     import chip_smoke      # puts this checkout's src on the path first
     sys.path.insert(0, str(args.src.resolve()))
@@ -63,7 +73,7 @@ def main() -> int:
         raise SystemExit(f"imported {repro_torch.__file__}, not --src")
     # the module (repro_torch.kernels exports a function of its name)
     ssd_module = importlib.import_module("repro_torch.kernels.ssd_scan")
-    for name in ("resident_ctas", "ctas_per_sm"):
+    for name in ("resident_ctas", "ctas_per_sm", "bwd_resident_ctas"):
         if not hasattr(ssd_module, name):
             # a tree from before the SSD kernel's sizing functions
             setattr(ssd_module, name, lambda *args, **kwargs: None)
@@ -96,6 +106,10 @@ def main() -> int:
         "zamba2 8x4096": ssd_row(ssd(dev, *zamba2[:2], 4096, *zamba2[3:],
                                      plain=False)),
         "mamba2 8x4096": ssd_row(ssd(dev, *mamba2, plain=False))}
+    out["ssd_scan_bwd"] = {
+        f"{arch.split('-')[0]} {B}x{L}": ssd_row(chip_smoke.time_ssd_bwd(
+            dev, arch, B, L, *rest, plain=False))
+        for arch, B, L, *rest in chip_smoke.ssd_train_shapes()}
     if args.e2e:
         out["e2e"] = end_to_end(chip_smoke, dev, args.seed)
     print(json.dumps(out), flush=True)
@@ -143,6 +157,19 @@ def end_to_end(chip_smoke, dev, seed: int) -> dict:
                 model, cfg, tokens)
         del model
         torch.cuda.empty_cache()
+    # phase 9's train steps: (q), then (r) and its 2 × 4,096 step
+    for arch, B, S, long in (("mamba2-130m", 8, 4096, None),
+                             ("zamba2-2.7b", 8, 1024, (2, 4096))):
+        run = chip_smoke.ssm_train_path(dev, seed, arch, B, S, long=long)
+        for key, part in (("", run["run"]), (" long", run.get("long"))):
+            if part is not None:
+                out[f"{arch} train {part['batch'][0]}x{part['batch'][1]}"
+                    f"{key}"] = dict(
+                    steps=[[r["ms"], r["tokens_per_s"], r["loss"]]
+                           for r in part["steps"]],
+                    step_ms_mean=part["step_ms_mean"],
+                    tokens_per_s=part["tokens_per_s"],
+                    peak_gb=part["peak_gb"])
     return out
 
 

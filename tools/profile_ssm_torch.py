@@ -21,7 +21,8 @@ With ``--train`` it profiles ``chip_smoke.py``'s phase 9 instead: one
 ``make_train_step`` step (after two unprofiled ones) on 8 × 1,024
 zipf(1.3) tokens for zamba2-2.7b, 8 × 4,096 for mamba2-130m (remat
 "full", AdamW), with the device time of the ``ssd_scan`` forward, of
-the backward (``ssd_scan_bwd``'s two kernels) and the top ops.
+the backward (every kernel ``ssd_scan_bwd`` launches: names holding
+"_bwd_") and the top ops.
 
 Needs CUDA; imports nothing of the JAX package.
 """
