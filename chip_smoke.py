@@ -123,7 +123,23 @@ Phases:
      layer (forward and recompute), ``ssd_scan_bwd`` once; peak memory
      beside the reckoning; then both smoke configs' train step in f32
      on the card against the CPU;
- 10. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 10. the training feed and its failure path: (s) ``launch/train.py``'s
+     driver (``Trainer.run``, what ``train()`` runs) on mamba2-130m at
+     full size, 8 × 4,096 tokens a step from the sharded pipeline, 4
+     hosts, a checkpoint every 4 steps: run A trains 9 steps and loses
+     host 3 at step 6 (its shards must land where the reference's
+     capacity rule puts them, none on a dead host, none lost), run B
+     resumes to 12 (the restored state must equal A's final one bit for
+     bit; B trains from step 8 again, as the reference does); per step
+     the loss, step ms, train tokens/s and the launches (``ssd_scan``
+     twice a layer, ``ssd_scan_bwd`` once), the save and restore seconds,
+     peak memory; (t) (p)'s model on a zipf(1.1) token stream, step i
+     on the pipeline's ``global_batch(i)``, routers cg and topk at
+     phase 8's lr: ``moe_drop_frac`` and ``moe_max_load_frac`` each
+     step beside phase 8's fixed batch, CG dropping no more than top-k;
+     then the smoke config's 5 train steps on the stream in f32 on the
+     card against the CPU (loss, lr, grad_norm, routing telemetry);
+ 11. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -2451,16 +2467,18 @@ def train_reckoning(cfg) -> dict:
     return dict(params=n, bytes_per_param=per, state_gb=n * per / 1e9)
 
 
-def train_run(cfg, tokens, dev, seed: int, steps: int = 5,
+def train_run(cfg, batches, dev, seed: int, steps: int = 5,
               check_launches: bool = True) -> dict:
     """``make_train_step`` on ``cfg`` from random weights drawn from
-    ``seed`` (bf16 at full width), AdamW (warm-up 2 of ``steps``),
-    ``steps`` steps on the fixed batch ``tokens``, with the launch counts
-    zeroed just before and read just after: the loss finite at every
-    step and lower at the last than at the first, ``moe_max_load_frac``
-    ≤ 1, and on the card ``cg_dispatch`` launched on every micro-step
-    (once a layer, twice under remat "full": the forward and its
-    recompute) and the plain dispatch never on CUDA tensors."""
+    ``seed`` (bf16 at full width), AdamW (peak 3e-4, warm-up 2 of
+    ``steps``), ``steps`` steps, step i on the batch ``batches(i)``
+    (drawn inside the step's time), with the launch counts zeroed just
+    before and read just after: the loss finite at every step,
+    ``moe_max_load_frac`` ≤ 1, and on the card ``cg_dispatch`` launched
+    on every micro-step (once a layer, twice under remat "full": the
+    forward and its recompute) and the plain dispatch never on CUDA
+    tensors. The run has a row a step under ``steps``; whether its loss
+    must fall is left to the caller (``loss_fell``)."""
     import gc
     import torch
     from repro_torch import optim
@@ -2481,14 +2499,14 @@ def train_run(cfg, tokens, dev, seed: int, steps: int = 5,
                                                   total_steps=steps))
     per_step = cfg.grad_accum * cfg.n_layers * (2 if cfg.remat == "full"
                                                 else 1)
-    B, S = tokens.shape
+    B, S = batches(0).shape
     rows = []
     sync()
     zero_counts()
     for i in range(steps):
         before = cg_dispatch.launches
         t0 = time.perf_counter()
-        model, state, m = step(model, state, {"tokens": tokens})
+        model, state, m = step(model, state, {"tokens": batches(i)})
         sync()
         dt = time.perf_counter() - t0
         row = dict(step=i + 1, loss=float(m["loss"]), lr=float(m["lr"]),
@@ -2517,9 +2535,6 @@ def train_run(cfg, tokens, dev, seed: int, steps: int = 5,
                  "micro-step's layers, forward and recompute)")
     counts = read_counts()
     check_counts(name, counts, "cg_dispatch", dev, check_launches)
-    if not rows[-1]["loss"] < rows[0]["loss"]:
-        fail(f"{name}: the loss did not fall ({rows[0]['loss']} -> "
-             f"{rows[-1]['loss']})")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
     steady = rows[1:] or rows
     out = dict(run=name, router=cfg.moe.router,
@@ -2537,6 +2552,14 @@ def train_run(cfg, tokens, dev, seed: int, steps: int = 5,
     if cuda:
         torch.cuda.empty_cache()
     return out
+
+
+def loss_fell(run: dict) -> None:
+    """Fail unless ``run``'s (``train_run``) last loss is below its
+    first."""
+    first, last = run["steps"][0]["loss"], run["steps"][-1]["loss"]
+    if not last < first:
+        fail(f"{run['run']}: the loss did not fall ({first} -> {last})")
 
 
 def train_path(dev, seed: int, n_layers: int | None = 1, steps: int = 5,
@@ -2569,8 +2592,9 @@ def train_path(dev, seed: int, n_layers: int | None = 1, steps: int = 5,
             cfg = moe_config(n_layers, smoke, router)
             cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                       capacity_skew=skew))
-            pair.append(train_run(cfg, tokens, dev, seed, steps,
+            pair.append(train_run(cfg, lambda i: tokens, dev, seed, steps,
                                   check_launches))
+            loss_fell(pair[-1])
         cg, topk = (r["steps"][0]["drop_frac"] for r in pair)
         if cg > topk:
             fail(f"train skew={skew}: CG dropped more than top-k ({cg} > "
@@ -2811,6 +2835,305 @@ def ssm_train_path(dev, seed: int, arch: str, batch: int, seq: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the training feed and its failure path
+# ---------------------------------------------------------------------------
+
+def evacuation_by_rule(owner, dead: int, n_hosts: int) -> list:
+    """The moves the reference's capacity rule makes for ``dead``'s shards
+    at uniform capacities, written out plainly: highest shard id first,
+    each to the live host that owns the fewest (the lowest index on
+    ties)."""
+    import numpy as np
+    owner = np.array(owner)
+    live = [h for h in range(n_hosts) if h != dead]
+    moves = []
+    for sid in np.flatnonzero(owner == dead)[::-1]:
+        counts = np.bincount(owner, minlength=n_hosts)
+        dst = min(live, key=lambda h: (counts[h], h))
+        owner[sid] = dst
+        moves.append((int(sid), dst))
+    return moves
+
+
+def driver_run(name: str, trainer, dev, check_launches: bool,
+               on_step=None) -> dict:
+    """``trainer.run`` with the launch counts zeroed just before and read
+    after every step: the loss finite; on the card ``ssd_scan`` launched
+    once a layer a micro-step (twice under remat "full"), ``ssd_scan_bwd``
+    once, and the plain ``ssd_chunked`` never on CUDA tensors. Step ms and
+    train tokens/s of every step, the saves' seconds, peak memory."""
+    import torch
+    cuda = dev.type == "cuda"
+    cfg = trainer.cfg
+    passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
+    expect = {"ssd_scan": cfg.n_layers * passes,
+              "ssd_scan_bwd": cfg.n_layers * cfg.grad_accum}
+    tokens = trainer.batch * trainer.pipe.cfg.seq_len
+    rows, last = [], {}
+
+    def step_done(row):
+        now = read_counts()
+        got = {k: now[k] - last[k] for k in expect}
+        last.update(now)
+        row = dict(row, launches=got, tokens_per_s=tokens / row["ms"] * 1e3)
+        rows.append(row)
+        log(f"  {name} step {row['step']}: loss {row['loss']:.5f}, lr "
+            f"{row['lr']:.3e}, {row['ms']:.1f} ms = "
+            f"{row['tokens_per_s']:,.0f} tokens/s (the feed "
+            f"{row['feed_ms']:.2f} ms)"
+            + (f", save {row['save_s']:.3f} s" if row["saved"] else "")
+            + f"; launches ssd_scan {got['ssd_scan']}, ssd_scan_bwd "
+            f"{got['ssd_scan_bwd']}")
+        if not math.isfinite(row["loss"]):
+            fail(f"{name}: loss not finite at step {row['step']}")
+        if cuda and check_launches and got != expect:
+            fail(f"{name}: launches {got} at step {row['step']}, expected "
+                 f"{expect} (every SSM layer's forward and recompute, its "
+                 "backward once)")
+        if on_step is not None:
+            on_step(row)
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    last.update(read_counts())
+    t0 = time.perf_counter()
+    trainer.run(on_step=step_done)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(name, counts, "ssd_scan_bwd", dev, check_launches)
+    plain = [r for r in rows if not r["saved"]]
+    saves = [r for r in rows if r["saved"]]
+    out = dict(run=name, steps=rows, wall_s=wall,
+               step_ms_mean=(sum(r["ms"] for r in plain) / len(plain)
+                             if plain else None),
+               feed_ms_mean=sum(r["feed_ms"] for r in rows) / len(rows),
+               save_s=[r["save_s"] for r in saves],
+               peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                        else 0.0), launches=counts)
+    log(f"  {name}: {len(rows)} steps in {wall:.2f} s; steps that do not "
+        f"save " + (f"{out['step_ms_mean']:.1f} ms = "
+                    f"{tokens / out['step_ms_mean'] * 1e3:,.0f} tokens/s"
+                    if plain else "none")
+        + "; save steps " + ", ".join(
+            f"{r['step']}: {r['ms']:.1f} ms + save {r['save_s']:.3f} s"
+            for r in saves)
+        + f"; the feed {out['feed_ms_mean']:.2f} ms a step; peak device "
+        f"memory {out['peak_gb']:.4f} GB")
+    return out
+
+
+def driver_path(dev, batch: int = 8, seq: int = 4096, smoke: bool = False,
+                check_launches: bool = True, n_hosts: int = 4,
+                ckpt_every: int = 4, fail_at: int = 6, steps_a: int = 9,
+                steps_b: int = 12) -> dict:
+    """(s) ``launch/train.py``'s driver on mamba2-130m (full size, or its
+    smoke config), ``n_hosts`` hosts, a checkpoint every ``ckpt_every``
+    steps in a temporary directory (removed at the end). Run A trains
+    ``steps_a`` steps and loses host ``n_hosts - 1`` at ``fail_at``: its
+    shards must move where the reference's capacity rule puts them at
+    uniform capacities (``evacuation_by_rule``), and from then on no
+    shard is on a dead host and none is lost. Run B resumes to
+    ``steps_b``: it restores A's last checkpoint, which must equal A's
+    final weights and optimizer state bit for bit (the step count too,
+    so B's first lr is the schedule's at A's count), and trains from that
+    step again. Every loss finite, B's last below A's first; the launches
+    of every step (``driver_run``). The weights and the stream come from
+    the driver's own seeds (0); the peak lr is the driver's default,
+    3e-4, at full size and 1e-2 at the smoke config, whose model would
+    not show a falling loss in 12 steps at 3e-4."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.launch import train as driver
+    arch = "mamba2-130m"
+    cuda = dev.type == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    kw = dict(batch=batch, seq=seq, smoke=smoke, ckpt_dir=root,
+              ckpt_every=ckpt_every, n_hosts=n_hosts,
+              lr=1e-2 if smoke else 3e-4, device=dev)
+    dead = n_hosts - 1
+    try:
+        a = driver.Trainer(arch, steps_a, fail_host_at=fail_at, **kw)
+        log(f"  {arch}{' (smoke)' if smoke else ''}: {a.cfg.n_layers} "
+            f"layers, batch {batch} x {seq}, {n_hosts} hosts x "
+            f"{a.pipe.cfg.n_shards_per_host} shards, checkpoint every "
+            f"{ckpt_every} steps; A: {steps_a} steps, host {dead} lost at "
+            f"step {fail_at}; B: resume to {steps_b}")
+        before = {}
+
+        def owners(row):
+            if row["step"] == fail_at - 1:
+                before["owner"] = a.pipe.shard_owner.copy()
+            if row["step"] >= fail_at:
+                owner = a.pipe.shard_owner
+                if (owner == dead).any() or not all(
+                        a.runner.hosts[h].alive for h in set(owner.tolist())):
+                    fail(f"driver A: a shard is on a dead host after step "
+                         f"{row['step']}: {owner.tolist()}")
+                if len(owner) != a.pipe.n_shards:
+                    fail("driver A: shards lost")
+            if row["step"] == fail_at:
+                want = evacuation_by_rule(before["owner"], dead, n_hosts)
+                if a.evacuated != want:
+                    fail(f"driver A: evacuation {a.evacuated}, the rule "
+                         f"gives {want}")
+
+        run_a = driver_run("driver A", a, dev, check_launches, owners)
+        committed = sorted(ckpt.all_steps(root))
+        want = list(range(0, steps_a, ckpt_every))[-3:]
+        if committed != want:
+            fail(f"driver A: committed {committed}, expected {want}")
+        final = [x.detach().clone()
+                 for x in ckpt._flatten(a.tree())[0]]
+        count = int(a.opt_state["step"])
+        evacuated, owner_a = a.evacuated, a.pipe.shard_owner.tolist()
+        del a
+        gc.collect()
+        b = driver.Trainer(arch, steps_b, resume=True, **kw)
+        got = ckpt._flatten(b.tree())[0]
+        if b.start_step != committed[-1] or len(got) != len(final) or any(
+                x.dtype != y.dtype or not torch.equal(x, y)
+                for x, y in zip(final, got)):
+            fail(f"driver B: resumed at {b.start_step} with a state unlike "
+                 "A's final one")
+        del final, got
+        gc.collect()
+        first_lr = float(optim.schedule(b.opt_cfg, torch.tensor(
+            count + 1, dtype=torch.int32, device=dev)))
+        restore_s = b.restore_s
+        log(f"  driver B: restored step {b.start_step} in {restore_s:.3f} "
+            f"s, bit for bit A's final state (AdamW count {count})")
+        run_b = driver_run("driver B", b, dev, check_launches)
+        if run_b["steps"][0]["lr"] != first_lr:
+            fail(f"driver B: first lr {run_b['steps'][0]['lr']}, the "
+                 f"schedule at count {count + 1} gives {first_lr}")
+        if not run_b["steps"][-1]["loss"] < run_a["steps"][0]["loss"]:
+            fail("driver: B's last loss is not below A's first")
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    peak = max(run_a["peak_gb"], run_b["peak_gb"])
+    log(f"  driver: loss {run_a['steps'][0]['loss']:.5f} -> "
+        f"{run_b['steps'][-1]['loss']:.5f}; host {dead}'s shards (shard, "
+        f"new host) {evacuated}; owners after A {owner_a}; committed "
+        f"{committed}; restore {restore_s:.3f} s; peak device memory "
+        f"{peak:.4f} GB")
+    return dict(arch=arch, batch=[batch, seq], n_hosts=n_hosts,
+                committed=committed, evacuated=evacuated, owner_a=owner_a,
+                restore_s=restore_s, a=run_a, b=run_b, peak_gb=peak)
+
+
+def stream_path(dev, seed: int, fixed: list, n_layers: int | None = 1,
+                steps: int = 5, smoke: bool = False,
+                check_launches: bool = True) -> dict:
+    """(t) phase 8's model (p) on a token stream: step i trains on
+    ``ShardedTokenPipeline(PipelineConfig(vocab, seq_len=1,024,
+    global_batch=8, n_hosts=4)).global_batch(i)``, zipf(1.1), a fresh
+    batch each step (``train_run``, routers "cg" and "topk", uniform
+    capacities); CG must drop no more than top-k on the first step, as
+    in phase 8. The loss need not fall: a step's loss is on a batch no
+    step trained on, and at this lr it rose on the card (PERF.md §6,
+    ``tools/moe_stream_torch.py``). What must hold on fresh batches is
+    ``stream_reference_check``: the card's train step is the CPU's over
+    the stream. Logs ``moe_drop_frac`` and ``moe_max_load_frac`` at each
+    step beside phase 8's fixed-batch runs (``fixed``: its cg and topk
+    runs at uniform capacities)."""
+    from repro_torch.data import PipelineConfig, ShardedTokenPipeline
+    base = moe_config(n_layers, smoke)
+    B, S = (8, 64) if smoke else (8, 1024)
+    pipe = ShardedTokenPipeline(PipelineConfig(
+        vocab=base.vocab, seq_len=S, global_batch=B, n_hosts=4))
+    log(f"  {base.arch_id}{' (smoke)' if smoke else ''}: {base.n_layers} "
+        f"layer(s), batch {B} x {S} a step from the pipeline "
+        f"({pipe.n_shards} shards, zipf({pipe.cfg.zipf_z}))")
+
+    def batches(i):
+        return pipe.global_batch(i).to(dev)
+
+    runs = [train_run(moe_config(n_layers, smoke, router), batches, dev,
+                      seed, steps, check_launches)
+            for router in ("cg", "topk")]
+    cg, topk = (r["steps"][0]["drop_frac"] for r in runs)
+    if cg > topk:
+        fail(f"train stream: CG dropped more than top-k ({cg} > {topk})")
+    for i in range(steps):
+        log(f"  step {i + 1} drop_frac / max_load_frac: stream "
+            + " | ".join(f"{r['router']} {r['steps'][i]['drop_frac']:.4f} / "
+                         f"{r['steps'][i]['max_load_frac']:.4f}"
+                         for r in runs)
+            + "; fixed batch (phase 8) " + " | ".join(
+                f"{r['router']} {r['steps'][i]['drop_frac']:.4f} / "
+                f"{r['steps'][i]['max_load_frac']:.4f}"
+                for r in fixed if i < len(r["steps"])))
+    return dict(arch=base.arch_id, n_layers=base.n_layers, batch=[B, S],
+                runs=runs, reference=stream_reference_check(dev, seed,
+                                                             steps))
+
+
+def stream_reference_check(dev, seed: int, steps: int = 5) -> dict:
+    """(t)'s train step on fresh batches, the card against the CPU from
+    the same weights: the MoE smoke config in f32 with grad_accum 2,
+    ``steps`` AdamW steps as ``train_run`` takes them but with eps 1e-5
+    (as ``train_reference_check``, which explains why), step i on the
+    pipeline's ``global_batch(i)`` (8 × 64 zipf(1.1) tokens). Every
+    step's loss, lr and grad_norm within 1e-5 relative and its routing
+    telemetry equal. The CPU's losses on such a stream are the
+    reference's (``tests/test_torch_train.py::
+    test_train_steps_on_the_token_stream_match_jax``), so a fault of the
+    train step on fresh batches fails here, whatever the loss does at
+    full width."""
+    import copy
+    import torch
+    from repro_torch import optim
+    from repro_torch.data import PipelineConfig, ShardedTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    cfg = moe_config(None, smoke=True).replace(dtype="float32",
+                                               grad_accum=2)
+    pipe = ShardedTokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=8, n_hosts=4))
+    opt_cfg = optim.AdamWConfig(warmup_steps=2, total_steps=steps,
+                                eps=1e-5)
+    cpu = torch.device("cpu")
+    host = zoo.init_params(cfg, seed, device=cpu)
+    runs = []
+    for where, model in ((cpu, host), (dev, copy.deepcopy(host).to(dev))):
+        state, step = optim.init(model), make_train_step(cfg, opt_cfg)
+        runs.append([])
+        for i in range(steps):
+            model, state, m = step(model, state,
+                                   {"tokens": pipe.global_batch(i).to(where)})
+            runs[-1].append({k: v.detach().cpu() for k, v in m.items()})
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(*runs)):
+        for k in ("loss", "lr", "grad_norm"):
+            err = abs(float(a[k]) - float(b[k])) / abs(float(a[k]))
+            worst = max(worst, err)
+            if err > 1e-5:
+                fail(f"stream reference: step {i + 1} {k} differs (rel "
+                     f"{err})")
+        for k in ("moe_drop_frac", "moe_max_load_frac", "moe_load"):
+            if not torch.equal(a[k], b[k]):
+                fail(f"stream reference: step {i + 1} routing telemetry {k} "
+                     "differs")
+    losses = [float(r["loss"]) for r in runs[1]]
+    log(f"  {MOE_ARCH} smoke config in f32 on the pipeline's stream, "
+        f"{steps} train steps (grad_accum {cfg.grad_accum}), card vs CPU: "
+        f"loss, lr, grad_norm max rel {worst:.2e}, routing telemetry "
+        "equal; losses " + ", ".join(f"{x:.5f}" for x in losses))
+    return dict(losses=losses, max_rel_err=worst)
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -3028,7 +3351,24 @@ def main() -> int:
                                                              arch)
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
-    # 10. report
+    # 10. the training feed and its failure path
+    log("== training feed: (s) launch/train.py's driver on mamba2-130m at "
+        "full size, 8 x 4,096 tokens, 4 hosts, host 3 lost at step 6, a "
+        "checkpoint every 4 steps, then a resume; (t) (p)'s MoE on a "
+        "zipf(1.1) token stream from the pipeline, router cg and topk; "
+        "the smoke config's train steps on the stream in f32, card vs CPU")
+    t10 = time.perf_counter()
+    feed = {"driver": driver_path(dev)}
+    q_ms = ssm_train["mamba2-130m"]["run"]["step_ms_mean"]
+    log("  (s) steps that do not save: " + ", ".join(
+        f"{k} {feed['driver'][k]['step_ms_mean']:.1f} ms"
+        for k in ("a", "b")) + f" against phase 9's (q) {q_ms:.1f} ms; "
+        f"peak device memory {feed['driver']['peak_gb']:.4f} GB against "
+        f"(q)'s {ssm_train['mamba2-130m']['run']['peak_gb']:.4f} GB")
+    feed["stream"] = stream_path(dev, args.seed, train["runs"][:2])
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    # 11. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -3038,7 +3378,8 @@ def main() -> int:
                                    for r in schemes)
     launches["cg_dispatch"] = sum(
         r["launches"]["cg_dispatch"]
-        for r in moe["runs"] + [moe["long"], moe["serving"]] + train["runs"])
+        for r in moe["runs"] + [moe["long"], moe["serving"]] + train["runs"]
+        + feed["stream"]["runs"])
     # per launch shape: (a)'s block-128 slots and their tails, its block-1
     # slots; zamba2 8 × 1,024 and 8 × 4,096, mamba2 8 × 4,096
     snap = {k: sum(r["launches"][k] for r in runs + fig11)
@@ -3061,6 +3402,10 @@ def main() -> int:
     launches["ssd_scan[mamba2]"] += q_run["ssd_scan"]
     for name, run in zip(BWD_ROWS, (r_run, r_long, q_run)):
         launches[name] = run["ssd_scan_bwd"]
+    # phase 10's driver runs (s): mamba2 at 8 × 4,096
+    for run in (feed["driver"]["a"], feed["driver"]["b"]):
+        launches["ssd_scan[mamba2]"] += run["launches"]["ssd_scan"]
+        launches["ssd_scan_bwd[mamba2]"] += run["launches"]["ssd_scan_bwd"]
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -3106,7 +3451,7 @@ def main() -> int:
             card=card, **built, timing=timing, runs=runs, fig11=fig11,
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
-            train=train, ssd_bwd=bwd_err, ssm_train=ssm_train,
+            train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
             kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,8 +10,8 @@ numbers; ``None`` is an empty subtree. Fault-tolerance contract:
   * writes go to ``step_<n>.tmp`` then ``os.rename`` → a crash mid-write
     can never corrupt the latest checkpoint;
   * ``latest_step`` scans only committed directories;
-  * ``AsyncCheckpointer`` copies device tensors to the host on the
-    caller's thread and writes on a background thread.
+  * ``AsyncCheckpointer`` copies every leaf to the host on the
+    caller's thread (CPU tensors too) and writes on a background thread.
 """
 from __future__ import annotations
 
@@ -77,13 +77,16 @@ def num_leaves(structure) -> int:
 
 
 def _host(x) -> np.ndarray:
-    """A leaf as a host numpy array (bf16 widened: npz has no bf16)."""
+    """A leaf as a host numpy array of its own (bf16 widened: npz has no
+    bf16): always a copy, never a view of the caller's storage, so a
+    step that updates the state in place while a save is being written
+    does not reach into that save."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.numpy()
-    a = np.asarray(x)
+    a = np.array(x)
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
@@ -164,8 +167,8 @@ def restore(ckpt_dir: str, step: int, like):
 
 
 class AsyncCheckpointer:
-    """Background-thread saver: snapshot on the caller thread (device →
-    host), write on the worker. At most one in-flight save; a new save
+    """Background-thread saver: snapshot on the caller thread (a host
+    copy of every leaf), write on the worker. At most one in-flight save; a new save
     waits for the previous one (bounded host memory)."""
 
     def __init__(self, ckpt_dir: str, max_keep: int = 3):

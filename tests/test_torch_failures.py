@@ -4,6 +4,7 @@ served, in-flight, owner-map and tick-latency traces, sync and async
 submit), evacuation, migration cost, the checkpointer and the stateful
 VW migrator. Mirrors ``tests/test_failures.py``."""
 import os
+import time
 
 import numpy as np
 import pytest
@@ -275,6 +276,31 @@ def test_checkpointer_atomic_round_trip_and_reference_compatible(tmp_path):
     saver.save(6, tree)
     saver.wait()
     assert tckpt.all_steps(str(tmp_path / "async")) == [6]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_async_save_holds_the_state_at_the_call(monkeypatch, tmp_path,
+                                                dtype):
+    """A save snapshots every leaf on the caller's thread, CPU tensors and
+    numpy arrays too: an in-place update made while a slow writer is still
+    writing does not reach the committed checkpoint."""
+    savez = np.savez
+
+    def slow(*args, **kwargs):
+        time.sleep(0.5)
+        savez(*args, **kwargs)
+
+    monkeypatch.setattr(np, "savez", slow)
+    tree = {"w": torch.arange(6, dtype=dtype), "n": np.arange(3.0)}
+    want = {"w": tree["w"].clone(), "n": tree["n"].copy()}
+    saver = tckpt.AsyncCheckpointer(str(tmp_path))
+    saver.save(0, tree)
+    tree["w"].add_(100)
+    tree["n"] += 100
+    saver.wait()
+    back = tckpt.restore(str(tmp_path), 0, tree)
+    assert back["w"].dtype == dtype and torch.equal(back["w"], want["w"])
+    np.testing.assert_array_equal(back["n"], want["n"])
 
 
 def test_engine_migrator_matches_jax(tmp_path):

@@ -35,6 +35,9 @@ from repro_torch.models import model_zoo, moe_transformer
 from repro_torch.moe import route
 from repro_torch import optim
 from repro_torch.launch import steps
+from repro_torch.data import pipeline
+from repro_torch.runtime import straggler
+from repro_torch.launch import train
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
 res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
                          hh_scheme="w"), keys,
@@ -111,7 +114,11 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.models.hybrid",
                                     "repro_torch.models.layers",
                                     "repro_torch.optim",
-                                    "repro_torch.launch.steps"])
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.data",
+                                    "repro_torch.runtime",
+                                    "repro_torch.runtime.straggler",
+                                    "repro_torch.launch.train"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -182,7 +189,7 @@ def test_engine_names():
         backend.resolve_engine("bogus", cpu)
 
 
-def test_cuda_device_without_cuda_raises():
+def test_cuda_device_without_cuda_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     keys = np.arange(256, dtype=np.int32)
@@ -196,6 +203,8 @@ def test_cuda_device_without_cuda_raises():
     ssm_cfg = configs.get_smoke_config("mamba2-130m")
     hybrid_cfg = configs.get_smoke_config("zamba2-2.7b")
     from repro_torch.models import hybrid, mamba2
+    from repro_torch.launch import train
+    from repro_torch.runtime import fault_tolerance, straggler
     for call in (lambda: cg.run(cfg, keys, np.ones(2)),
                  lambda: ref.ref_porc_route(keys, 8),
                  lambda: ref.ref_porc_multisource(keys, 8, 2),
@@ -217,7 +226,14 @@ def test_cuda_device_without_cuda_raises():
                  lambda: model_zoo.init_cache(ssm_cfg, 2, 16),
                  lambda: serve.main(["--arch", "zamba2-2.7b",
                                      "--requests", "4"]),
-                 lambda: serve.main(["--requests", "4"])):
+                 lambda: serve.main(["--requests", "4"]),
+                 lambda: straggler.DelegationBalancer(4),
+                 lambda: fault_tolerance.FaultTolerantRunner(
+                     fault_tolerance.FTConfig(ckpt_dir=str(tmp_path)), 2),
+                 lambda: train.train("mamba2-130m", n_steps=1,
+                                     ckpt_dir=str(tmp_path)),
+                 lambda: train.main(["--arch", "mamba2-130m", "--steps",
+                                     "1", "--ckpt-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -269,6 +285,42 @@ def test_chip_smoke_main_path_rehearses_on_cpu():
     assert block1_vw.shape == (20_000,)
 
 
+def test_chip_smoke_feed_phase_rehearses_on_cpu():
+    """``chip_smoke.py``'s phase 10 at the smoke size on the CPU, with
+    every check it makes on the card but the launches: (s) the driver's
+    run A (host 3 lost at step 6; its shards where the capacity rule puts
+    them, none on a dead host, none lost; checkpoints 0, 4, 8) and run B
+    (the restored state bit for bit A's final one, the first lr at A's
+    count, B's last loss below A's first; lr 1e-2 so that the smoke
+    model learns in 12 steps), and (t) the MoE on the pipeline's stream
+    with CG dropping no more than top-k, then the smoke config's train
+    steps on the stream, "card" against CPU (here CPU against CPU)."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    dev = torch.device("cpu")
+    out = chip_smoke.driver_path(dev, batch=4, seq=32, smoke=True,
+                                 check_launches=False)
+    assert out["committed"] == [0, 4, 8]
+    assert [r["step"] for r in out["a"]["steps"]] == list(range(9))
+    assert [r["step"] for r in out["b"]["steps"]] == [8, 9, 10, 11]
+    assert [r["saved"] for r in out["a"]["steps"]] == [
+        s % 4 == 0 for s in range(9)]
+    assert out["evacuated"] == chip_smoke.evacuation_by_rule(
+        [0] * 8 + [1] * 8 + [2] * 8 + [3] * 8, 3, 4)
+    assert sorted(np.bincount(out["owner_a"], minlength=4)) == [0, 10, 11,
+                                                                 11]
+    st = chip_smoke.stream_path(dev, 0, [], n_layers=None, steps=3,
+                                smoke=True, check_launches=False)
+    assert [r["router"] for r in st["runs"]] == ["cg", "topk"]
+    assert all(len(r["steps"]) == 3 for r in st["runs"])
+    assert len(st["reference"]["losses"]) == 3
+    assert st["reference"]["max_rel_err"] == 0.0
+
+
 # every module of the port, for the walk over its public functions
 _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.core.cg", "repro_torch.core.controller",
@@ -288,7 +340,8 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.moe.router", "repro_torch.launch.serve",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
             "repro_torch.models.hybrid", "repro_torch.optim.adamw",
-            "repro_torch.launch.steps")
+            "repro_torch.launch.steps", "repro_torch.data.pipeline",
+            "repro_torch.runtime.straggler", "repro_torch.launch.train")
 
 
 def _public_callables():
@@ -340,7 +393,11 @@ def test_no_public_entry_point_defaults_to_the_cpu():
                  "repro_torch.models.hybrid.init_params",
                  "repro_torch.models.hybrid.Hybrid",
                  "repro_torch.models.hybrid.SharedBlock",
-                 "repro_torch.models.layers.MLP"):
+                 "repro_torch.models.layers.MLP",
+                 "repro_torch.runtime.straggler.DelegationBalancer",
+                 "repro_torch.runtime.fault_tolerance.FaultTolerantRunner",
+                 "repro_torch.launch.train.Trainer",
+                 "repro_torch.launch.train.train"):
         assert must in with_device, must
 
 

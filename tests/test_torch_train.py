@@ -353,6 +353,40 @@ def test_train_step_matches_jax(grad_accum, router, skew):
         assert err <= 1e-5 * float(q.abs().max()) + 1e-3 * lr_sum, name
 
 
+@pytest.mark.parametrize("router", ["cg", "topk"])
+def test_train_steps_on_the_token_stream_match_jax(router):
+    """``chip_smoke.py``'s (t) at the smoke size: five steps, step i on the
+    port's ``ShardedTokenPipeline(...).global_batch(i)`` (zipf(1.1), a
+    fresh batch each step), with AdamW as (t) has it (peak 3e-4, warm-up
+    2, eps 1e-8), in the port and in the reference on the same weights
+    and tokens. The losses agree within 1e-5 relative (the driver's
+    parity bound, ``tests/test_torch_train_driver.py``: eps 1e-8 lets the
+    weights drift apart by more than a step's rounding) and the routing
+    telemetry is equal, so the trend of the loss on a stream is the
+    reference's, not the port's."""
+    from repro_torch.data import PipelineConfig, ShardedTokenPipeline
+    cfg, jcfg = smoke_configs(router)
+    kw = dict(warmup_steps=2, total_steps=5)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, joptim.AdamWConfig(**kw)))
+    step = make_train_step(cfg, optim.AdamWConfig(**kw))
+    jp = jax_params()
+    model = torch_params(cfg, jp)
+    jo, to = joptim.init(jp), optim.init(model)
+    pipe = ShardedTokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=8, n_hosts=4))
+    losses = []
+    for i in range(5):
+        batch = pipe.global_batch(i)
+        jp, jo, jm = jstep(jp, jo, {"tokens": jnp.asarray(batch.numpy())})
+        model, to, tm = step(model, to, {"tokens": batch})
+        assert rel(tm["loss"], jm["loss"]) < 1e-5, i
+        for name in ("moe_drop_frac", "moe_max_load_frac", "moe_load"):
+            np.testing.assert_array_equal(tm[name].numpy(),
+                                          np.asarray(jm[name]), err_msg=name)
+        losses.append((float(tm["loss"]), float(jm["loss"])))
+    print(router, "losses (port, reference):", losses)
+
+
 # ------------------------------------------------- Mamba-2 and zamba2
 
 SSM_ARCHS = ("mamba2-130m", "zamba2-2.7b")
