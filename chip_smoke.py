@@ -139,7 +139,26 @@ Phases:
      step beside phase 8's fixed batch, CG dropping no more than top-k;
      then the smoke config's 5 train steps on the stream in f32 on the
      card against the CPU (loss, lr, grad_norm, routing telemetry);
- 11. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 11. the mesh tier: (u1) ``MeshCGRequestRouter`` on one rank over NCCL
+     (``launch.mesh.make_source_mesh``) at phase 5's deployment and
+     schedule without its policy (the mesh refuses W-Choices), under
+     ``ServingEngine(async_submit=True)``, against the single-host
+     ``CGRequestRouter`` of the same configuration: every admitted
+     batch's replica ids, every tick's counts, the served counts, the
+     owner map and every latency must be equal, nothing lost; then that
+     rank routes the demo stream below; (u2) 8 ranks on the one card over
+     gloo (``launch.mesh.spawn_ranks``; NCCL refuses two ranks on one
+     device), one source a rank, each routing its lane with the
+     multisource kernel on ``bench_multihost.py --demo``'s deployment
+     (2^21 + 7 zipf(1.2) keys, 8,192 bins, block 2,048, chunk 16) at
+     sync 1 and 3: assignment, base, every lane, ticks and routed equal
+     to ``ref_porc_multisource(engine="cuda")`` in this process bit for
+     bit on every rank, and a kill-one serving run (4 replicas, 30
+     ticks, async) that loses nothing; msgs/s of the mesh route at 1
+     and 8 ranks beside the single-process kernel route, launches and
+     collectives a call; the kernel timed at a rank's launch shape (1
+     lane, 8,192 bins, block 2,048, the cap of 8 sources);
+ 12. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -491,7 +510,9 @@ def time_snapshot(keys, dev, n: int, M: int, block: int, warm: int = 0,
 
 
 def time_ms(keys, dev, n: int, S: int, block: int, steps: int, pol=None,
-            sync: int = 1, warm: int = 0, plain: bool = True) -> dict:
+            sync: int = 1, warm: int = 0, plain: bool = True,
+            eps: float = 0.01, chunk: int = 8,
+            global_sources: int | None = None, compare: bool = False) -> dict:
     """porc_multisource_scan (``pol``: its HHPolicy branch) on one span
     of ``steps`` steps of ``block`` keys per source, from the state the
     first ``warm`` messages leave (span driver on the card, block 128,
@@ -499,7 +520,10 @@ def time_ms(keys, dev, n: int, S: int, block: int, steps: int, pol=None,
     (``cuda_ms``, host issue included, as every kernel's row is timed);
     ``device_ms``, the kernel's own device time per launch
     (``kernel_ms``); the plain engine on the same inputs; and the bytes
-    and operations of the bound."""
+    and operations of the bound. ``global_sources``: the lanes are one
+    rank's of a mesh (``kernels.mesh``). ``compare`` (policy-free only):
+    the kernel's outputs must equal the plain engine's on these inputs,
+    and ``max_abs_err`` is their largest difference."""
     from repro_torch.kernels.porc_snapshot import porc_multisource_scan
     from repro_torch.kernels import ref
     st = ref.multisource_state_init(n, S, pol, device=dev)
@@ -509,22 +533,32 @@ def time_ms(keys, dev, n: int, S: int, block: int, steps: int, pol=None,
                                          policy=pol, device=dev)
     M = S * block * steps
     k = keys[warm: warm + M].contiguous()
-    args = (k, n, S, sync, block, 0.01, 8, st.base, st.delta, st.ticks,
+    args = (k, n, S, sync, block, eps, chunk, st.base, st.delta, st.ticks,
             st.sketch_base, st.sketch_delta, pol)
-    ms = cuda_ms(lambda: porc_multisource_scan(*args), reps=50)
-    device_ms = kernel_ms(lambda: porc_multisource_scan(*args), 50,
+    kw = dict(global_sources=global_sources)
+    ms = cuda_ms(lambda: porc_multisource_scan(*args, **kw), reps=50)
+    device_ms = kernel_ms(lambda: porc_multisource_scan(*args, **kw), 50,
                           "porc_multisource")
     plain_ms = cuda_ms(lambda: ref._porc_multisource_scan(
-        *args[:7], "snapshot", *args[7:]), reps=3, warmup=1) if plain \
+        *args[:7], "snapshot", *args[7:], **kw), reps=3, warmup=1) if plain \
         else None
     shape = f"M={M} S={S} n_bins={n} block={block} steps={steps}"
     if pol is None:
-        a = porc_multisource_scan(*args)[0]
+        got = porc_multisource_scan(*args, **kw)
+        a = got[0]
         nbytes = 4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
-        ops = (probes_used(k, a, n, 8) * OPS_PER_PROBE + M
+        ops = (probes_used(k, a, n, chunk) * OPS_PER_PROBE + M
                + steps * (S + 1) * n * 2)
-        return dict(shape=shape, ms=ms, device_ms=device_ms,
-                    plain_ms=plain_ms, bytes=nbytes, ops=ops)
+        out = dict(shape=shape, ms=ms, device_ms=device_ms,
+                   plain_ms=plain_ms, bytes=nbytes, ops=ops)
+        if compare:
+            want = ref._porc_multisource_scan(*args[:7], "snapshot",
+                                              *args[7:], **kw)
+            out["max_abs_err"] = max(
+                _same(f"{shape}: {f}", x, y)
+                for f, x, y in zip(("assign", "base", "delta", "ticks"),
+                                   got, want))
+        return out
     D, W = pol.depth, pol.width
     lanes = (1 + S) * D * W
     nbytes = (4 * M * 2 + 4 * n * 2 + 4 * S * n * 2 + 8
@@ -1835,28 +1869,42 @@ def schemes_path(dev, wp_keys, m: int = 200_000, ns=(5, 10, 50, 100),
 # Phase 5: serving with its failure path
 # ---------------------------------------------------------------------------
 
-def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
-                 check_launches: bool = True) -> dict:
-    """A ``ServingEngine`` on ``dev`` over a W-Choices router at the
-    deployment's width, under slowdowns and a kill-and-recover schedule,
-    offered 0.75 of the fleet's drain rate (the utilisation of
-    ``benchmarks/bench_failures.py``), then drained. Fails if a request
-    is lost or dropped, or the HHPolicy kernel never launched."""
-    import numpy as np
-    import torch
+SERVING_W, SERVING_SLOW = 24, 0.3
+
+
+def serving_router_kw() -> dict:
+    """Phase 5's router at the deployment's width (24 replicas × α=20,
+    8 sources), without its heavy-hitter policy."""
+    return dict(n_replicas=SERVING_W, alpha=20, n_sources=8,
+                capacity_weighted=True, adaptive_moves=True, hysteresis=True,
+                state_bytes_per_request=256 * 1024.0, engine="auto")
+
+
+def serving_keys(seed: int, n_ticks: int, per_tick: int):
     from repro_torch.core import streams
-    from repro_torch.runtime.chaos import ChaosEvent, ChaosSchedule
-    from repro_torch.serve import CGRequestRouter, ServingEngine
-    W, slow = 24, 0.3
-    crash_at, recover_at = int(0.4 * n_ticks), int(0.7 * n_ticks)
-    max_batch = round(per_tick / (0.75 * (W - 2 + 2 * slow)))
-    keys = streams.sample_trace(
+    return streams.sample_trace(
         seed + 2, streams.TraceSpec(**TW_TABLE1), n_ticks * per_tick,
         device="cpu").numpy()
-    router = CGRequestRouter(
-        n_replicas=W, alpha=20, n_sources=8, hh_scheme="w",
-        capacity_weighted=True, adaptive_moves=True, hysteresis=True,
-        state_bytes_per_request=256 * 1024.0, engine="auto", device=dev)
+
+
+def serve_under_chaos(name: str, router, keys, n_ticks: int, per_tick: int,
+                      dev) -> tuple[dict, dict]:
+    """A ``ServingEngine(async_submit=True)`` on ``dev`` over ``router``
+    under phase 5's schedule (replicas 0 and 1 at 30% from tick 1,
+    replica 3 crashed at 0.4·``n_ticks`` and back at 0.7·``n_ticks``),
+    offered 0.75 of the fleet's drain rate (the utilisation of
+    ``benchmarks/bench_failures.py``), then drained. Fails if a request is
+    lost or dropped at any tick or the crash was never evacuated. Returns
+    (the summary, the trace: replica ids of every admitted batch,
+    (submitted, served, in flight) after every tick, served per replica,
+    the owner map)."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.chaos import ChaosEvent, ChaosSchedule
+    from repro_torch.serve import ServingEngine
+    W, slow = SERVING_W, SERVING_SLOW
+    crash_at, recover_at = int(0.4 * n_ticks), int(0.7 * n_ticks)
+    max_batch = round(per_tick / (0.75 * (W - 2 + 2 * slow)))
     chaos = ChaosSchedule([ChaosEvent(1, "slow", 0, factor=1 / slow),
                            ChaosEvent(1, "slow", 1, factor=1 / slow),
                            ChaosEvent(crash_at, "crash", 3),
@@ -1865,12 +1913,21 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
                         max_batch=max_batch, chaos=chaos,
                         heartbeat_timeout_steps=2, readmit_ramp_steps=20,
                         async_submit=True)
+    admitted, ticks = [], []
+    finalize = router.finalize_batch
+
+    def record(assign_vw):
+        admitted.append(finalize(assign_vw))
+        return admitted[-1]
+
+    router.finalize_batch = record
+
+    def served() -> int:
+        return sum(r.served for r in eng.replicas)
 
     def lost():
-        return eng.submitted - sum(r.served for r in eng.replicas) \
-            - eng.in_flight
+        return eng.submitted - served() - eng.in_flight
 
-    zero_counts()
     marks = []
     t0 = time.perf_counter()
     for tick in range(n_ticks):
@@ -1878,8 +1935,9 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
         eng.submit_batch(k, list(k))
         eng.step()
         marks.append(len(eng.latency_steps))
+        ticks.append((eng.submitted, served(), eng.in_flight))
         if lost():
-            fail(f"serving: {lost()} requests lost at tick {tick + 1}")
+            fail(f"{name}: {lost()} requests lost at tick {tick + 1}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
@@ -1887,15 +1945,11 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
     while eng.in_flight and drain_ticks < 20 * n_ticks:
         eng.step()
         drain_ticks += 1
-    launches = read_counts()["porc_multisource_scan_hh"]
-    served = sum(r.served for r in eng.replicas)
-    if eng.in_flight or lost() or eng.dropped or served != eng.submitted:
-        fail(f"serving: submitted {eng.submitted}, served {served}, in "
+    if eng.in_flight or lost() or eng.dropped or served() != eng.submitted:
+        fail(f"{name}: submitted {eng.submitted}, served {served()}, in "
              f"flight {eng.in_flight}, dropped {eng.dropped}")
-    if check_launches and launches <= 0:
-        fail("serving: the router never launched the HHPolicy kernel")
     if eng.evacuations < 1:
-        fail("serving: the crashed replica was never evacuated")
+        fail(f"{name}: the crashed replica was never evacuated")
     lat = np.asarray(eng.latency_steps)
 
     def window(lo_tick, hi_tick):
@@ -1910,19 +1964,41 @@ def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
         requests=n_ticks * per_tick, ticks=n_ticks, max_batch=max_batch,
         seconds=secs, requests_per_s=n_ticks * per_tick / secs,
         host_ms_per_tick=secs / n_ticks * 1e3, drain_ticks=drain_ticks,
-        submitted=eng.submitted, served=served, lost=lost(),
+        submitted=eng.submitted, served=served(), lost=lost(),
         dropped=eng.dropped, retried=eng.retried,
         evacuations=eng.evacuations, moves=router.moves,
-        bytes_moved=router.bytes_moved, hh_launches=launches,
+        bytes_moved=router.bytes_moved,
         latency_before=window(1, crash_at),
         latency_during=window(crash_at, recover_at),
         latency_after=window(recover_at, n_ticks + 1 + drain_ticks))
-    log(f"  serving: {out['requests']} requests in {secs:.3f} s = "
+    log(f"  {name}: {out['requests']} requests in {secs:.3f} s = "
         f"{out['requests_per_s']:,.0f} dispatched requests/s "
         f"({out['host_ms_per_tick']:.3f} ms/tick, max_batch {max_batch}); "
         f"lost {out['lost']}, dropped {eng.dropped}, retried {eng.retried}; "
         f"evacuations {eng.evacuations}, moves {router.moves}, bytes moved "
-        f"{router.bytes_moved:.0f}; HH kernel launches {launches}")
+        f"{router.bytes_moved:.0f}")
+    trace = dict(admitted=admitted, ticks=ticks,
+                 per_replica=[r.served for r in eng.replicas],
+                 owner=router.vw_owner, latency=lat)
+    return out, trace
+
+
+def serving_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
+                 check_launches: bool = True) -> dict:
+    """(e) ``serve_under_chaos`` over a W-Choices router at the
+    deployment's width. Fails if a request is lost or dropped, or the
+    HHPolicy kernel never launched."""
+    from repro_torch.serve import CGRequestRouter
+    keys = serving_keys(seed, n_ticks, per_tick)
+    router = CGRequestRouter(hh_scheme="w", device=dev, **serving_router_kw())
+    zero_counts()
+    out, _ = serve_under_chaos("serving", router, keys, n_ticks, per_tick,
+                               dev)
+    launches = read_counts()["porc_multisource_scan_hh"]
+    if check_launches and launches <= 0:
+        fail("serving: the router never launched the HHPolicy kernel")
+    out["hh_launches"] = launches
+    log(f"  serving: HH kernel launches {launches}")
     for phase in ("before", "during", "after"):
         w = out[f"latency_{phase}"]
         log(f"  serving tick latency {phase} the failure: mean "
@@ -3134,6 +3210,238 @@ def stream_reference_check(dev, seed: int, steps: int = 5) -> dict:
     return dict(losses=losses, max_rel_err=worst)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh tier
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 8
+# benchmarks/bench_multihost.py --demo's deployment: 2^21 zipf(1.2) keys
+# over 100,000, 8,192 bins, blocks of 2,048, probe chunk 16, 8 sources
+# (one a rank on MESH_RANKS ranks); 7 more keys make a sub-S ragged tail
+MESH_DEMO = dict(M=2**21 + 7, n_bins=8192, block=2048, chunk=16, eps=0.05,
+                 n_sources=8)
+MESH_SYNC = (1, 3)
+
+
+def mesh_demo_keys(seed: int, M: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(1.2, M) % 100_000).astype(np.int32)
+
+
+def same_arrays(name: str, got, want) -> float:
+    """Fails unless the host arrays have equal shapes and values; returns
+    their largest difference."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    err = (float(np.abs(got.astype(float) - want.astype(float)).max())
+           if got.shape == want.shape and got.size else
+           0.0 if got.shape == want.shape else float("nan"))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"{name}: {got.shape} differs from {want.shape} (max abs err "
+             f"{err})")
+    return err
+
+
+def same_serving(name: str, got: dict, want: dict) -> None:
+    """Two ``serve_under_chaos`` traces: every admitted batch's replica
+    ids, every tick's counts, the served counts, the owner map and every
+    request's latency."""
+    if len(got["admitted"]) != len(want["admitted"]):
+        fail(f"{name}: {len(got['admitted'])} admitted batches against "
+             f"{len(want['admitted'])}")
+    for i, (x, y) in enumerate(zip(got["admitted"], want["admitted"])):
+        same_arrays(f"{name}: admitted batch {i}", x, y)
+    if got["ticks"] != want["ticks"]:
+        fail(f"{name}: the per-tick counts differ")
+    if got["per_replica"] != want["per_replica"]:
+        fail(f"{name}: served {got['per_replica']} against "
+             f"{want['per_replica']}")
+    same_arrays(f"{name}: owner map", got["owner"], want["owner"])
+    same_arrays(f"{name}: latencies", got["latency"], want["latency"])
+
+
+def mesh_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
+              M: int = MESH_DEMO["M"], ranks: int = MESH_RANKS,
+              reps: int = 3, check_launches: bool = True) -> dict:
+    """(u) the mesh tier. (u1) one rank, over NCCL on the card (gloo on
+    the CPU): ``serve_under_chaos`` at phase 5's deployment without its
+    policy (the mesh refuses W-Choices) over ``MeshCGRequestRouter`` and
+    over the single-host ``CGRequestRouter`` of the same configuration,
+    which must agree batch for batch; then that rank routes the demo
+    stream (``MESH_DEMO``, ``M`` keys). (u2) ``ranks`` ranks started
+    with ``spawn_ranks`` on the one card over gloo (NCCL refuses two
+    ranks on a device): each routes its lanes of the demo stream with
+    the kernel at sync 1 and 3, and serves a kill-one (4 replicas, 30
+    ticks, async). The single-host twin of (u1) routes with the plain
+    engine, and every route of the demo stream (one rank, each of
+    ``ranks``, and on the card the single-process kernel route) must
+    equal the plain ``ref_porc_multisource(engine="snapshot")`` in this
+    process bit for bit (assignment, base, every lane, ticks, routed);
+    each rank must launch the kernel. ``max_abs_err`` is the largest
+    difference of all those comparisons. Times the mesh route at one rank
+    and at ``ranks`` beside the single-process kernel route on the same
+    stream (``reps`` calls each, median); the ranks of (u2) share one
+    card, so theirs is no scale-out figure."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import (engine_chaos, make_source_mesh,
+                                         route, run_all, spawn_ranks)
+    from repro_torch.serve import CGRequestRouter, MeshCGRequestRouter
+    on_card = dev.type == "cuda"
+    demo = dict(MESH_DEMO, M=M)
+    keys = mesh_demo_keys(seed, M)
+    route_kw = dict(n_bins=demo["n_bins"], n_sources=demo["n_sources"],
+                    block=demo["block"], chunk=demo["chunk"], eps=demo["eps"])
+    out = {}
+    errs = []
+
+    # (u1) one rank: the serving trace against the plain single-host
+    # router's
+    backend = "nccl" if on_card else "gloo"
+    mesh = make_source_mesh(backend=backend, device=dev)
+    try:
+        skeys = serving_keys(seed, n_ticks, per_tick)
+        router = MeshCGRequestRouter(mesh=mesh, device=dev,
+                                     **serving_router_kw())
+        zero_counts()
+        mesh.collectives.clear()
+        u1, trace = serve_under_chaos(
+            f"(u1) MeshCGRequestRouter, 1 rank over {mesh.backend}", router,
+            skeys, n_ticks, per_tick, dev)
+        counts = read_counts()
+        check_counts("(u1)", counts, "porc_multisource_scan", dev,
+                     check_launches)
+        u1.update(backend=mesh.backend, launches=counts[
+            "porc_multisource_scan"], collectives=dict(mesh.collectives))
+        twin = CGRequestRouter(device=dev,
+                               **dict(serving_router_kw(), engine="ref"))
+        u1_twin, twin_trace = serve_under_chaos(
+            "(u1) single-host CGRequestRouter, plain engine", twin, skeys,
+            n_ticks, per_tick, dev)
+        same_serving("(u1) mesh vs single-host", trace, twin_trace)
+        log(f"  (u1) {len(trace['admitted'])} admitted batches, every tick's "
+            "counts, served per replica, the owner map and every latency "
+            f"equal the plain single-host router's; kernel launches "
+            f"{u1['launches']}, collectives {u1['collectives']}")
+        out["u1"] = dict(mesh=u1, single_host=u1_twin)
+        del trace, twin_trace, skeys
+        # the demo stream on this one rank
+        one = {s: route(mesh, keys, sync_every=s, timed_reps=reps,
+                        **route_kw)
+               for s in MESH_SYNC}
+    finally:
+        mesh.close()
+
+    # (u2) `ranks` ranks on this device over gloo
+    t0 = time.perf_counter()
+    cases = [(route, dict(keys=keys, sync_every=s, timed_reps=reps,
+                          **route_kw))
+             for s in MESH_SYNC]
+    cases.append((engine_chaos, {}))
+    runs = spawn_ranks(run_all, ranks, cases, backend="gloo",
+                       device=str(dev))
+    spawn_s = time.perf_counter() - t0
+    res = [r["results"] for r in runs]
+    program_s = [float(max(r["seconds"][i] for r in runs))
+                 for i in range(len(cases))]
+    kt = torch.from_numpy(keys).to(dev)
+    engine = "cuda" if on_card else "auto"
+    rows = []
+    def single_process(s: int, eng: str) -> dict:
+        a, st = ref.ref_porc_multisource(
+            kt, demo["n_bins"], demo["n_sources"], sync_every=s,
+            block=demo["block"], eps=demo["eps"], chunk=demo["chunk"],
+            engine=eng, device=dev)
+        return dict(assign=a.cpu().numpy(), base=st.base.cpu().numpy(),
+                    delta=st.delta.cpu().numpy(), ticks=int(st.ticks),
+                    routed=float(st.routed))
+
+    for i, s in enumerate(MESH_SYNC):
+        want = single_process(s, "snapshot")
+        routes = [("1 rank", one[s])] + [
+            (f"rank {r} of {ranks}", rr[i]) for r, rr in enumerate(res)]
+        if on_card:
+            routes.append(("single-process kernel route",
+                           single_process(s, engine)))
+        for label, got in routes:
+            for f in ("assign", "base", "delta", "ticks", "routed"):
+                errs.append(same_arrays(f"(u) sync {s}, {label}: {f}",
+                                        got[f], want[f]))
+            if check_launches and on_card and "launches" in got and \
+                    got["launches"] <= 0:
+                fail(f"(u) sync {s}, {label}: the kernel never launched")
+        ref_s = []
+        for _ in range(reps):
+            if on_card:
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            ref.ref_porc_multisource(
+                kt, demo["n_bins"], demo["n_sources"], sync_every=s,
+                block=demo["block"], eps=demo["eps"], chunk=demo["chunk"],
+                engine=engine, device=dev)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            ref_s.append(time.perf_counter() - t1)
+        per_rep = np.max([rr[i]["seconds"] for rr in res], axis=0)
+        row = dict(
+            sync_every=s, messages=M,
+            single_process_msgs_per_s=M / float(np.median(ref_s)),
+            one_rank_msgs_per_s=M / float(np.median(one[s]["seconds"])),
+            ranks_msgs_per_s=M / float(np.median(per_rep)), ranks=ranks,
+            one_rank_launches=one[s]["launches"],
+            one_rank_collectives=one[s]["collectives"],
+            rank_launches=[rr[i]["launches"] for rr in res],
+            rank_collectives=res[0][i]["collectives"],
+            rank_host_copies=res[0][i]["host_copies"])
+        rows.append(row)
+        log(f"  (u) sync {s}: {M} messages on 1 rank ({backend}), on each "
+            f"of {ranks} ranks (gloo)"
+            + (" and through the single-process kernel route" if on_card
+               else "") + " identical to the plain "
+            "ref_porc_multisource(engine='snapshot') in one process")
+        log(f"  (u) sync {s}: msgs/s single-process route (engine={engine!r}) "
+            f"{row['single_process_msgs_per_s']:,.0f}; mesh route 1 rank "
+            f"({backend}) {row['one_rank_msgs_per_s']:,.0f}; {ranks} ranks "
+            f"(gloo, {ranks} processes sharing one card: not a scale-out "
+            f"figure) {row['ranks_msgs_per_s']:,.0f}")
+        log(f"  (u) sync {s}: a call: 1 rank {row['one_rank_launches']} "
+            f"launches, collectives {row['one_rank_collectives']}; each of "
+            f"{ranks} ranks {row['rank_launches'][0]} launches, collectives "
+            f"{row['rank_collectives']}, {row['rank_host_copies']} host "
+            "copies (gloo staging)")
+    chaos = [rr[-1] for rr in res]
+    for r, c in enumerate(chaos):
+        if not all(sub == srv + fl for sub, srv, fl in c["trace"]) or \
+                c["in_flight"] or c["dropped"] or c["evacuations"] != 1 \
+                or c["submitted"] != c["served"]:
+            fail(f"(u2) rank {r}: the kill-one run lost requests or never "
+                 f"evacuated: {c['submitted']} submitted, {c['served']} "
+                 f"served, {c['in_flight']} in flight, {c['dropped']} "
+                 f"dropped, {c['evacuations']} evacuations")
+        if c["per_replica"] != chaos[0]["per_replica"]:
+            fail(f"(u2) rank {r} served {c['per_replica']}, rank 0 "
+                 f"{chaos[0]['per_replica']}")
+        same_arrays(f"(u2) rank {r}: owner map", c["owner"],
+                    chaos[0]["owner"])
+    log(f"  (u2) kill-one on {ranks} ranks: {chaos[0]['submitted']} "
+        f"submitted, served {chaos[0]['per_replica']} on every rank, "
+        f"drained in {chaos[0]['drain']} ticks, 0 lost, 0 dropped")
+    log(f"  (u2) the {ranks} ranks took {spawn_s:.1f} s: the slowest rank's "
+        f"programs {', '.join(f'{x:.1f}' for x in program_s)} s (route at "
+        f"sync {', '.join(map(str, MESH_SYNC))} with {reps} timed calls "
+        "each, "
+        f"the kill-one), the rest start-up and teardown")
+    launches = out["u1"]["mesh"]["launches"] + sum(
+        one[s]["launches"] for s in MESH_SYNC) + sum(
+        sum(rr[i]["launches"] for i in range(len(MESH_SYNC))) for rr in res)
+    out.update(routes=rows, chaos_per_replica=chaos[0]["per_replica"],
+               spawn_s=spawn_s, program_s=program_s, launches=launches,
+               max_abs_err=max(errs))
+    return out
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -3368,7 +3676,34 @@ def main() -> int:
     feed["stream"] = stream_path(dev, args.seed, train["runs"][:2])
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
-    # 11. report
+    # 11. the mesh tier
+    log("== mesh tier: (u1) MeshCGRequestRouter on 1 rank over NCCL at phase "
+        "5's deployment (policy-free) against the single-host router, then "
+        "the demo stream; (u2) 8 ranks on this card over gloo: the demo "
+        "stream (2^21 + 7 zipf(1.2) keys, 8,192 bins, block 2,048, 8 "
+        "sources) at sync 1 and 3 against ref_porc_multisource, and a "
+        "kill-one serving run")
+    t11 = time.perf_counter()
+    mesh = mesh_path(dev, args.seed)
+    # a rank's launch at sync 1 on the mesh: one block of its lanes with
+    # the in-launch merge off (sync steps + 1) and the global S
+    timing["porc_multisource_scan[mesh]"] = time_ms(
+        torch.from_numpy(mesh_demo_keys(args.seed, MESH_DEMO["M"])).to(dev),
+        dev, n=MESH_DEMO["n_bins"], S=MESH_DEMO["n_sources"] // MESH_RANKS,
+        block=MESH_DEMO["block"], steps=1, sync=2, eps=MESH_DEMO["eps"],
+        chunk=MESH_DEMO["chunk"], global_sources=MESH_DEMO["n_sources"],
+        compare=True)
+    t = timing["porc_multisource_scan[mesh]"]
+    b, by = bound(t)
+    log(f"  porc_multisource_scan[mesh] at {t['shape']} (a rank's launch at "
+        f"sync 1: merge off, global S {MESH_DEMO['n_sources']}): kernel "
+        f"{t['ms']:.4f} ms/launch (CUDA events), {t['device_ms']:.4f} ms "
+        f"device time, plain {t['plain_ms']:.3f} ms, bound {b:.6f} ms "
+        f"({by}); equal to the plain engine's (max abs err "
+        f"{t['max_abs_err']})")
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    # 12. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -3420,6 +3755,8 @@ def main() -> int:
             ("porc_multisource_scan[HHPolicy]",
              launches["porc_multisource_scan_hh"], "porc_snapshot.cu",
              "src/repro/kernels/porc_snapshot.py:207"),
+            ("porc_multisource_scan[mesh]", mesh["launches"],
+             "porc_snapshot.cu", "src/repro/kernels/porc_snapshot.py:207"),
             ("porc_assign", launches["porc_assign"], "porc_assign.cu",
              "src/repro/kernels/porc_assign.py:99"),
             ("porc_multisource_strict", launches["porc_multisource_strict"],
@@ -3439,7 +3776,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src, replaces=replaces,
             launches=count,
-            max_abs_err=err.get(name, err[name.split("[")[0]]), ms=t["ms"],
+            max_abs_err=(max(mesh["max_abs_err"], t["max_abs_err"])
+                         if name.endswith("[mesh]")
+                         else err.get(name, err[name.split("[")[0]])),
+            ms=t["ms"],
             device_ms=t["device_ms"], plain_ms=t["plain_ms"], bound_ms=b,
             bound_by=by, library_ms=None,
             **({"ctas_per_sm": t["ctas_per_sm"]} if "ctas_per_sm" in t
@@ -3452,7 +3792,7 @@ def main() -> int:
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
             train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
-            kernels=kernels),
+            mesh=mesh, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -341,14 +341,24 @@ class VersionedOwnerMap:
     ``adopt`` promotes the head to the base once every router holds it.
     A router that has not adopted the head routes against the base — a
     stale router is conservative, never torn: ``view()`` returns one
-    committed snapshot whole. Versions only move forward. The mesh
-    layout of the reference (``mesh=``) waits for the mesh tier.
+    committed snapshot whole. Versions only move forward.
+
+    ``mesh`` (a ``launch.mesh.SourceMesh``) replicates both snapshots
+    over its ranks, the reference's ``PartitionSpec()`` layout: they live
+    on each rank's device (``device`` is then the mesh's), and every map
+    given to the constructor or to ``commit`` is rank 0's, broadcast, so
+    the copies cannot diverge. Versions, ``adopt`` and ``view`` are the
+    same as without a mesh.
     """
 
     def __init__(self, owner, mesh=None, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "the mesh tier is not ported yet (ROADMAP Queue 1 item 7)")
+            from repro_torch.launch.mesh import SourceMesh
+            if not isinstance(mesh, SourceMesh):
+                raise TypeError(f"mesh must be a launch.mesh.SourceMesh, got "
+                                f"{type(mesh).__name__}")
+            device = mesh.device
+        self._mesh = mesh
         self._device = resolve_device(device)
         owner = self._pin(owner)
         self._base = owner
@@ -357,8 +367,9 @@ class VersionedOwnerMap:
         self._base_version = 0
 
     def _pin(self, owner) -> torch.Tensor:
-        return torch.as_tensor(owner).to(device=self._device,
-                                         dtype=torch.int32)
+        owner = torch.as_tensor(owner).to(device=self._device,
+                                          dtype=torch.int32)
+        return owner if self._mesh is None else self._mesh.broadcast(owner)
 
     @property
     def version(self) -> int:

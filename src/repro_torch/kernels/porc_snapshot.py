@@ -207,10 +207,14 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                           sync_every: int, block: int, eps: float,
                           chunk: int, base0, delta0, ticks0,
                           skb0=None, skd0=None,
-                          policy: HHPolicy | None = None):
+                          policy: HHPolicy | None = None, *,
+                          global_sources: int | None = None):
     """Kernel counterpart of ``ref._porc_multisource_scan``: the core
     multi-source scan over full per-source blocks, same argument order
     and the same ``(assign, base, delta, ticks, skb, skd)`` return.
+    ``global_sources`` (default ``n_sources``): the stream's source
+    count when these lanes are one rank's slice of it; each cap takes
+    the arriving block as block/``global_sources``.
     ``ticks0`` may be a 0-dim int32 device tensor, read by the kernel
     through a pointer. With a ``policy`` the sketch lanes ``skb0``
     [depth, width] and ``skd0`` [S, depth, width] ride along and the
@@ -219,9 +223,11 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     if not keys.is_cuda:
         return _porc_multisource_scan(keys, n_bins, n_sources, sync_every,
                                       block, eps, chunk, "snapshot", base0,
-                                      delta0, ticks0, skb0, skd0, policy)
+                                      delta0, ticks0, skb0, skd0, policy,
+                                      global_sources=global_sources)
     dev = keys.device
     S = n_sources
+    share = block / (global_sources or S)    # the arriving block's share
     M = keys.shape[0]
     check(keys, "keys", torch.int32, (M,), dev)
     if min(block, chunk, n_bins, S, sync_every) < 1 \
@@ -235,7 +241,7 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     if policy is not None:
         return _multisource_hh(keys, n_bins, S, sync_every, block, eps,
                                chunk, base0, delta0, ticks0, skb0, skd0,
-                               policy)
+                               policy, share)
     if skb0 is not None or skd0 is not None:
         raise ValueError("sketch lanes given without an HHPolicy")
     plan = multisource_plan(S, n_bins, block)
@@ -252,8 +258,7 @@ def porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         delta.data_ptr(), ticks.data_ptr(), M // (S * block), S, block,
         n_bins, chunk, sync_every, plan.cluster, plan.threads,
         int(plan.loads_smem), plan.smem_bytes, cap_scale(eps, n_bins),
-        float(np.float32(block / S)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(np.float32(share)), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_multisource_scan")
     porc_multisource_scan.launches += 1
     porc_multisource_scan.plans[plan] += 1
@@ -266,7 +271,8 @@ porc_multisource_scan.plans = collections.Counter()
 
 
 def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
-                    delta0, ticks0, skb0, skd0, policy: HHPolicy):
+                    delta0, ticks0, skb0, skd0, policy: HHPolicy,
+                    share: float):
     """The HHPolicy branch of ``porc_multisource_scan`` on the card (the
     checked inputs of the wrapper)."""
     dev = keys.device
@@ -304,7 +310,7 @@ def _multisource_hh(keys, n_bins, S, sync_every, block, eps, chunk, base0,
         hh_budget_ceiling(policy, n_bins), int(policy.rotate_duplicates),
         int(spread), sort_n, plan.cluster, plan.threads, int(plan.loads_smem),
         int(plan.sketch_smem), plan.smem_bytes, cap_scale(eps, n_bins),
-        float(f32(block / S)), float(f32(policy.hot_fraction)),
+        float(f32(share)), float(f32(policy.hot_fraction)),
         hh_need_scale(policy, n_bins, eps),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "porc_multisource_scan (HHPolicy)")

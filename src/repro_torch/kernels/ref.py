@@ -363,7 +363,8 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
                            sync_every: int, block: int, eps: float,
                            chunk: int, engine: str, base0, delta0, ticks0,
                            skb0=None, skd0=None,
-                           policy: HHPolicy | None = None):
+                           policy: HHPolicy | None = None, *,
+                           global_sources: int | None = None):
     """Core multi-source scan over full per-source blocks (plain engine).
 
     ``keys`` is the round-robin-interleaved global stream (message i
@@ -381,6 +382,11 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
     boundary, routes with per-key budgets (``snapshot_block_hh``) over a
     chain of ``hh_chunk`` candidates hashed per block, and adds the block
     to its sketch lane afterwards; the lanes merge with the loads.
+
+    ``global_sources`` is the stream's source count when these
+    ``n_sources`` lanes are one rank's slice of it (``kernels.mesh``):
+    the arriving block enters each cap as block/``global_sources``. It
+    defaults to ``n_sources``.
 
     Returns (assign [M] in stream order, base, delta, ticks, skb, skd);
     ``skb``/``skd`` are None without a policy.
@@ -418,7 +424,7 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
         # per-source cap from the mass of its local view, the arriving
         # block entering as block/S (see ref._porc_multisource_scan)
         mass = base.sum() + delta.sum(1)                  # [S]
-        cap = view_cap(eps, n_bins, mass, block / S)
+        cap = view_cap(eps, n_bins, mass, block / (global_sources or S))
         views = base[None, :] + delta                     # [S, n_bins]
         if engine == "strict":
             a = _porc_block(views, kb[b], cap, n_bins, 4 * n_bins)[1]
@@ -450,11 +456,13 @@ def _porc_multisource_scan(keys: torch.Tensor, n_bins: int, n_sources: int,
 def _porc_multisource_tail(keys_pad: torch.Tensor, n_bins: int,
                            n_sources: int, eps: float, chunk: int, base0,
                            delta0, n_tail: int, skb0=None, skd0=None,
-                           policy: HHPolicy | None = None):
+                           policy: HHPolicy | None = None, *,
+                           global_sources: int | None = None):
     """Ragged tail: the final r < S messages, one to each of sources
     0..r-1 (``keys_pad`` padded to [S]; the phantom lanes' load and
     sketch updates are masked out). The residue publishes immediately:
-    merged base and sketch, zero deltas."""
+    merged base and sketch, zero deltas. ``global_sources`` as in
+    ``_porc_multisource_scan``: each cap takes 1/``global_sources``."""
     S = n_sources
     dev = keys_pad.device
     active = (torch.arange(S, device=dev) < n_tail).to(torch.float32)
@@ -462,7 +470,7 @@ def _porc_multisource_tail(keys_pad: torch.Tensor, n_bins: int,
     cand0 = hash_to_bins(keys_pad[:, None, None],
                          probe_salts(C, device=dev), n_bins)
     mass = base0.sum() + delta0.sum(1)
-    cap = view_cap(eps, n_bins, mass, 1.0 / S)
+    cap = view_cap(eps, n_bins, mass, 1.0 / (global_sources or S))
     views = base0[None, :] + delta0
     if policy is None:
         assign = snapshot_block(views, cap, keys_pad[:, None], cand0,
@@ -510,6 +518,10 @@ def ref_porc_multisource(keys, n_bins: int, n_sources: int, *,
     classifies keys against its local sketch view and probes with
     per-key budgets; the sketch lanes shard and merge like the loads. A
     state without sketch lanes starts the sketch cold.
+
+    ``kernels.mesh.mesh_porc_multisource`` drives the same spans, merges
+    and tail with the lanes on a process group; the two drivers are kept
+    in step by hand.
 
     Returns (assignment [M] int32 in stream order, new
     MultiSourcePorcState).

@@ -214,6 +214,18 @@ class CGRequestRouter:
                 device=self._dev, dtype=torch.int32))
         self._note_owner_update(force=True)
 
+    def _merged_load(self) -> torch.Tensor:
+        """Per-VW load with every lane's unpublished delta (device
+        tensor). Every read of the whole load goes through here, so a
+        router whose lanes live on several ranks sums them across ranks
+        in one place."""
+        return self._state.base + self._state.delta.sum(0)
+
+    def _merged_state(self):
+        """The routing state with every lane's delta published (a forced
+        sync)."""
+        return multisource_merge(self._state)
+
     def _owner_view(self) -> torch.Tensor:
         """The owner map the submit path gathers from (device tensor);
         here the live map is the only copy."""
@@ -270,8 +282,7 @@ class CGRequestRouter:
         fresh NumPy array. Assigning to it reseeds the base load, clears
         the deltas, seeds the delegation rates and re-derives the clock
         (and rescales the sketch to the restored mass)."""
-        s = self._state
-        return (s.base + s.delta.sum(0)).cpu().numpy()
+        return self._merged_load().cpu().numpy()
 
     @vw_load.setter
     def vw_load(self, value) -> None:
@@ -314,7 +325,7 @@ class CGRequestRouter:
         if (1.0 + self.eps) * self._routed / self.n_virtual + stale < 2 ** 23:
             return
         old_routed = self._routed
-        shift = float((self._state.base + self._state.delta.sum(0)).min())
+        shift = float(self._merged_load().min())
         self._routed -= int(shift * self.n_virtual)
         self._rebalance_mark -= int(shift * self.n_virtual)
         shift_t = self._f32(shift)
@@ -340,7 +351,7 @@ class CGRequestRouter:
             return int(self.route_batch(np.asarray([key], np.int32))[0])
         self._maybe_rebase()
         if self.n_sources > 1 or self.sync_every > 1:
-            state = multisource_merge(self._state)    # flush lane deltas
+            state = self._merged_state()              # flush lane deltas
         else:
             state = self._state                       # deltas provably empty
         load = state.base.cpu().numpy().copy()        # writable host copy
@@ -447,7 +458,7 @@ class CGRequestRouter:
             idle_mask[list(idle)] = True
             busy_t = torch.from_numpy(busy_mask).to(self._dev)
             idle_t = torch.from_numpy(idle_mask).to(self._dev)
-        load = self._state.base + self._state.delta.sum(0)    # device
+        load = self._merged_load()                           # device
         caps = (torch.ones(n, dtype=torch.float32, device=self._dev)
                 if capacities is None
                 else torch.as_tensor(np.asarray(capacities, np.float32)

@@ -244,7 +244,7 @@ def test_versioned_owner_map_commits_forward():
     assert m.view(0).tolist() == [0, 0, 0, 0]       # stale: base, whole
     assert m.view().tolist() == [1, 1, 0, 0]
     assert m.adopt() == 1 and m.view(0).tolist() == [1, 1, 0, 0]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="SourceMesh"):
         TD.VersionedOwnerMap([0], mesh=object(), device="cpu")
 
 

@@ -38,6 +38,10 @@ from repro_torch.launch import steps
 from repro_torch.data import pipeline
 from repro_torch.runtime import straggler
 from repro_torch.launch import train
+from repro_torch.kernels import mesh as kmesh
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import make_source_mesh
+from repro_torch.serve import MeshCGRequestRouter
 keys = np.random.default_rng(0).integers(0, 200, 4000).astype(np.int32)
 res = cg.run(cg.CGConfig(n_workers=4, alpha=4, slot_len=1000,
                          hh_scheme="w"), keys,
@@ -57,6 +61,10 @@ for _ in range(4):
     eng.submit_batch(keys[:64], list(keys[:64]))
     eng.step()
 assert eng.submitted == sum(r.served for r in eng.replicas) + eng.in_flight
+mesh = make_source_mesh(device="cpu")           # one gloo rank, no spawn
+router = MeshCGRequestRouter(3, n_sources=2, mesh=mesh, device="cpu")
+assert router.route_batch(keys[:256]).shape == (256,)
+mesh.close()
 cfg = configs.get_smoke_config("phi3.5-moe-42b-a6.6b")
 model = model_zoo.init_params(cfg, 0, device="cpu")
 logits, cache = model_zoo.prefill_step(model, cfg,
@@ -118,7 +126,11 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.data",
                                     "repro_torch.runtime",
                                     "repro_torch.runtime.straggler",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.sharding",
+                                    "repro_torch.kernels.mesh",
+                                    "repro_torch.serve.mesh"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -149,14 +161,19 @@ def test_ast_scan_finds_no_jax_or_repro_imports():
             "models/model_zoo.py", "moe/router.py", "moe/layer.py",
             "launch/serve.py", "kernels/ssd_scan.py", "models/mamba2.py",
             "models/hybrid.py", "configs/mamba2_130m.py",
-            "configs/zamba2_2_7b.py"} <= names
+            "configs/zamba2_2_7b.py", "launch/mesh.py", "launch/sharding.py",
+            "kernels/mesh.py", "serve/mesh.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), (f, mod)
-    smoke = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    for mod in _imports(smoke):
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+    # chip_smoke.py, and the rank programs the mesh tests' spawned
+    # children import
+    here = Path(__file__).resolve().parent
+    for f in (here.parent / "chip_smoke.py", here / "torch_mesh_ranks.py"):
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                (f, mod)
 
 
 def test_cuda_engine_on_cpu_tensors_raises():
@@ -205,6 +222,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     from repro_torch.models import hybrid, mamba2
     from repro_torch.launch import train
     from repro_torch.runtime import fault_tolerance, straggler
+    from repro_torch.launch.mesh import make_source_mesh, run_all, spawn_ranks
+    from repro_torch.serve import MeshCGRequestRouter
     for call in (lambda: cg.run(cfg, keys, np.ones(2)),
                  lambda: ref.ref_porc_route(keys, 8),
                  lambda: ref.ref_porc_multisource(keys, 8, 2),
@@ -233,7 +252,10 @@ def test_cuda_device_without_cuda_raises(tmp_path):
                  lambda: train.train("mamba2-130m", n_steps=1,
                                      ckpt_dir=str(tmp_path)),
                  lambda: train.main(["--arch", "mamba2-130m", "--steps",
-                                     "1", "--ckpt-dir", str(tmp_path)])):
+                                     "1", "--ckpt-dir", str(tmp_path)]),
+                 lambda: make_source_mesh(),
+                 lambda: spawn_ranks(run_all, 2, []),
+                 lambda: MeshCGRequestRouter(4)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -241,7 +263,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 def test_unported_paths_say_so():
     """The strict engine and every scheme of the registry are ported now:
     on the CPU they route (the plain engines) and ``cg.run`` runs the
-    strict engine; what is still missing, the mesh tier, says so."""
+    strict engine; ``VersionedOwnerMap`` takes a mesh now and refuses an
+    object that is none."""
     keys = np.arange(256, dtype=np.int32)
     a, st = ref.ref_porc_route(keys, 8, engine="strict", device="cpu")
     assert a.shape == (256,) and float(st.routed) == 256.0
@@ -258,7 +281,7 @@ def test_unported_paths_say_so():
     res = cg.run(cfg, keys, np.ones(2), device="cpu")
     assert res.assignment.shape == (256,)
     from repro_torch.core import delegation
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="SourceMesh"):
         delegation.VersionedOwnerMap([0], mesh=object(), device="cpu")
 
 
@@ -341,7 +364,10 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
             "repro_torch.models.hybrid", "repro_torch.optim.adamw",
             "repro_torch.launch.steps", "repro_torch.data.pipeline",
-            "repro_torch.runtime.straggler", "repro_torch.launch.train")
+            "repro_torch.runtime.straggler", "repro_torch.launch.train",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.kernels.mesh",
+            "repro_torch.serve.mesh")
 
 
 def _public_callables():
@@ -397,7 +423,11 @@ def test_no_public_entry_point_defaults_to_the_cpu():
                  "repro_torch.runtime.straggler.DelegationBalancer",
                  "repro_torch.runtime.fault_tolerance.FaultTolerantRunner",
                  "repro_torch.launch.train.Trainer",
-                 "repro_torch.launch.train.train"):
+                 "repro_torch.launch.train.train",
+                 "repro_torch.launch.mesh.make_source_mesh",
+                 "repro_torch.launch.mesh.spawn_ranks",
+                 "repro_torch.launch.mesh.SourceMesh",
+                 "repro_torch.serve.mesh.MeshCGRequestRouter"):
         assert must in with_device, must
 
 

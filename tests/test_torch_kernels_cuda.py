@@ -183,6 +183,30 @@ def test_multisource_kernel_matches_plain(dev, n_sources, n_bins,
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("lanes,n_sources", [(1, 8), (2, 8), (8, 32)])
+@pytest.mark.parametrize("sync_every", [1, 3])
+def test_multisource_kernel_global_sources(dev, lanes, n_sources,
+                                           sync_every):
+    """One rank's lanes of a mesh (``kernels.mesh``): ``lanes`` sources
+    whose caps take the arriving block as block/``n_sources``, from a
+    non-empty state, against the plain scan with the same keyword."""
+    n, block = 480, 128
+    keys = zipf_keys(lanes * block * 5, dev, seed=5)
+    rng = np.random.default_rng(6)
+    base0 = torch.from_numpy(rng.integers(0, 9, n).astype(np.float32)).to(dev)
+    delta0 = torch.from_numpy(rng.integers(0, 3, (lanes, n)).astype(
+        np.float32)).to(dev)
+    args = (keys, n, lanes, sync_every, block, 0.05, 8, base0, delta0,
+            torch.tensor(1, dtype=torch.int32, device=dev))
+    launches = porc_multisource_scan.launches
+    got = porc_multisource_scan(*args, global_sources=n_sources)
+    assert porc_multisource_scan.launches == launches + 1
+    want = ref._porc_multisource_scan(*args[:7], "snapshot", *args[7:],
+                                      global_sources=n_sources)
+    for x, y in zip(got, want):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
 def test_wrappers_check_their_inputs(dev):
     keys = zipf_keys(256, dev)
     with pytest.raises(ValueError):
