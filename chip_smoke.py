@@ -48,7 +48,8 @@ Phases:
      block 1 on a 2.2M prefix (checked against the per-message oracle);
      (b) the Fig 14/15 deployment (24 workers, α=20, slot 5,000, 16
      moves per slot, two executors at 30%, 8 sources) on a TW-profile
-     stream (31M keys, p1=2.67%) cut to 22M messages;
+     stream (31M keys, p1=2.67%) cut to 11M messages (the run's time
+     limit);
      (c) (b) with ``hh_scheme="WCHOICES"`` on the same stream, and (d)
      (a) at block 128 with ``hh_scheme="DCHOICES"`` on the 2.2M prefix:
      the heavy-hitter path through the HHPolicy kernel;
@@ -158,7 +159,39 @@ Phases:
      and 8 ranks beside the single-process kernel route, launches and
      collectives a call; the kernel timed at a rank's launch shape (1
      lane, 8,192 bins, block 2,048, the cap of 8 sources);
- 12. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 12. the dense decoder family and its VLM variant, served, random bf16
+     weights from a seeded ``torch.Generator``, each model freed before
+     the next: (v) gemma3-1b at full size (26 layers, 22 local with
+     window 1,024 and 4 global, d 1,152, 4 query and 1 KV head of 256,
+     vocab 262,144): prefill 8 × 1,024 + 32 greedy decode steps,
+     ``prefill(prompt[:-1])`` + ``decode(last)`` against
+     ``prefill(prompt)`` (bf16, then f32 on 2 × 1,536, past the window),
+     a 2 × 4,096 prefill past ``attn_chunk_threshold`` (26
+     ``chunked_attention`` calls, the local layers masked by the window)
+     + 4 steps; (v2) 64 decode steps at B 8 from the zoo's cache at
+     131,072 positions (gemma3's ring: ``_use_longctx``) and from the
+     uniform cache of the same length for the first 8, fed the same
+     tokens: ms/step, cache bytes, peak memory, the logits within the
+     bf16 bound; then past the ring's wrap at B 1 (a prefill of W - 8
+     tokens copied into the ring, 8 + 24 steps against the uniform
+     cache, each step's logits within the same bound); (v3)
+     ``launch/serve.py``'s ``serve`` over (v)'s model, 4 replicas (one
+     slow), 64 requests, the router's ``porc_multisource_scan``
+     launches; (w) internlm2-20b at full size (48 layers, d 6,144, 48/8
+     heads, 19.3 B parameters): prefill 8 × 1,024 + 32 steps; (x)
+     starcoder2-3b at full size (LayerNorm, GELU MLP, biases, window
+     4,096 on every layer): prefill 2 × 8,192 (30 ``chunked_attention``
+     calls, the kv chunks below the window skipped) + 16 steps, where the
+     window's lower bound masks; (y) internvl2-2b at full size: prefill
+     8 × (256 patches + 768 tokens) + 32 steps; (z) command-r-plus-104b
+     at full width (d 12,288, 96/8 heads, vocab 256,000, rope θ 7.5e7)
+     with its depth cut from 64 to 8 layers: prefill 2 × 1,024 + 8
+     steps; each with prefill tokens/s, decode ms/step and peak memory
+     beside its weights' bytes; then the five smoke configs in f32 on
+     the card against the same weights on the CPU, and gemma3's ring
+     against the uniform decode on the card over 40 steps, past the smoke
+     window's wrap (within 1e-5);
+ 13. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -190,6 +223,9 @@ WP_TABLE1 = dict(name="WP", n_messages=22_000_000, n_keys=2_900_000,
                  p1=0.0932, z_tail=1.0, diurnal=True)
 TW_TABLE1 = dict(name="TW", n_messages=22_000_000, n_keys=31_000_000,
                  p1=0.0267, z_tail=0.8, diurnal=True)
+# (b) and (c) route the first half of the TW stream: at 22M messages the
+# two took 65 s of the run, which phase 12 needed
+TW_MAIN_MESSAGES = 11_000_000
 
 
 def log(*a):
@@ -1672,7 +1708,7 @@ def main_path(dev, seed: int, wp_keys, scale: float = 1.0,
 
     # (b) the Fig 14/15 deployment: 24 workers, two executors at 30%
     cfg_b, caps_b, frac_b = deployment_config()
-    mb = int(TW_TABLE1["n_messages"] * scale) // cfg_b.slot_len \
+    mb = int(TW_MAIN_MESSAGES * scale) // cfg_b.slot_len \
         * cfg_b.slot_len
     if tw_keys is None:
         tw_keys = sample(TW_TABLE1, seed + 1, mb, dev)
@@ -1692,7 +1728,7 @@ def hh_path(dev, wp_keys, tw_keys, base_runs: list[dict], scale: float = 1.0,
     twin = {r["run"]: r for r in base_runs}
     runs = []
     cfg_b, caps_b, frac_b = deployment_config()
-    mb = int(TW_TABLE1["n_messages"] * scale) // cfg_b.slot_len \
+    mb = int(TW_MAIN_MESSAGES * scale) // cfg_b.slot_len \
         * cfg_b.slot_len
     cfg_c = cfg_b._replace(hh_scheme="WCHOICES")
     out, _ = run_cg("deployment_tw_sources8_wchoices", cfg_c, tw_keys[:mb],
@@ -2026,20 +2062,26 @@ def moe_config(n_layers: int | None, smoke: bool = False, router="cg"):
 
 
 def timed_run(name: str, model, cfg, tokens, decode_steps: int,
-              dev) -> dict:
-    """``prefill_step`` on ``tokens`` [B, S] (with room for the decode
-    steps in a KV cache), then ``decode_steps`` greedy ``decode_step``s,
-    with the launch counts zeroed just before and read just after; each
-    step ends in a synchronize. Checks the logits' shape and finiteness,
-    the generated ids and the cache position."""
+              dev, patches=None) -> dict:
+    """``prefill_step`` on ``tokens`` [B, S] (after the VLM's ``patches``
+    [B, P, vision_dim], if given; with room for the decode steps in a KV
+    cache), then ``decode_steps`` greedy ``decode_step``s, with the
+    launch counts zeroed just before and read just after; each step ends
+    in a synchronize. Checks the logits' shape and finiteness, the
+    generated ids and the cache position (P + S + steps). Prefill tokens
+    count every position, the patches too."""
     import torch
     from repro_torch.models import model_zoo as zoo
     B, S = tokens.shape
+    batch = {"tokens": tokens}
+    if patches is not None:
+        batch["patches"] = patches
+        S += patches.shape[1]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     zero_counts()
     t0 = time.perf_counter()
-    logits, cache = zoo.prefill_step(model, cfg, {"tokens": tokens},
+    logits, cache = zoo.prefill_step(model, cfg, batch,
                                      pad_to=S + decode_steps)
     sync()
     prefill_s = time.perf_counter() - t0
@@ -2089,11 +2131,12 @@ def timed_run(name: str, model, cfg, tokens, decode_steps: int,
 
 def attention_calls(cfg, S: int) -> int:
     """The ``chunked_attention`` calls of a prefill of S tokens: one per
-    attention layer (the MoE's every layer, the hybrid's shared block
-    once per group) when S passes the config's threshold, else none."""
+    attention layer (the dense, VLM and MoE models' every layer, the
+    hybrid's shared block once per group) when S passes the config's
+    threshold, else none."""
     if S <= cfg.attn_chunk_threshold:
         return 0
-    if cfg.family == "moe":
+    if cfg.family in ("dense", "vlm", "moe"):
         return cfg.n_layers
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
@@ -2236,13 +2279,17 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
                 peak_gb=peak, runs=runs, long=long, serving=serving)
 
 
-def greedy_logits(model, cfg, tokens, steps: int = 4) -> list:
-    """The last logits of ``prefill_step`` on ``tokens`` and of ``steps``
-    greedy ``decode_step``s after it, copied to the host."""
+def greedy_logits(model, cfg, tokens, steps: int = 4, patches=None) -> list:
+    """The last logits of ``prefill_step`` on ``tokens`` (after the VLM's
+    ``patches``, if given) and of ``steps`` greedy ``decode_step``s after
+    it, copied to the host."""
     import torch
     from repro_torch.models import model_zoo as zoo
-    logits, cache = zoo.prefill_step(model, cfg, {"tokens": tokens},
-                                     pad_to=tokens.shape[1] + steps)
+    batch = {"tokens": tokens}
+    if patches is not None:
+        batch["patches"] = patches
+    S = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    logits, cache = zoo.prefill_step(model, cfg, batch, pad_to=S + steps)
     seq = [logits]
     for _ in range(steps):
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
@@ -3442,6 +3489,374 @@ def mesh_path(dev, seed: int, n_ticks: int = 500, per_tick: int = 2048,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: serving the dense decoder family and its VLM variant
+# ---------------------------------------------------------------------------
+
+# each arch at full width: the prefill's batch and prompt (internvl2's
+# 768 tokens follow its 256 patches), the greedy decode steps after it;
+# command-r-plus-104b's depth cut from 64 to 8 layers (31.5 GB of bf16
+# weights; the whole model is 208 GB)
+DENSE_RUNS = {
+    "gemma3-1b": dict(batch=8, seq=1024, decode_steps=32),
+    "internlm2-20b": dict(batch=8, seq=1024, decode_steps=32),
+    "starcoder2-3b": dict(batch=2, seq=8192, decode_steps=16),
+    "internvl2-2b": dict(batch=8, seq=768, decode_steps=32),
+    "command-r-plus-104b": dict(batch=2, seq=1024, decode_steps=8,
+                                n_layers=8),
+}
+# gemma3's ring-buffer decode (v2): batch, max_len (past the 65,536 of
+# ``model_zoo._use_longctx``), steps, of which the uniform cache of the
+# same length takes the first 8 (~0.74 s a step: every layer expands
+# its 131,072 × 8 K and V to 4 f32 heads); ring against uniform within
+# the bf16 bound of the prefill/decode check at full size, and within
+# 1e-5 in f32 on the smoke config past its window's wrap (the two sum
+# the same entries in another order)
+RING = (8, 131_072, 64, 8)
+RING_TOL_F32 = 1e-5
+# (v2) past the ring's wrap at full width: steps before and after it
+# from a B=1 prefill of W - 8 tokens (~0.1 s a uniform step at B 1)
+RING_WRAP = (8, 24)
+
+
+def dense_inputs(cfg, batch: int, seq: int, gen, dev):
+    """``batch`` random prompts of ``seq`` tokens and, for the VLM, its
+    ``n_patches`` random patch embeddings a prompt, in the model's
+    dtype."""
+    import torch
+    from repro_torch.models.layers import torch_dtype
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if cfg.family != "vlm":
+        return tokens, None
+    patches = torch.randn((batch, cfg.n_patches, cfg.vision_dim),
+                          generator=gen, device=dev)
+    return tokens, patches.to(torch_dtype(cfg.dtype))
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ring_decode(model, cfg, dev, gen, batch: int, max_len: int,
+                steps: int, uniform_steps: int) -> dict:
+    """(v2) ``steps`` greedy decode steps from an empty cache of
+    ``max_len`` positions, the zoo's cache, which past 65,536 positions
+    is gemma3's ring (local layers W entries, global layers
+    ``max_len``); then ``uniform_steps`` from the uniform cache of the
+    same ``max_len`` fed the same tokens. Per cache: its bytes, ms/step
+    (each step ends in a synchronize), the peak device memory of the
+    steps; each step's logits of the two within ``CONSISTENCY_TOL``."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer
+    toks = [torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                          device=dev, dtype=torch.int32)]
+    out, logits = {}, {}
+    for kind, n in (("ring", steps), ("uniform", uniform_steps)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        cache = (zoo.init_cache(cfg, batch, max_len, device=dev)
+                 if kind == "ring"
+                 else transformer.init_cache(cfg, batch, max_len, device=dev))
+        if (kind == "ring") != ("local_k" in cache):
+            fail(f"ring decode: the zoo's cache at {max_len} positions is "
+                 f"not the {kind} cache")
+        cache_gb = nbytes(cache.values()) / 1e9
+        ms, logits[kind] = [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            lg, cache = zoo.decode_step(model, cfg, cache, toks[i])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if kind == "ring":
+                toks.append(torch.argmax(lg, -1)[:, None].to(torch.int32))
+            logits[kind].append(lg.cpu())
+        if int(cache["pos"]) != n:
+            fail(f"ring decode ({kind}): cache position {int(cache['pos'])}")
+        del cache
+        steady = sorted(ms[1:])
+        out[kind] = dict(
+            steps=n, cache_gb=cache_gb, ms_first=ms[0],
+            ms_mean=sum(ms[1:]) / (n - 1), ms_median=steady[len(steady) // 2],
+            peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                     if dev.type == "cuda" else 0.0))
+    err = max(relerr(u, r) for r, u in zip(logits["ring"],
+                                           logits["uniform"]))
+    if not all(torch.isfinite(x).all() for x in logits["ring"]) \
+            or not err < CONSISTENCY_TOL:
+        fail(f"ring decode: ring and uniform logits differ by {err:.3e}")
+    out["max_rel_err"] = err
+    for kind in ("ring", "uniform"):
+        r = out[kind]
+        log(f"  (v2) {kind} cache B={batch} max_len={max_len:,}: "
+            f"{r['cache_gb']:.2f} GB; {r['steps']} decode steps "
+            f"{r['ms_mean']:.2f} ms/step mean, {r['ms_median']:.2f} median "
+            f"(first {r['ms_first']:.2f}); peak device memory "
+            f"{r['peak_gb']:.2f} GB")
+    log(f"  (v2) ring vs uniform logits: max rel err {err:.3e} over "
+        f"{uniform_steps} steps")
+    return out
+
+
+def ring_from_prefill(cfg, cache, max_len: int) -> dict:
+    """gemma3's ring-buffer cache holding what a prefill of at most W
+    positions wrote into the uniform ``cache`` (padded to ``max_len``):
+    a local layer's ring takes the first W positions (position p < W
+    sits in slot p % W = p), a global layer its whole cache; copies, so
+    the two caches decode apart."""
+    import torch
+    from repro_torch.models import transformer
+    W, ge = cfg.sliding_window, cfg.global_every
+    if int(cache["pos"]) > W or cache["k"].shape[2] != max_len:
+        fail(f"ring from prefill: {int(cache['pos'])} positions in a cache "
+             f"of {cache['k'].shape[2]}")
+    is_global = [l % ge == ge - 1 for l in range(cfg.n_layers)]
+    ring = {"pos": cache["pos"].clone()}
+    for kv in ("k", "v"):
+        ring[f"local_{kv}"] = torch.stack(
+            [cache[kv][l, :, :W] for l, g in enumerate(is_global) if not g])
+        ring[f"global_{kv}"] = torch.stack(
+            [cache[kv][l] for l, g in enumerate(is_global) if g])
+    spec = transformer.longctx_cache_spec(cfg, cache["k"].shape[1], max_len)
+    if any(ring[n].shape != spec[n].shape for n in spec):
+        fail("ring from prefill: not the shapes of longctx_cache_spec")
+    return ring
+
+
+def ring_wrap(model, cfg, dev, gen, max_len: int, before: int,
+              after: int) -> dict:
+    """(v2) past the ring's wrap: one prompt of W - ``before`` tokens
+    prefilled into the uniform cache of ``max_len`` positions, the same
+    entries copied into the ring (``ring_from_prefill``), then
+    ``before + after`` greedy steps from each, fed the same tokens. The
+    last ``after`` steps overwrite slots 0 .. after - 1 of every local
+    ring (slot pos % W) and attend over its W entries, where the uniform
+    cache masks the entries below pos + 1 - W; each step's logits within
+    ``CONSISTENCY_TOL``."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    W = cfg.sliding_window
+    tokens, _ = dense_inputs(cfg, 1, W - before, gen, dev)
+    _, uni = zoo.prefill_step(model, cfg, {"tokens": tokens}, pad_to=max_len)
+    ring = ring_from_prefill(cfg, uni, max_len)
+    tok, errs = tokens[:, -1:], []
+    for _ in range(before + after):
+        rl, ring = zoo.decode_step(model, cfg, ring, tok)
+        ul, uni = zoo.decode_step(model, cfg, uni, tok)
+        if not torch.isfinite(rl).all():
+            fail("ring wrap: the ring's logits are not finite")
+        errs.append(relerr(ul, rl))
+        tok = torch.argmax(rl, -1)[:, None].to(torch.int32)
+    if {int(ring["pos"]), int(uni["pos"])} != {W + after}:
+        fail(f"ring wrap: positions {int(ring['pos'])}, {int(uni['pos'])}")
+    del ring, uni
+    err = max(errs)
+    if not err < CONSISTENCY_TOL:
+        fail(f"ring wrap: ring and uniform logits differ by {err:.3e}")
+    out = dict(start=W - before, steps=before + after, window=W,
+               max_rel_err=err, max_rel_err_past_wrap=max(errs[before:]))
+    log(f"  (v2) past the wrap, B=1 max_len={max_len:,}: {before} steps "
+        f"from position {W - before} to the window's {W}, then {after} "
+        f"past it, each overwriting slot pos % {W} of the local rings: "
+        f"ring vs uniform logits max rel err {err:.3e} "
+        f"({out['max_rel_err_past_wrap']:.3e} past the wrap)")
+    return out
+
+
+def dense_path(dev, seed: int, arch: str, *, batch: int, seq: int,
+               decode_steps: int, n_layers: int | None = None,
+               smoke: bool = False, long: tuple | None = None,
+               gap: bool = False, serving: bool = False,
+               ring: tuple | None = None,
+               check_launches: bool = True) -> dict:
+    """``arch`` (a dense or VLM arch) at its full config (depth cut to
+    ``n_layers`` if given), random bf16 weights from a seeded
+    ``torch.Generator``: after a warm-up of the same shape, ``timed_run``
+    on ``batch`` prompts of ``seq`` tokens (the VLM's patches first) and
+    ``decode_steps`` greedy steps, with the weights' bytes, the decode
+    step's bound (the weights read once) and the peak device memory.
+    ``gap``: ``prefill(prompt[:-1])`` + ``decode(last)`` against
+    ``prefill(prompt)`` on the same prompts, then in f32 (new weights
+    from the same generator) on two prompts of 1.5 windows, which the
+    window masks. ``long`` (B, S, steps): ``timed_run`` on B prompts of
+    S tokens with its own peak; past ``attn_chunk_threshold`` every layer
+    takes ``chunked_attention`` (``timed_run`` checks). ``ring``:
+    ``ring_decode``, then ``ring_wrap`` at its ``max_len``.
+    ``serving``: ``launch/serve.py``'s ``serve`` over the model (the
+    router's ``porc_multisource_scan`` must launch).
+    ``smoke`` takes the smoke config, for a rehearsal on the CPU. The
+    model is freed before it returns."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else configs.get_config(arch))
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    if dev.type == "cuda":
+        torch.cuda.init()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = zoo.init_params(cfg, gen, device=dev)
+    tokens, patches = dense_inputs(cfg, batch, seq, gen, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_params = zoo.count_params(model)
+    weight_gb = nbytes(model.parameters()) / 1e9
+    bound_ms = weight_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    log(f"  {arch}{' (smoke)' if smoke else ''}: {cfg.n_layers} layers, "
+        f"{n_params:,} params ({weight_gb:.2f} GB of weights; a decode "
+        f"step reads them once: {bound_ms:.2f} ms at 3.35 TB/s) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_pre = 0 if patches is None else patches.shape[1]
+    inputs = {"tokens": tokens}
+    if patches is not None:
+        inputs["patches"] = patches
+    # warm-up (library handles, the allocator's pools), not timed
+    _, cache = zoo.prefill_step(model, cfg, inputs, pad_to=n_pre + seq + 2)
+    for _ in range(2):
+        _, cache = zoo.decode_step(model, cfg, cache, tokens[:, :1])
+    del cache
+    name = f"{arch} {cfg.n_layers}L B={batch} S={n_pre + seq}"
+    run = timed_run(name, model, cfg, tokens, decode_steps, dev,
+                    patches=patches)
+    check_counts(name, run["launches"], None, dev, check_launches)
+    out = dict(arch=arch, n_layers=cfg.n_layers, params=n_params,
+               weight_gb=weight_gb, decode_bound_ms=bound_ms, run=run,
+               peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else 0.0))
+    log(f"  {name}: peak device memory {out['peak_gb']:.2f} GB against "
+        f"{weight_gb:.2f} GB of weights; decode "
+        f"{run.get('decode_ms_mean', 0.0):.2f} ms/step against its bound "
+        f"{bound_ms:.2f} ms")
+    if gap:
+        out["consistency_rel_err"] = prefill_decode_gap(model, cfg, tokens)
+        if not out["consistency_rel_err"] < CONSISTENCY_TOL:
+            fail(f"{name}: prefill(prompt[:-1]) + decode(last) differs "
+                 f"from prefill(prompt) by {out['consistency_rel_err']:.3e}")
+        log(f"  {name}: prefill(prompt[:-1]) + decode(last) vs "
+            f"prefill(prompt): {out['consistency_rel_err']:.3e} relative")
+    if long:
+        B, S, steps = long
+        long_tokens, long_patches = dense_inputs(cfg, B, S, gen, dev)
+        long_inputs = {"tokens": long_tokens}
+        if long_patches is not None:
+            long_inputs["patches"] = long_patches
+        zoo.prefill_step(model, cfg, long_inputs)                # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        lname = f"{arch} {cfg.n_layers}L B={B} S={S}"
+        out["long"] = timed_run(lname, model, cfg, long_tokens, steps, dev,
+                                patches=long_patches)
+        check_counts(lname, out["long"]["launches"], None, dev,
+                     check_launches)
+        out["long"]["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                  if dev.type == "cuda" else 0.0)
+        log(f"  {lname}: peak device memory {out['long']['peak_gb']:.2f} GB")
+        del long_tokens, long_patches, long_inputs
+    if ring:
+        out["ring"] = ring_decode(model, cfg, dev, gen, *ring)
+        out["ring_wrap"] = ring_wrap(model, cfg, dev, gen, ring[1],
+                                     *RING_WRAP)
+    if serving:
+        out["serving"] = serve_model(arch, cfg, model, dev, seed,
+                                     ("porc_multisource_scan",),
+                                     check_launches)
+    del model
+    if gap:
+        cfg32 = cfg.replace(dtype="float32")
+        S32 = (cfg.sliding_window or seq) * 3 // 2
+        t32, _ = dense_inputs(cfg, 2, S32, gen, dev)
+        out["consistency_f32_rel_err"] = prefill_decode_gap(
+            zoo.init_params(cfg32, gen, device=dev), cfg32, t32)
+        if not out["consistency_f32_rel_err"] < CONSISTENCY_TOL_F32:
+            fail(f"{arch} f32: prefill(prompt[:-1]) + decode(last) differs "
+                 f"from prefill(prompt) by "
+                 f"{out['consistency_f32_rel_err']:.3e}")
+        log(f"  {arch} in f32, 2 x {S32} tokens: prefill(prompt[:-1]) + "
+            f"decode(last) vs prefill(prompt): "
+            f"{out['consistency_f32_rel_err']:.3e} relative")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_phase(dev, seed: int) -> dict:
+    """Phase 12: (v), (v2), (v3) over gemma3-1b, then (w), (x), (y), (z),
+    then the smoke configs card vs CPU; the reports by arch."""
+    dense = {"gemma3-1b": dense_path(
+        dev, seed, "gemma3-1b", **DENSE_RUNS["gemma3-1b"],
+        long=(2, 4096, 4), gap=True, ring=RING, serving=True)}
+    for arch in list(DENSE_RUNS)[1:]:
+        dense[arch] = dense_path(dev, seed, arch, **DENSE_RUNS[arch])
+    dense["reference"] = dense_reference_check(dev, seed)
+    return dense
+
+
+def dense_reference_check(dev, seed: int, ring_steps: int = 40) -> dict:
+    """The port's path on the card against the same path on the CPU: the
+    five archs' smoke configs in f32 with the same weights, a prefill of
+    [2, 64] tokens (internvl2's patches first) and 4 greedy decode steps;
+    the logits within 1e-4 relative to their largest magnitude (f32
+    matmuls round differently on the two devices; TF32 is off), the
+    greedy tokens equal. Then gemma3's ring-buffer decode against the
+    uniform one on the card over ``ring_steps`` steps, past the smoke
+    window's wrap (16): each step's logits within ``RING_TOL_F32``."""
+    import copy
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer
+    cpu = torch.device("cpu")
+    errs = {}
+    for arch in DENSE_RUNS:
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        host = zoo.init_params(cfg, seed, device=cpu)
+        card = copy.deepcopy(host).to(dev)
+        g = torch.Generator().manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                               dtype=torch.int32)
+        patches = (torch.randn((2, cfg.n_patches, cfg.vision_dim),
+                               generator=g) if cfg.family == "vlm" else None)
+        err = 0.0
+        for a, b in zip(greedy_logits(host, cfg, tokens, patches=patches),
+                        greedy_logits(card, cfg, tokens.to(dev),
+                                      patches=None if patches is None
+                                      else patches.to(dev))):
+            err = max(err, relerr(a, b))
+            if not relerr(a, b) <= 1e-4 \
+                    or not torch.equal(a.argmax(-1), b.argmax(-1)):
+                fail(f"{arch} reference: the card's logits differ from the "
+                     f"CPU's (max rel {relerr(a, b)})")
+        errs[arch] = err
+        log(f"  {arch} smoke config in f32, card vs CPU: logits max rel err "
+            f"{err:.2e} over prefill + 4 decode steps; greedy tokens equal")
+        if arch == "gemma3-1b":
+            ring = transformer.init_longctx_cache(cfg, 2, 64, device=dev)
+            uni = transformer.init_cache(cfg, 2, 64, device=dev)
+            toks = torch.randint(0, cfg.vocab, (ring_steps, 2, 1),
+                                 generator=g, dtype=torch.int32).to(dev)
+            ring_err = 0.0
+            for x in toks:
+                rl, ring = zoo.decode_step(card, cfg, ring, x)
+                ul, uni = zoo.decode_step(card, cfg, uni, x)
+                ring_err = max(ring_err, relerr(ul, rl))
+            if not ring_err <= RING_TOL_F32:
+                fail(f"gemma3 ring decode on the card differs from the "
+                     f"uniform one by {ring_err:.3e}")
+            errs["gemma3-1b ring vs uniform"] = ring_err
+            log(f"  gemma3-1b smoke config in f32 on the card: ring vs "
+                f"uniform decode over {ring_steps} steps (window "
+                f"{cfg.sliding_window}) max rel err {ring_err:.2e}")
+    return dict(max_rel_err=errs)
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -3703,12 +4118,27 @@ def main() -> int:
         f"{t['max_abs_err']})")
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
-    # 12. report
+    # 12. serving the dense decoder family and its VLM variant
+    log("== dense family: (v) gemma3-1b at full size: prefill 8 x 1,024 + "
+        "32 decode steps, a 2 x 4,096 prefill through chunked_attention, "
+        "(v2) the ring-buffer decode at 131,072 positions against the "
+        "uniform cache, (v3) launch/serve.py's serve(); (w) internlm2-20b, "
+        "(x) starcoder2-3b on 2 x 8,192, (y) internvl2-2b, (z) "
+        "command-r-plus-104b at full width, 8 of 64 layers; the five smoke "
+        "configs in f32, card vs CPU")
+    t12 = time.perf_counter()
+    dense = dense_phase(dev, args.seed)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # 13. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
                           "porc_multisource_strict")}
     launches["porc_multisource_scan_hh"] += serving["hh_launches"]
+    # the router's launches serving gemma3-1b, phase 12 (v3)
+    launches["porc_multisource_scan"] += \
+        dense["gemma3-1b"]["serving"]["launches"]["porc_multisource_scan"]
     launches["porc_assign"] += sum(r["porc_assign_launches"]
                                    for r in schemes)
     launches["cg_dispatch"] = sum(
@@ -3792,7 +4222,7 @@ def main() -> int:
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
             train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
-            mesh=mesh, kernels=kernels),
+            mesh=mesh, dense=dense, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ into the port's state on ``device``, heavy-hitter sketch lanes included
 — so a run begun in one package continues in the other.
 ``router_snapshot`` and ``load_router`` do the same for a serving
 router's whole routing, delegation and controller state.
-``moe_params_from_jax``, ``mamba2_params_from_jax`` and
-``hybrid_params_from_jax`` load a model's weights from the JAX pytree,
-so both packages compute the same model.
+``dense_params_from_jax``, ``moe_params_from_jax``,
+``mamba2_params_from_jax`` and ``hybrid_params_from_jax`` load a model's
+weights from the JAX pytree, so both packages compute the same model.
 """
 from __future__ import annotations
 
@@ -151,12 +151,15 @@ def _load(module: torch.nn.Module, tree: dict, device, index=()):
 
 
 def _load_model(model, params_np: dict, device, layer_index):
-    """``embed``, ``final_norm``, the ``shared`` block where the model has
-    one, and every layer from the stacked ``layers/*`` leaves at the
-    index ``layer_index`` gives it. Returns ``model``."""
+    """``embed``, ``final_norm`` (a LayerNorm's bias too), the VLM's
+    ``vision_proj`` and the ``shared`` block where the model has them,
+    and every layer from the stacked ``layers/*`` leaves at the index
+    ``layer_index`` gives it. Returns ``model``."""
     with torch.no_grad():
         model.embed.copy_(_tensor(params_np["embed"], device))
         _load(model.final_norm, params_np["final_norm"], device)
+        if "vision_proj" in params_np:
+            model.vision_proj.copy_(_tensor(params_np["vision_proj"], device))
         if "shared" in params_np:
             _load(model.shared, params_np["shared"], device)
         for index, layer in layer_index(model):
@@ -166,6 +169,17 @@ def _load_model(model, params_np: dict, device, layer_index):
 
 def _flat_layers(model):
     return (((i,), layer) for i, layer in enumerate(model.layers))
+
+
+def dense_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``Transformer`` (the dense and VLM families) from the
+    reference's parameter pytree (nested dicts of numpy arrays):
+    ``embed``, the stacked ``layers/*`` leaves ([L, ...] each, biases and
+    LayerNorm shifts included), ``final_norm`` and the VLM's
+    ``vision_proj``."""
+    from repro_torch.models.transformer import Transformer
+    dev = resolve_device(device)
+    return _load_model(Transformer(cfg, dev), params_np, dev, _flat_layers)
 
 
 def moe_params_from_jax(params_np: dict, cfg, device="cuda"):

@@ -2,7 +2,7 @@
 ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      [--arch qwen3-moe-235b-a22b] --requests 64 --decode-steps 8 \\
+      [--arch gemma3-1b] --requests 64 --decode-steps 8 \\
       [--replicas 4] [--hetero] [--device cuda]
 
 Runs the arch's smoke config, as the reference does. Replicas share one
@@ -102,7 +102,7 @@ def serve(cfg, params, *, requests: int = 64, decode_steps: int = 8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-moe-235b-a22b",
+    ap.add_argument("--arch", default="gemma3-1b",
                     choices=configs.ARCH_IDS)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--decode-steps", type=int, default=8)

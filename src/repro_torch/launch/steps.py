@@ -1,4 +1,5 @@
-"""The train step (port of ``repro.launch.steps.make_train_step``).
+"""The train and serve steps (port of ``repro.launch.steps``'s
+``make_train_step`` and ``make_serve_step``).
 
 The reference's ``install_act_rules``, ``jit_train_step`` and
 ``jit_serve_step`` place a step on a device mesh; they come with the mesh
@@ -69,3 +70,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig):
         return params, opt_state, {"loss": loss, **om, **mm}
 
     return train_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """(params, cache, tokens) → (logits, cache)."""
+
+    def serve_step(params, cache, tokens):
+        return zoo.decode_step(params, cfg, cache, tokens)
+
+    return serve_step

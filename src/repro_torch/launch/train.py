@@ -10,9 +10,9 @@ Without ``--full`` it runs the arch's smoke config, as the reference
 does. The step runs eagerly on one device: the reference's smoke mesh
 (``make_smoke_mesh``, ``install_act_rules``, ``enter_mesh``) is the
 identity there and comes with the mesh tier (ROADMAP Queue 1 item 7).
-The families the port does not run yet (the dense, audio and VLM archs,
-whose batches the reference also fills with frames or patches) raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 10.
+The families the port does not train yet (the dense, audio and VLM
+archs, whose batches the reference also fills with frames or patches)
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 10b.
 
 As in the reference, a resumed run restores step s, whose checkpoint
 was written after step s's update, and then trains from step s: batch
@@ -35,6 +35,10 @@ from repro_torch.runtime import DelegationBalancer, FTConfig, FaultTolerantRunne
 from . import steps
 
 
+# the families whose training comes with ROADMAP Queue 1 item 10b
+_NOT_TRAINED = ("dense", "vlm", "audio")
+
+
 class Trainer:
     """The state of one ``train`` run: the model (its weights module),
     the optimizer state, the pipeline, the failure runner and the
@@ -53,6 +57,10 @@ class Trainer:
         self.device = resolve_device(device)
         cfg = (configs.get_smoke_config(arch) if smoke
                else configs.get_config(arch))
+        if cfg.family in _NOT_TRAINED:
+            raise NotImplementedError(
+                f"{arch}: training the {cfg.family!r} family is not ported "
+                "yet (ROADMAP Queue 1 item 10b)")
         self.cfg, self.n_steps, self.batch = cfg, n_steps, batch
         self.n_hosts, self.log_every = n_hosts, log_every
         self.fail_host_at = fail_host_at

@@ -176,8 +176,9 @@ def cache_spec(cfg, batch: int, max_len: int):
 
 @torch.no_grad()
 def decode_step(params: Hybrid, cfg, cache, tokens):
-    """One decode step. tokens: [B, 1] → (logits [B, V] f32, new cache);
-    ``cache["pos"]`` stays a device tensor: no host sync."""
+    """One decode step. tokens: [B, 1] → (logits [B, V] f32, new cache:
+    the SSM states new tensors, the shared attention's K/V written in
+    place); ``cache["pos"]`` stays a device tensor: no host sync."""
     embed = params.embed
     tokens = torch.as_tensor(tokens, device=embed.device)
     B = tokens.shape[0]
@@ -187,7 +188,7 @@ def decode_step(params: Hybrid, cfg, cache, tokens):
         1, 1).expand(B, 1)
     shared, a = params.shared, params.shared.attn
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    convs, hs, ks, vs = [], [], [], []
+    convs, hs = [], []
     for group, gconv, gh, kc, vc in zip(params.layers, cache["conv"],
                                         cache["h"], cache["k"], cache["v"]):
         nconv, nh = [], []
@@ -202,14 +203,12 @@ def decode_step(params: Hybrid, cfg, cache, tokens):
         v = linear(xa, a.wv).reshape(B, 1, KV, Dh)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        out, kc, vc = seqpar_update_and_attend(q, kc, vc, k, v, pos)
+        out, _, _ = seqpar_update_and_attend(q, kc, vc, k, v, pos)
         x = x + linear(out.reshape(B, H * Dh), a.wo)
         x = _shared_mlp(x, shared, cfg)
         convs.append(torch.stack(nconv))
         hs.append(torch.stack(nh))
-        ks.append(kc)
-        vs.append(vc)
     x = norm(x, params.final_norm, cfg)
     return last_logits(x, embed), {
         "conv": torch.stack(convs), "h": torch.stack(hs),
-        "k": torch.stack(ks), "v": torch.stack(vs), "pos": pos + 1}
+        "k": cache["k"], "v": cache["v"], "pos": pos + 1}

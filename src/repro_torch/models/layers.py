@@ -6,16 +6,21 @@ attention sub-layer's weights under the names of the JAX package's
 module of its ``mlp_params`` dict (``w1``, ``w3``, ``w2``); the functions
 read a module's weights as attributes.
 
-Only what the MoE, Mamba-2 and hybrid archs run is here. Left out:
-``shard_act`` and the activation-sharding rules, which are the identity
-on one device (the port runs on one device; the mesh tier is ROADMAP
-Queue 1 item 7). ``rmsnorm`` carries the reference's custom VJP; the
-chunked attention's kv steps are rematerialised in the backward, as the
-reference's ``jax.checkpoint`` of each kv step does.
-``layernorm``, biases, the sliding window and its local/global flag, a
-query offset, a decode window's lower bound and cross-attention's
-precomputed k/v belong to the dense, audio and VLM families (ROADMAP
-Queue 1 item 10) and come with them.
+The layer options of the dense and VLM families are here: ``layernorm``
+(``norm_kind="ln"``), biases (``use_bias``: ``bq``, ``bk``, ``bv``,
+``bo`` on :class:`Attention`), the 2-matrix :func:`gelu_mlp`, the
+sliding window with its per-layer flag, a query offset and a decode
+window's lower bound. A layer's ``window_flag`` is a Python bool (the
+reference's traced flag inside its layer scan): False turns the window
+off, True or None keeps it.
+
+Left out: ``shard_act`` and the activation-sharding rules, which are the
+identity on one device (the mesh tier is ROADMAP Queue 1 item 7);
+``attention``'s ``kv_override`` (whisper's cross-attention) and
+``layernorm``'s custom VJP, which come with item 10b. ``rmsnorm``
+carries the reference's custom VJP; the chunked attention's kv steps
+are rematerialised in the backward, as the reference's
+``jax.checkpoint`` of each kv step does.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 _RMS_EPS = 1e-6
+_LN_EPS = 1e-5
 _NEG = -1e30            # the reference's mask value: finite, not -inf
 
 
@@ -77,6 +83,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _rmsnorm(x, scale)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance (``jnp.var``),
+    eps 1e-5, cast back to ``x``'s dtype. Forward only: the reference's
+    custom VJP comes with the dense family's training (item 10b)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + _LN_EPS)
+    out = out * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -119,21 +138,44 @@ def _scale(d_head: int) -> torch.Tensor:
     return 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=torch.float32))
 
 
-def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+def _window(window: int | None, window_flag) -> int | None:
+    """The window a layer applies: none when the config has none or the
+    layer's flag (a Python bool) turns it off."""
+    if window is None or (window_flag is not None and not window_flag):
+        return None
+    return window
+
+
+def _mask(qpos, kpos, causal: bool, window: int | None):
+    """[Sq, Sk] True where a query at absolute position ``qpos`` sees the
+    key at ``kpos``: at or before it when ``causal``, and within
+    ``window`` of it (``kpos > qpos - window``); None when neither."""
+    mask = qpos[:, None] >= kpos[None, :] if causal else None
+    if window is not None:
+        near = kpos[None, :] > qpos[:, None] - window
+        mask = near if mask is None else mask & near
+    return mask
+
+
+def dense_attention(q, k, v, *, causal: bool, window: int | None = None,
+                    q_offset: int = 0, window_flag=None) -> torch.Tensor:
     """Materialized-scores attention for short sequences.
 
     q: [B, Sq, H, Dh]; k, v: [B, Sk, KV, Dh]. Returns [B, Sq, H, Dh].
+    Query i sits at position ``q_offset + i``; ``window`` masks keys at
+    or below ``position - window`` unless ``window_flag`` is False.
     """
     H = q.shape[2]
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * _scale(q.shape[-1])
-    if causal:
-        dev = q.device
-        iq = torch.arange(q.shape[1], device=dev)[:, None]
-        jk = torch.arange(k.shape[1], device=dev)[None, :]
-        s.masked_fill_(iq < jk, _NEG)  # in place: s is this call's own
+    dev = q.device
+    mask = _mask(torch.arange(q.shape[1], device=dev) + q_offset,
+                 torch.arange(k.shape[1], device=dev), causal,
+                 _window(window, window_flag))
+    if mask is not None:
+        s.masked_fill_(~mask, _NEG)  # in place: s is this call's own
     p = torch.softmax(s, dim=-1)
     del s
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
@@ -169,15 +211,16 @@ def _online_step(qc, kc, vc, mask, m, l, acc, scale):
     return m_new, l, acc
 
 
-def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
-           kv_blocks) -> torch.Tensor:
-    """Every q chunk i over the first ``kv_blocks(i)`` kv chunks, with
-    the causal mask on absolute positions when ``causal``; the running
-    max starts at ``_NEG`` and the output is acc / max(l, 1e-30). When
-    q, k or v needs a gradient, each kv step runs under
-    ``torch.utils.checkpoint`` (non-reentrant): the backward keeps its
-    inputs (the running max, sum and acc), not its [B, H, q_chunk,
-    kv_chunk] tiles, and recomputes them."""
+def _sweep(q, k, v, causal: bool, window: int | None, q_offset: int,
+           q_chunk: int, kv_chunk: int, kv_blocks) -> torch.Tensor:
+    """Every q chunk i over the kv chunks ``range(*kv_blocks(i))``, with
+    the causal and window masks on absolute positions (query i of chunk
+    c at ``q_offset + c·q_chunk + i``); the running max starts at
+    ``_NEG`` and the output is acc / max(l, 1e-30). When q, k or v needs
+    a gradient, each kv step runs under ``torch.utils.checkpoint``
+    (non-reentrant): the backward keeps its inputs (the running max, sum
+    and acc), not its [B, H, q_chunk, kv_chunk] tiles, and recomputes
+    them."""
     B, Sq, H, Dh = q.shape
     nq = _chunks(Sq, q_chunk, "query")
     k = _expand_kv(k, H)
@@ -192,12 +235,12 @@ def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
     outs = []
     for i in range(nq):
         qc = q[:, i * q_chunk:(i + 1) * q_chunk]
+        qpos = q_offset + i * q_chunk + ar_q
         m = torch.full((B, H, q_chunk), _NEG, **f32)
         l = torch.zeros((B, H, q_chunk), **f32)
         acc = torch.zeros((B, H, q_chunk, Dh), **f32)
-        for j in range(kv_blocks(i)):
-            mask = ((i * q_chunk + ar_q)[:, None]
-                    >= (j * kv_chunk + ar_k)[None, :]) if causal else None
+        for j in range(*kv_blocks(i)):
+            mask = _mask(qpos, j * kv_chunk + ar_k, causal, window)
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
             args = (qc, k[:, ks], v[:, ks], mask, m, l, acc, scale)
             m, l, acc = (checkpoint(_online_step, *args, use_reentrant=False)
@@ -207,39 +250,56 @@ def _sweep(q, k, v, causal: bool, q_chunk: int, kv_chunk: int,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _chunked_attn_body(q, k, v, causal: bool, q_chunk: int,
-                       kv_chunk: int) -> torch.Tensor:
+def _chunked_attn_body(q, k, v, causal: bool, window: int | None,
+                       q_chunk: int, kv_chunk: int,
+                       q_offset: int = 0) -> torch.Tensor:
     """The rectangular sweep: every q chunk over every kv chunk."""
     nk = _chunks(k.shape[1], kv_chunk, "key")
-    return _sweep(q, k, v, causal, q_chunk, kv_chunk, lambda i: nk)
+    return _sweep(q, k, v, causal, window, q_offset, q_chunk, kv_chunk,
+                  lambda i: (0, nk))
 
 
-def _chunked_attn_tri(q, k, v, q_chunk: int, kv_chunk: int) -> torch.Tensor:
-    """The triangular causal schedule: per q chunk, exactly the causal
-    kv-chunk prefix."""
+def _chunked_attn_tri(q, k, v, window: int | None, q_chunk: int,
+                      kv_chunk: int) -> torch.Tensor:
+    """The triangular causal schedule: per q chunk, the causal kv-chunk
+    prefix; with a window, less the kv chunks wholly below it for every
+    query of the chunk (the reference's bound, which it takes only for a
+    window on every layer; a chunk the mask covers whole adds exactly
+    nothing to the online softmax, so skipping it for a local layer
+    leaves every bit of the result)."""
     Sq = q.shape[1]
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sq)
     _chunks(Sq, kv_chunk, "key")
-    return _sweep(q, k, v, True, q_chunk, kv_chunk,
-                  lambda i: -(-(i + 1) * q_chunk // kv_chunk))   # ceil
+
+    def kv_blocks(i):
+        hi = (i + 1) * q_chunk
+        lo = (0 if window is None
+              else max(0, (hi - q_chunk - window) // kv_chunk))
+        return lo, -(-hi // kv_chunk)                      # ceil
+    return _sweep(q, k, v, True, window, 0, q_chunk, kv_chunk, kv_blocks)
 
 
-def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+def chunked_attention(q, k, v, *, causal: bool, window: int | None = None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      q_offset: int = 0, window_flag=None) -> torch.Tensor:
     """Online-softmax attention over q and kv chunks: the S² score matrix
     never lives whole, only one [B, H, q_chunk, kv_chunk] f32 tile.
 
     q: [B, Sq, H, Dh]; k, v: [B, Sk, KV, Dh]. Returns [B, Sq, H, Dh].
-    Causal self-attention (Sq == Sk) takes the triangular schedule, the
-    rest the rectangular sweep, as in the reference; chunk lengths that
-    do not divide their sequence raise ``ValueError``. Each call adds one
-    to ``chunked_attention.calls``.
+    Causal self-attention (Sq == Sk, no query offset) takes the
+    triangular schedule, the rest the rectangular sweep, as in the
+    reference; ``window`` and ``window_flag`` mask as in
+    :func:`dense_attention`. Chunk lengths that do not divide their
+    sequence raise ``ValueError``. Each call adds one to
+    ``chunked_attention.calls``.
     """
     chunked_attention.calls += 1
-    if causal and q.shape[1] == k.shape[1]:
-        return _chunked_attn_tri(q, k, v, q_chunk, kv_chunk)
-    return _chunked_attn_body(q, k, v, causal, q_chunk, kv_chunk)
+    window = _window(window, window_flag)
+    if causal and q_offset == 0 and q.shape[1] == k.shape[1]:
+        return _chunked_attn_tri(q, k, v, window, q_chunk, kv_chunk)
+    return _chunked_attn_body(q, k, v, causal, window, q_chunk, kv_chunk,
+                              q_offset)
 
 
 # calls, summed: ``chip_smoke.py`` reads here that a long prompt's
@@ -247,12 +307,14 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
 chunked_attention.calls = 0
 
 
-def decode_attention(q, k_cache, v_cache, valid_len) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, valid_len,
+                     lo_idx=None) -> torch.Tensor:
     """Single-position attention against a (padded) KV cache.
 
     q: [B, 1, H, Dh]; caches: [B, S, KV, Dh]; valid_len: current length
     (an int or a 0-dim tensor; entries at position ≥ valid_len are
-    masked).
+    masked); ``lo_idx``: optional lower bound of the same kinds, entries
+    below it masked (sliding-window decode).
     """
     H = q.shape[2]
     k = _expand_kv(k_cache, H)
@@ -260,18 +322,24 @@ def decode_attention(q, k_cache, v_cache, valid_len) -> torch.Tensor:
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * _scale(q.shape[-1])
     idx = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
-    s.masked_fill_(idx >= valid_len, _NEG)
+    masked = idx >= valid_len
+    if lo_idx is not None:
+        masked = masked | (idx < lo_idx)
+    s.masked_fill_(masked, _NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Projections
+# Projections / MLP
 # ---------------------------------------------------------------------------
 
-def linear(x, w):
-    return x @ w
+def linear(x, w, b=None):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
 
 
 def swiglu_mlp(x, p):
@@ -279,6 +347,15 @@ def swiglu_mlp(x, p):
     :class:`MLP`."""
     h = torch.nn.functional.silu(x @ p.w1) * (x @ p.w3)
     return h @ p.w2
+
+
+def gelu_mlp(x, p):
+    """2-matrix GELU MLP (starcoder2): w1, w2 and, where ``p`` has them,
+    biases b1, b2. ``jax.nn.gelu`` defaults to its tanh form, so this is
+    ``approximate="tanh"``."""
+    h = linear(x, p.w1, getattr(p, "b1", None))
+    h = torch.nn.functional.gelu(h, approximate="tanh")
+    return linear(h, p.w2, getattr(p, "b2", None))
 
 
 # ---------------------------------------------------------------------------
@@ -320,12 +397,19 @@ def as_generator(key, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(key))
 
 
+def zeros_param(shape, dtype, device) -> nn.Parameter:
+    """A weight of zeros held without gradients (the reference's biases
+    and LayerNorm shifts start at zero)."""
+    return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
 class Attention(nn.Module):
     """The attention sub-layer's weights; ``forward`` is :func:`attention`.
 
     Built with ``key`` (a ``torch.Generator``) the weights are drawn as
     ``attn_params`` draws them; without, they are left uninitialized for
-    a caller to load (``repro_torch.convert``).
+    a caller to load (``repro_torch.convert``). With ``cfg.use_bias`` it
+    also holds the biases ``bq``, ``bk``, ``bv``, ``bo``, zeros.
     """
 
     def __init__(self, cfg, dtype, device="cuda", key=None):
@@ -336,36 +420,55 @@ class Attention(nn.Module):
                             ("wv", (d, KV * Dh)), ("wo", (H * Dh, d))):
             self.register_parameter(name,
                                     drawn_param(key, shape, dtype, device))
+        if cfg.use_bias:
+            for name, n in (("bq", H * Dh), ("bk", KV * Dh),
+                            ("bv", KV * Dh), ("bo", d)):
+                self.register_parameter(name, zeros_param(n, dtype, device))
 
-    def forward(self, x, *, positions, causal=True, return_kv=False):
+    def forward(self, x, *, positions, causal=True, window=None,
+                window_flag=None, return_kv=False):
         return attention(x, self, self.cfg, positions=positions,
-                         causal=causal, return_kv=return_kv)
+                         causal=causal, window=window,
+                         window_flag=window_flag, return_kv=return_kv)
 
 
 def attn_params(key, cfg, dtype, device="cuda") -> Attention:
     return Attention(cfg, dtype, device, key=key)
 
 
-def attention(x, p, cfg, *, positions, causal=True, return_kv=False):
-    """Full attention sub-layer: proj → rope → attend → out-proj.
-
-    p: an :class:`Attention`. return_kv: also return the (roped) k/v for
-    KV-cache priming. Returns output [B, S, D] (or (out, (k, v))).
-    """
+def project_qkv(x, p, cfg, positions):
+    """q [B, S, H, Dh] and k, v [B, S, KV, Dh] of ``x`` [B, S, D] through
+    ``p`` (an :class:`Attention`, biases where it has them), q and k
+    roped at ``positions``."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(x, p.wq).reshape(B, S, H, Dh)
-    k = linear(x, p.wk).reshape(B, S, KV, Dh)
-    v = linear(x, p.wv).reshape(B, S, KV, Dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = linear(x, p.wq, getattr(p, "bq", None)).reshape(B, S, H, Dh)
+    k = linear(x, p.wk, getattr(p, "bk", None)).reshape(B, S, KV, Dh)
+    v = linear(x, p.wv, getattr(p, "bv", None)).reshape(B, S, KV, Dh)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention(x, p, cfg, *, positions, causal=True, window=None,
+              window_flag=None, return_kv=False):
+    """Full attention sub-layer: proj → rope → attend → out-proj.
+
+    p: an :class:`Attention`. ``window``/``window_flag``: the sliding
+    window and the layer's flag (:func:`dense_attention`). return_kv:
+    also return the (roped) k/v for KV-cache priming. Returns output
+    [B, S, D] (or (out, (k, v))).
+    """
+    B, S, _ = x.shape
+    q, k, v = project_qkv(x, p, cfg, positions)
     if max(S, k.shape[1]) > cfg.attn_chunk_threshold:
-        out = chunked_attention(q, k, v, causal=causal,
+        out = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=min(cfg.q_chunk, S),
-                                kv_chunk=min(cfg.kv_chunk, k.shape[1]))
+                                kv_chunk=min(cfg.kv_chunk, k.shape[1]),
+                                window_flag=window_flag)
     else:
-        out = dense_attention(q, k, v, causal=causal)
-    out = linear(out.reshape(B, S, H * Dh), p.wo)
+        out = dense_attention(q, k, v, causal=causal, window=window,
+                              window_flag=window_flag)
+    out = linear(out.reshape(B, S, -1), p.wo, getattr(p, "bo", None))
     if return_kv:
         return out, (k, v)
     return out
@@ -387,3 +490,22 @@ class MLP(nn.Module):
     def forward(self, x):
         return swiglu_mlp(x, self)
 
+
+class GeluMLP(nn.Module):
+    """The 2-matrix GELU MLP's weights ``w1`` [d_model, d_ff] and ``w2``
+    [d_ff, d_model] and, with ``bias``, ``b1`` [d_ff] and ``b2``
+    [d_model] (zeros); ``forward`` is :func:`gelu_mlp`. Drawn as the
+    reference's ``transformer._mlp_params`` draws them with ``key``,
+    else left uninitialized."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device="cuda",
+                 key=None, bias: bool = False):
+        super().__init__()
+        self.w1 = drawn_param(key, (d_model, d_ff), dtype, device)
+        self.w2 = drawn_param(key, (d_ff, d_model), dtype, device)
+        if bias:
+            self.b1 = zeros_param(d_ff, dtype, device)
+            self.b2 = zeros_param(d_model, dtype, device)
+
+    def forward(self, x):
+        return gelu_mlp(x, self)

@@ -1,9 +1,6 @@
 """Shared LM machinery: norms, embeddings, the chunked loss and the
 tied logits head, the SSD chunk choice and cache plumbing (port of
 ``repro.models.lm_common``).
-
-LayerNorm (``norm_kind="ln"``) comes with the families that use it
-(ROADMAP Queue 1 item 10): the MoE archs use RMSNorm.
 """
 from __future__ import annotations
 
@@ -11,20 +8,26 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import rmsnorm
+from .layers import layernorm, rmsnorm, zeros_param
 
 
 class Norm(nn.Module):
-    """An RMSNorm's weights: ``scale``, zeros for its ``1 + scale``."""
+    """A norm's weights: an RMSNorm's ``scale``, zeros for its
+    ``1 + scale``; with ``cfg.norm_kind == "ln"`` a LayerNorm's
+    ``scale`` (ones) and ``bias`` (zeros)."""
 
     def __init__(self, cfg, dtype, device="cuda"):
         super().__init__()
-        self.scale = nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
+        self.scale = zeros_param(cfg.d_model, dtype, device)
+        if cfg.norm_kind == "ln":
+            with torch.no_grad():
+                self.scale.fill_(1)
+            self.bias = zeros_param(cfg.d_model, dtype, device)
 
 
 def norm(x, p: Norm, cfg):
+    if cfg.norm_kind == "ln":
+        return layernorm(x, p.scale, p.bias)
     return rmsnorm(x, p.scale)
 
 
@@ -117,13 +120,21 @@ def zeros_from_spec(spec: dict, device) -> dict:
             for name, sp in spec.items()}
 
 
+def _kv_index(k_cache, n: int, pos) -> torch.Tensor:
+    """The n sequence positions a write at ``pos`` (an int or a 0-dim
+    tensor) covers: as the reference's ``dynamic_update_slice``, the start
+    is clamped to [0, S - n]."""
+    S = k_cache.shape[1]
+    start = torch.clamp(torch.as_tensor(pos, device=k_cache.device), 0, S - n)
+    return start.long() + torch.arange(n, device=k_cache.device)
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     """Write [B, n, KV, Dh] at position ``pos`` (an int or a 0-dim
-    tensor) of [B, S, KV, Dh], into new tensors. As the reference's
-    ``dynamic_update_slice``, the start is clamped to [0, S - n]."""
-    S, n = k_cache.shape[1], k_new.shape[1]
-    start = torch.clamp(torch.as_tensor(pos, device=k_cache.device), 0, S - n)
-    idx = start.long() + torch.arange(n, device=k_cache.device)
-    k_cache = k_cache.index_copy(1, idx, k_new.to(k_cache.dtype))
-    v_cache = v_cache.index_copy(1, idx, v_new.to(v_cache.dtype))
+    tensor) of [B, S, KV, Dh], in place (the caches may be views, e.g.
+    one layer of a stacked cache); returns the caches. The reference
+    writes into new arrays: a step here holds one cache, not two."""
+    idx = _kv_index(k_cache, k_new.shape[1], pos)
+    k_cache.index_copy_(1, idx, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v_new.to(v_cache.dtype))
     return k_cache, v_cache

@@ -1,21 +1,23 @@
 """Family dispatcher: one API over the ported architectures (port of
-``repro.models.model_zoo``; the MoE, Mamba-2 ("ssm") and hybrid
-families, serving and training).
+``repro.models.model_zoo``; the dense, VLM, MoE, Mamba-2 ("ssm") and
+hybrid families: all served, the MoE, Mamba-2 and hybrid trained).
 
 API:
   init_params(cfg, key, device)           → the family's weights module
   loss_fn(params, cfg, batch)             → scalar loss
   loss_and_metrics(params, cfg, batch)    → (loss, routing telemetry)
   prefill_step(params, cfg, batch, pad_to) → (last logits, decode cache)
-  decode_step(params, cfg, cache, tokens)  → (logits, cache)
+  decode_step(params, cfg, cache, tokens)  → (logits, cache); an
+    attention cache's K/V are written in place
   init_cache(cfg, batch, max_len, device) / cache_spec(cfg, batch, max_len)
+    (gemma3's ring-buffer cache past 65,536 positions, ``_use_longctx``)
   input_specs(cfg, shape) / param_specs(cfg) → "meta" tensors, nothing
     allocated
   count_params(params) / count_params_specs(specs) /
     active_params(cfg, total) / metric_zeros(cfg)
 
-Another family raises ``NotImplementedError`` naming the ROADMAP item
-(Queue 1) that ports it.
+The audio family (whisper) raises ``NotImplementedError`` naming the
+ROADMAP item (Queue 1) that ports it.
 """
 from __future__ import annotations
 
@@ -24,17 +26,16 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.backend import resolve_device
 
-from . import hybrid, mamba2, moe_transformer
+from . import hybrid, mamba2, moe_transformer, transformer
+from .layers import torch_dtype
 from .lm_common import zeros_from_spec
 
-_FAMS = {"moe": moe_transformer, "ssm": mamba2, "hybrid": hybrid}
-_WEIGHTS = {"moe": moe_transformer.MoETransformer, "ssm": mamba2.Mamba2,
+_FAMS = {"dense": transformer, "vlm": transformer, "moe": moe_transformer,
+         "ssm": mamba2, "hybrid": hybrid}
+_WEIGHTS = {"dense": transformer.Transformer, "vlm": transformer.Transformer,
+            "moe": moe_transformer.MoETransformer, "ssm": mamba2.Mamba2,
             "hybrid": hybrid.Hybrid}
-_NOT_PORTED = {
-    "dense": "item 10 (dense transformer)",
-    "vlm": "item 10 (VLM)",
-    "audio": "item 10 (encoder-decoder)",
-}
+_NOT_PORTED = {"audio": "item 10b (encoder-decoder)"}
 
 
 def family_module(cfg: ModelConfig):
@@ -74,8 +75,16 @@ def metric_zeros(cfg: ModelConfig, device="cuda") -> dict:
             "moe_load": torch.zeros(cfg.moe.n_experts, device=dev)}
 
 
+def _use_longctx(cfg: ModelConfig, max_len: int) -> bool:
+    return (cfg.family == "dense" and cfg.sliding_window is not None
+            and cfg.global_every is not None and max_len > 65536)
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens):
-    return family_module(cfg).decode_step(params, cfg, cache, tokens)
+    mod = family_module(cfg)
+    if "local_k" in cache:
+        return transformer.decode_step_longctx(params, cfg, cache, tokens)
+    return mod.decode_step(params, cfg, cache, tokens)
 
 
 def prefill_step(params, cfg: ModelConfig, batch, pad_to: int | None = None):
@@ -84,6 +93,8 @@ def prefill_step(params, cfg: ModelConfig, batch, pad_to: int | None = None):
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    if _use_longctx(cfg, max_len):
+        return transformer.longctx_cache_spec(cfg, batch, max_len)
     return family_module(cfg).cache_spec(cfg, batch, max_len)
 
 
@@ -125,8 +136,9 @@ def count_params_specs(specs) -> int:
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """"meta" tensors standing in for every model input of a cell:
-    train/prefill → {"batch": {"tokens": [B, S] int32}}; decode →
-    {"cache": ``cache_spec``, "tokens": [B, 1] int32}."""
+    train/prefill → {"batch": {"tokens": [B, S] int32}} (the VLM:
+    {"patches": [B, n_patches, vision_dim], "tokens": [B, S - n_patches]});
+    decode → {"cache": ``cache_spec``, "tokens": [B, 1] int32}."""
     family_module(cfg)
     B, S = shape.global_batch, shape.seq_len
 
@@ -134,5 +146,11 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
         return torch.empty(dims, dtype=torch.int32, device="meta")
 
     if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            return {"batch": {
+                "patches": torch.empty(
+                    (B, cfg.n_patches, cfg.vision_dim),
+                    dtype=torch_dtype(cfg.dtype), device="meta"),
+                "tokens": tokens(B, S - cfg.n_patches)}}
         return {"batch": {"tokens": tokens(B, S)}}
     return {"cache": cache_spec(cfg, B, S), "tokens": tokens(B, 1)}

@@ -20,8 +20,8 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.moe.layer import MoEFFN, moe_ffn
 
-from .layers import (Attention, apply_rope, as_generator, attention,
-                     drawn_param, linear, torch_dtype)
+from .layers import (Attention, as_generator, attention, drawn_param,
+                     linear, project_qkv, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels)
 from .sp_decode import seqpar_update_and_attend
@@ -50,15 +50,6 @@ class MoETransformer(nn.Module):
 
     def __init__(self, cfg, device="cuda", key=None):
         super().__init__()
-        unported = [name for name, on in (
-            ("sliding_window", cfg.sliding_window is not None),
-            ("use_bias", cfg.use_bias),
-            (f"norm_kind={cfg.norm_kind!r}", cfg.norm_kind != "rms")) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: {', '.join(unported)} is not ported yet; "
-                "it comes with the families that use it (ROADMAP Queue 1 "
-                "item 10)")
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.dtype)
         self.embed = drawn_param(key, (cfg.vocab, cfg.d_model), dtype, dev,
@@ -89,7 +80,8 @@ def hidden_states(params: MoETransformer, cfg, x, positions,
 
     def body(x, lp):
         h, kv = attention(norm(x, lp.attn_norm, cfg), lp.attn, cfg,
-                          positions=positions, causal=True, return_kv=True)
+                          positions=positions, causal=True,
+                          window=cfg.sliding_window, return_kv=True)
         x = x + h
         h, m = moe_ffn(norm(x, lp.mlp_norm, cfg), lp.moe, cfg)
         return x + h, m, kv
@@ -157,11 +149,15 @@ def prefill_step(params: MoETransformer, cfg, batch,
 
 @torch.no_grad()
 def decode_step(params: MoETransformer, cfg, cache, tokens):
-    """One decode step. tokens: [B, 1] → (logits [B, V], new cache).
+    """One decode step. tokens: [B, 1] → (logits [B, V], the cache with
+    the new K/V written in place and ``pos`` advanced).
 
-    The whole batch is one token group of the MoE layers: T = B, so the
-    capacity is max(1, ⌊cf·B·k/E⌋) (1 for 8 tokens over 128 experts at
-    top-8). ``cache["pos"]`` stays a device tensor: no host sync."""
+    As in the reference, the step attends over the whole cache whatever
+    ``cfg.sliding_window`` says (the prefill honors the window; the
+    reference's decode passes no lower bound). The whole batch is one
+    token group of the MoE layers: T = B, so the capacity is
+    max(1, ⌊cf·B·k/E⌋) (1 for 8 tokens over 128 experts at top-8).
+    ``cache["pos"]`` stays a device tensor: no host sync."""
     embed = params.embed
     tokens = torch.as_tensor(tokens, device=embed.device)
     B = tokens.shape[0]
@@ -169,25 +165,16 @@ def decode_step(params: MoETransformer, cfg, cache, tokens):
     pos = cache["pos"]
     positions = torch.as_tensor(pos, device=embed.device).reshape(
         1, 1).expand(B, 1)
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    ks, vs = [], []
     for lp, kc, vc in zip(params.layers, cache["k"], cache["v"]):
-        xa = norm(x, lp.attn_norm, cfg)
-        a = lp.attn
-        q = linear(xa, a.wq).reshape(B, 1, H, Dh)
-        k = linear(xa, a.wk).reshape(B, 1, KV, Dh)
-        v = linear(xa, a.wv).reshape(B, 1, KV, Dh)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        out, kc, vc = seqpar_update_and_attend(q, kc, vc, k, v, pos)
-        x = x + linear(out.reshape(B, 1, H * Dh), a.wo)
+        q, k, v = project_qkv(norm(x, lp.attn_norm, cfg), lp.attn, cfg,
+                              positions)
+        out, _, _ = seqpar_update_and_attend(q, kc, vc, k, v, pos)
+        x = x + linear(out.reshape(B, 1, -1), lp.attn.wo,
+                       getattr(lp.attn, "bo", None))
         # decode: the whole batch is a single token group
         h, _ = moe_ffn(norm(x, lp.mlp_norm, cfg).reshape(1, B, -1), lp.moe,
                        cfg)
         x = x + h.reshape(B, 1, -1)
-        ks.append(kc)
-        vs.append(vc)
     x = norm(x, params.final_norm, cfg)
     logits = last_logits(x[:, 0], embed)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                    "pos": pos + 1}
+    return logits, {**cache, "pos": pos + 1}

@@ -219,7 +219,9 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     moe_cfg = configs.get_smoke_config("qwen3-moe-235b-a22b")
     ssm_cfg = configs.get_smoke_config("mamba2-130m")
     hybrid_cfg = configs.get_smoke_config("zamba2-2.7b")
-    from repro_torch.models import hybrid, mamba2
+    dense_cfg = configs.get_smoke_config("gemma3-1b")
+    vlm_cfg = configs.get_smoke_config("internvl2-2b")
+    from repro_torch.models import hybrid, mamba2, transformer
     from repro_torch.launch import train
     from repro_torch.runtime import fault_tolerance, straggler
     from repro_torch.launch.mesh import make_source_mesh, run_all, spawn_ranks
@@ -243,6 +245,10 @@ def test_cuda_device_without_cuda_raises(tmp_path):
                  lambda: hybrid.init_params(hybrid_cfg, 0),
                  lambda: model_zoo.init_cache(hybrid_cfg, 2, 16),
                  lambda: model_zoo.init_cache(ssm_cfg, 2, 16),
+                 lambda: model_zoo.init_params(dense_cfg, 0),
+                 lambda: transformer.init_params(vlm_cfg, 0),
+                 lambda: model_zoo.init_cache(dense_cfg, 2, 70_000),
+                 lambda: transformer.init_longctx_cache(dense_cfg, 2, 64),
                  lambda: serve.main(["--arch", "zamba2-2.7b",
                                      "--requests", "4"]),
                  lambda: serve.main(["--requests", "4"]),
