@@ -48,8 +48,7 @@ Phases:
      block 1 on a 2.2M prefix (checked against the per-message oracle);
      (b) the Fig 14/15 deployment (24 workers, α=20, slot 5,000, 16
      moves per slot, two executors at 30%, 8 sources) on a TW-profile
-     stream (31M keys, p1=2.67%) cut to 11M messages (the run's time
-     limit);
+     stream at Table I scale (22M messages, 31M keys, p1=2.67%);
      (c) (b) with ``hh_scheme="WCHOICES"`` on the same stream, and (d)
      (a) at block 128 with ``hh_scheme="DCHOICES"`` on the 2.2M prefix:
      the heavy-hitter path through the HHPolicy kernel;
@@ -191,7 +190,30 @@ Phases:
      the card against the same weights on the CPU, and gemma3's ring
      against the uniform decode on the card over 40 steps, past the smoke
      window's wrap (within 1e-5);
- 13. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 13. whisper-small served and trained, the dense and VLM families
+     trained, random bf16 weights from a seeded ``torch.Generator``, each
+     model freed before the next: (aa) whisper-small at full size (12 +
+     12 layers, d 768, 12 heads, vocab 51,865): ``encode`` of 8 × 1,500
+     frame embeddings (30 s of audio after the stubbed conv frontend),
+     ``prefill_step`` of the 4-token start-of-transcript prompt, 64
+     greedy decode steps in a self cache of 448 positions: encode,
+     prefill and decode ms against the read time of the decoder's
+     weights, peak memory; ``prefill(prompt[:-1])`` + ``decode(last)``
+     against ``prefill(prompt)`` (bf16, then f32 on the smoke config);
+     (aa2) ``launch/serve.py``'s ``serve`` over it (4 replicas, one
+     slow, 64 requests, nothing lost; row 2a counts its launch); (ab)
+     gemma3-1b (8 × 1,024, remat "full"), (ac) starcoder2-3b (8 × 1,024:
+     LayerNorm's VJP, biases, GELU MLP), (ad) internvl2-2b (8 × (256
+     patches + 768 tokens)), (ae) whisper-small (8 × (1,500 frames + 448
+     tokens)) trained, 5 AdamW steps each on one fixed batch: the loss
+     must fall; train tokens/s, step ms and peak memory against the
+     training state; gemma3-1b again under remat "none", "dots" and
+     "attn_out" (the same losses); ``launch/train.py``'s ``Trainer`` on
+     whisper-small at full size, 6 steps; then the four smoke configs'
+     train step in f32 card vs CPU (every gradient within 1e-4),
+     whisper's logits card vs CPU (1e-4), and "dots" and "attn_out"
+     against "none" on the card (loss and gradients within 1e-6);
+ 14. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -223,9 +245,8 @@ WP_TABLE1 = dict(name="WP", n_messages=22_000_000, n_keys=2_900_000,
                  p1=0.0932, z_tail=1.0, diurnal=True)
 TW_TABLE1 = dict(name="TW", n_messages=22_000_000, n_keys=31_000_000,
                  p1=0.0267, z_tail=0.8, diurnal=True)
-# (b) and (c) route the first half of the TW stream: at 22M messages the
-# two took 65 s of the run, which phase 12 needed
-TW_MAIN_MESSAGES = 11_000_000
+# (b) and (c) route the whole TW stream
+TW_MAIN_MESSAGES = 22_000_000
 
 
 def log(*a):
@@ -2279,15 +2300,18 @@ def moe_path(dev, seed: int, n_layers: int | None = 8, batch: int = 8,
                 peak_gb=peak, runs=runs, long=long, serving=serving)
 
 
-def greedy_logits(model, cfg, tokens, steps: int = 4, patches=None) -> list:
+def greedy_logits(model, cfg, tokens, steps: int = 4, patches=None,
+                  frames=None) -> list:
     """The last logits of ``prefill_step`` on ``tokens`` (after the VLM's
-    ``patches``, if given) and of ``steps`` greedy ``decode_step``s after
-    it, copied to the host."""
+    ``patches``, or against whisper's ``frames``, if given) and of
+    ``steps`` greedy ``decode_step``s after it, copied to the host."""
     import torch
     from repro_torch.models import model_zoo as zoo
     batch = {"tokens": tokens}
     if patches is not None:
         batch["patches"] = patches
+    if frames is not None:
+        batch["frames"] = frames
     S = tokens.shape[1] + (0 if patches is None else patches.shape[1])
     logits, cache = zoo.prefill_step(model, cfg, batch, pad_to=S + steps)
     seq = [logits]
@@ -2361,14 +2385,16 @@ CONSISTENCY_TOL = 5e-2
 CONSISTENCY_TOL_F32 = 1e-4
 
 
-def prefill_decode_gap(model, cfg, tokens) -> float:
+def prefill_decode_gap(model, cfg, tokens, frames=None) -> float:
     """max|a − b| / max|a| between the last logits of ``prefill(prompt)``
-    and of ``prefill(prompt[:-1])`` + ``decode(prompt[-1])``."""
+    and of ``prefill(prompt[:-1])`` + ``decode(prompt[-1])`` (both against
+    whisper's ``frames``, if given)."""
     from repro_torch.models import model_zoo as zoo
     S = tokens.shape[1]
-    full, _ = zoo.prefill_step(model, cfg, {"tokens": tokens})
-    _, cache = zoo.prefill_step(model, cfg, {"tokens": tokens[:, :-1]},
-                                pad_to=S)
+    extra = {} if frames is None else {"frames": frames}
+    full, _ = zoo.prefill_step(model, cfg, {"tokens": tokens, **extra})
+    _, cache = zoo.prefill_step(model, cfg, {"tokens": tokens[:, :-1],
+                                             **extra}, pad_to=S)
     inc, _ = zoo.decode_step(model, cfg, cache, tokens[:, -1:])
     return relerr(full, inc)
 
@@ -2729,15 +2755,47 @@ def train_path(dev, seed: int, n_layers: int | None = 1, steps: int = 5,
                 reckoning=reck, runs=runs)
 
 
+def smoke_batch(cfg, seed: int, B: int = 4, S: int = 64) -> dict:
+    """A host batch of ``B`` × ``S`` random tokens from ``seed`` and, for
+    the VLM, its patches [B, n_patches, vision_dim], for whisper frames
+    [B, S, d_model] (f32 normals)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((B, cfg.n_patches, cfg.vision_dim),
+                                       generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, S, cfg.d_model), generator=g)
+    return batch
+
+
+def grad_errors(a: dict, b: dict) -> dict:
+    """max|a − b| over max|a| of each gradient of ``a`` (by name) against
+    ``b``'s; whisper's cross-attention key bias ``bk``, whose gradient is
+    zero in exact arithmetic (a shift common to every key leaves the
+    softmax as it is) and rounding noise on either device, over the
+    largest gradient of the model instead."""
+    top = max(float(g.abs().max()) for g in a.values())
+    return {n: float((g - b[n]).abs().max())
+            / (top if n.endswith("cross_attn.bk")
+               else max(float(g.abs().max()), 1e-30))
+            for n, g in a.items()}
+
+
 def train_reference_check(dev, seed: int, arch: str = MOE_ARCH) -> dict:
     """The train step on the card against the CPU, from the same weights:
-    ``arch``'s smoke config in f32 (the MoE with grad_accum 2; Mamba-2
-    and zamba2 with remat "full", the SSD scan's CUDA forward and
-    backward on the card, its plain versions on the CPU), AdamW with eps
-    1e-5, one step on 4 × 64 tokens. The loss, every gradient (the
-    router's by name, which must not be zero), the step's loss and
-    telemetry and the weights after it agree within the ``TRAIN_*``
-    tolerances; AdamW on the CPU's gradients agrees on both devices."""
+    ``arch``'s smoke config in f32 (the MoE with grad_accum 2; the other
+    families with remat "full": Mamba-2 and zamba2 with the SSD scan's
+    CUDA forward and backward on the card, its plain versions on the CPU;
+    the dense, VLM and audio families with their LayerNorm or RMSNorm
+    VJPs), AdamW with eps 1e-5, one step on 4 × 64 tokens (``smoke_batch``:
+    the VLM's patches, whisper's frames). The loss, every gradient (the
+    router's by name, which must not be zero; ``grad_errors``), the step's
+    loss and telemetry and the weights after it agree within the
+    ``TRAIN_*`` tolerances; AdamW on the CPU's gradients agrees on both
+    devices."""
     import copy
     import torch
     from repro_torch import configs, optim
@@ -2753,14 +2811,12 @@ def train_reference_check(dev, seed: int, arch: str = MOE_ARCH) -> dict:
     cpu = torch.device("cpu")
     host = zoo.init_params(cfg, seed, device=cpu).requires_grad_(True)
     card = copy.deepcopy(host).to(dev)
-    tokens = torch.randint(0, cfg.vocab, (4, 64),
-                           generator=torch.Generator().manual_seed(seed),
-                           dtype=torch.int32)
+    inputs = smoke_batch(cfg, seed)
     opt_cfg = optim.AdamWConfig(lr_peak=1e-3, warmup_steps=1,
                                 total_steps=4, eps=1e-5)
     out = {}
     for where, model in ((cpu, host), (dev, card)):
-        batch = {"tokens": tokens.to(where)}
+        batch = {k: v.to(where) for k, v in inputs.items()}
         loss, _ = zoo.loss_and_metrics(model, cfg, batch)
         names, leaves = zip(*model.named_parameters())
         grads = torch.autograd.grad(loss, leaves)
@@ -2784,7 +2840,7 @@ def train_reference_check(dev, seed: int, arch: str = MOE_ARCH) -> dict:
         return float((x - y).abs().max() / max(float(x.abs().max()), 1e-30))
 
     loss_err = abs(a["loss"] - b["loss"]) / abs(a["loss"])
-    grad_err = {n: worst(g, b["grads"][n]) for n, g in a["grads"].items()}
+    grad_err = grad_errors(a["grads"], b["grads"])
     router = [n for n in grad_err if n.endswith("moe.router")]
     if loss_err > 1e-5 or max(grad_err.values()) > TRAIN_GRAD_TOL:
         fail(f"train reference {arch}: loss rel {loss_err}, worst gradient "
@@ -2982,16 +3038,19 @@ def evacuation_by_rule(owner, dead: int, n_hosts: int) -> list:
 def driver_run(name: str, trainer, dev, check_launches: bool,
                on_step=None) -> dict:
     """``trainer.run`` with the launch counts zeroed just before and read
-    after every step: the loss finite; on the card ``ssd_scan`` launched
-    once a layer a micro-step (twice under remat "full"), ``ssd_scan_bwd``
-    once, and the plain ``ssd_chunked`` never on CUDA tensors. Step ms and
+    after every step: the loss finite; on the card, for an SSM or hybrid
+    model, ``ssd_scan`` launched once a layer a micro-step (twice under
+    remat "full"), ``ssd_scan_bwd`` once, and for every model the plain
+    ``ssd_chunked`` never on CUDA tensors. Step ms and
     train tokens/s of every step, the saves' seconds, peak memory."""
     import torch
     cuda = dev.type == "cuda"
     cfg = trainer.cfg
     passes = cfg.grad_accum * (2 if cfg.remat == "full" else 1)
-    expect = {"ssd_scan": cfg.n_layers * passes,
-              "ssd_scan_bwd": cfg.n_layers * cfg.grad_accum}
+    ssm = cfg.family in ("ssm", "hybrid")
+    expect = ({"ssd_scan": cfg.n_layers * passes,
+               "ssd_scan_bwd": cfg.n_layers * cfg.grad_accum} if ssm
+              else {})
     tokens = trainer.batch * trainer.pipe.cfg.seq_len
     rows, last = [], {}
 
@@ -3006,8 +3065,8 @@ def driver_run(name: str, trainer, dev, check_launches: bool,
             f"{row['tokens_per_s']:,.0f} tokens/s (the feed "
             f"{row['feed_ms']:.2f} ms)"
             + (f", save {row['save_s']:.3f} s" if row["saved"] else "")
-            + f"; launches ssd_scan {got['ssd_scan']}, ssd_scan_bwd "
-            f"{got['ssd_scan_bwd']}")
+            + (f"; launches ssd_scan {got['ssd_scan']}, ssd_scan_bwd "
+               f"{got['ssd_scan_bwd']}" if ssm else ""))
         if not math.isfinite(row["loss"]):
             fail(f"{name}: loss not finite at step {row['step']}")
         if cuda and check_launches and got != expect:
@@ -3026,7 +3085,8 @@ def driver_run(name: str, trainer, dev, check_launches: bool,
     trainer.run(on_step=step_done)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    check_counts(name, counts, "ssd_scan_bwd", dev, check_launches)
+    check_counts(name, counts, "ssd_scan_bwd" if ssm else None, dev,
+                 check_launches)
     plain = [r for r in rows if not r["saved"]]
     saves = [r for r in rows if r["saved"]]
     out = dict(run=name, steps=rows, wall_s=wall,
@@ -3857,6 +3917,452 @@ def dense_reference_check(dev, seed: int, ring_steps: int = 40) -> dict:
     return dict(max_rel_err=errs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: whisper served and trained; the dense, VLM and audio families
+# trained
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-small"
+# (aa): 30 s of audio, 1,500 frames after Whisper's conv frontend (whose
+# output the reference's stub takes as embeddings), a decoder cache of
+# Whisper's 448 positions, 64 greedy steps after the prompt
+WHISPER_RUN = dict(batch=8, frames=1500, max_len=448, decode_steps=64)
+# Whisper's start-of-transcript prompt in its multilingual vocabulary of
+# 51,865: <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
+SOT_PROMPT = (50258, 50259, 50359, 50363)
+# the training cells (ab)-(ae) at full size: batch, tokens and beside
+# them the VLM's 256 patches or whisper's 1,500 frames
+TRAIN_CELLS = {"gemma3-1b": dict(batch=8, seq=1024),
+               "starcoder2-3b": dict(batch=8, seq=1024),
+               "internvl2-2b": dict(batch=8, seq=768),
+               "whisper-small": dict(batch=8, seq=448, frames=1500)}
+# their AdamW: peak 3e-5, warm-up 2, a tenth of it at the end. Adam's
+# first steps move every weight by about lr whatever its gradient; at
+# 3e-4 starcoder2-3b's loss rose on its fixed batch (11.47 -> 17.46 at
+# step 2, 12.51 at step 5)
+TRAIN_CELL_OPT = dict(lr_peak=3e-5, lr_min=3e-6, warmup_steps=2)
+REMAT_ARCH = "gemma3-1b"
+# the remat policies run the same forward, so their first loss agrees up
+# to the order of the card's sums; after it the weights' bf16 gradients
+# may sum in another order (the tied table's two uses), which AdamW's
+# first steps carry into the weights at a rounding's weight
+REMAT_LOSS_TOL = (1e-6, 1e-3)
+# the policies against "none" on the card in f32, loss and every
+# gradient: the same operations, recomputed
+REMAT_GRAD_TOL = 1e-6
+
+
+def whisper_inputs(cfg, batch: int, frames: int, gen, dev):
+    """``batch`` prompts (``SOT_PROMPT`` where the vocabulary holds it,
+    else random tokens of its length) and random frame embeddings
+    [batch, frames, d_model] in the model's dtype."""
+    import torch
+    from repro_torch.models.layers import torch_dtype
+    x = torch.randn((batch, frames, cfg.d_model), generator=gen, device=dev)
+    if max(SOT_PROMPT) < cfg.vocab:
+        tokens = torch.tensor(SOT_PROMPT, dtype=torch.int32,
+                              device=dev).expand(batch, -1).contiguous()
+    else:
+        tokens = torch.randint(0, cfg.vocab, (batch, len(SOT_PROMPT)),
+                               generator=gen, device=dev, dtype=torch.int32)
+    return tokens, x.to(torch_dtype(cfg.dtype))
+
+
+def whisper_path(dev, seed: int, *, batch: int, frames: int, max_len: int,
+                 decode_steps: int, smoke: bool = False,
+                 check_launches: bool = True) -> dict:
+    """(aa) whisper-small at full size (or its smoke config), random bf16
+    weights from a seeded ``torch.Generator``: after a warm-up of the same
+    shapes, ``encode`` of ``batch`` × ``frames`` frame embeddings, then
+    ``prefill_step`` (the encoder again, the cross cache, the prompt
+    through the decoder into a self cache of ``max_len`` positions),
+    then ``decode_steps`` greedy ``decode_step``s, each ending in a
+    synchronize, with the launch counts zeroed just before and read just
+    after; the decode step against the read time of the decoder's
+    weights (with the tied table), and of those and both caches. Checks
+    shapes, finiteness, ids and cache positions;
+    ``prefill(prompt[:-1])`` + ``decode(last)`` against
+    ``prefill(prompt)`` within ``CONSISTENCY_TOL``. (aa2)
+    ``launch/serve.py``'s ``serve`` over the model. Then, the model
+    freed, the same gap in f32 on the smoke config (2 × 16 tokens
+    against 16 frames, ``smoke_batch``) within ``CONSISTENCY_TOL_F32``."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec
+    from repro_torch.models import model_zoo as zoo
+    cfg = (configs.get_smoke_config(WHISPER) if smoke
+           else configs.get_config(WHISPER))
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.init()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = zoo.init_params(cfg, gen, device=dev)
+    tokens, x = whisper_inputs(cfg, batch, frames, gen, dev)
+    P = tokens.shape[1]
+    n_params = zoo.count_params(model)
+    weight_gb = nbytes(model.parameters()) / 1e9
+    dec_bytes = nbytes([model.embed, *model.dec_layers.parameters(),
+                        *model.final_norm.parameters()])
+    per_pos = (2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.d_head
+               * x.element_size())
+    cache_bytes = per_pos * (frames + max_len)
+    bound_ms = dec_bytes / HBM_BYTES_PER_S * 1e3
+    bound_all_ms = (dec_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"  {WHISPER}{' (smoke)' if smoke else ''}: {cfg.n_enc_layers} + "
+        f"{cfg.n_layers} layers, {n_params:,} params ({weight_gb:.3f} GB); "
+        f"a decode step reads the decoder's weights and the tied table "
+        f"({dec_bytes / 1e9:.3f} GB: {bound_ms:.4f} ms at 3.35 TB/s), with "
+        f"the cross cache over {frames} frames and the self cache of "
+        f"{max_len} ({cache_bytes / 1e9:.3f} GB) {bound_all_ms:.4f} ms")
+    inputs = {"tokens": tokens, "frames": x}
+    # warm-up (library handles, the allocator's pools), not timed
+    _, cache = zoo.prefill_step(model, cfg, inputs, pad_to=max_len)
+    for _ in range(2):
+        _, cache = zoo.decode_step(model, cfg, cache, tokens[:, :1])
+    del cache
+    name = f"{WHISPER} B={batch} frames={frames} prompt={P}"
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        memory = encdec.encode(model, cfg, x)
+    sync()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    del memory
+    t0 = time.perf_counter()
+    logits, cache = zoo.prefill_step(model, cfg, inputs, pad_to=max_len)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = logits
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    step_ms, generated = [], [tok]
+    for _ in range(decode_steps):
+        t0 = time.perf_counter()
+        logits, cache = zoo.decode_step(model, cfg, cache, tok)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(tok)
+    counts = read_counts()
+    check_counts(name, counts, None, dev, check_launches)
+    ids = torch.cat(generated, dim=1)
+    if any(t.shape != (batch, cfg.vocab) or not bool(t.isfinite().all())
+           for t in (first, logits)):
+        fail(f"{name}: logits not finite of shape {(batch, cfg.vocab)}")
+    if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab \
+            or int(cache["pos"]) != P + decode_steps \
+            or cache["k"].shape[2] != max_len \
+            or cache["cross_k"].shape[2] != frames:
+        fail(f"{name}: tokens or cache out of range")
+    del cache, logits, first
+    steady = sorted(step_ms[1:]) or step_ms
+    run = dict(batch=batch, frames=frames, prompt=P, max_len=max_len,
+               decode_steps=decode_steps, encode_ms=encode_ms,
+               prefill_ms=prefill_ms, decode_ms_first=step_ms[0],
+               decode_ms_mean=sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+               decode_ms_median=steady[len(steady) // 2], launches=counts)
+    log(f"  {name}: encode {encode_ms:.2f} ms; prefill (encode, cross "
+        f"cache, prompt) {prefill_ms:.2f} ms; decode "
+        f"{run['decode_ms_mean']:.2f} ms/step mean, "
+        f"{run['decode_ms_median']:.2f} median (first {step_ms[0]:.2f}) "
+        f"against {bound_ms:.4f} ms for the weights, {bound_all_ms:.4f} ms "
+        f"with the caches")
+    gap = prefill_decode_gap(model, cfg, tokens, frames=x)
+    if not gap < CONSISTENCY_TOL:
+        fail(f"{name}: prefill(prompt[:-1]) + decode(last) differs from "
+             f"prefill(prompt) by {gap:.3e}")
+    log(f"  {name}: prefill(prompt[:-1]) + decode(last) vs prefill(prompt): "
+        f"{gap:.3e} relative")
+    serving = serve_model(WHISPER, cfg, model, dev, seed,
+                          ("porc_multisource_scan",), check_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    log(f"  {WHISPER}: peak device memory {peak:.2f} GB against "
+        f"{weight_gb:.3f} GB of weights")
+    del model, x, tokens
+    gc.collect()
+    cfg32 = configs.get_smoke_config(WHISPER).replace(dtype="float32")
+    small = smoke_batch(cfg32, seed, B=2, S=16)
+    gap32 = prefill_decode_gap(zoo.init_params(cfg32, seed, device=dev),
+                               cfg32, small["tokens"].to(dev),
+                               frames=small["frames"].to(dev))
+    if not gap32 < CONSISTENCY_TOL_F32:
+        fail(f"{WHISPER} f32: prefill(prompt[:-1]) + decode(last) differs "
+             f"from prefill(prompt) by {gap32:.3e}")
+    log(f"  {WHISPER} smoke config in f32, 2 x 16 tokens against 16 "
+        f"frames: prefill(prompt[:-1]) + decode(last) vs prefill(prompt): "
+        f"{gap32:.3e} relative")
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(arch=WHISPER, params=n_params, weight_gb=weight_gb,
+                decoder_gb=dec_bytes / 1e9, cache_gb=cache_bytes / 1e9,
+                decode_bound_ms=bound_ms, decode_bound_caches_ms=bound_all_ms,
+                run=run, gap=gap, gap_f32=gap32, serving=serving,
+                peak_gb=peak)
+
+
+def family_train(dev, seed: int, arch: str, *, batch: int, seq: int,
+                 frames: int | None = None, steps: int = 5,
+                 remat: str | None = None, smoke: bool = False,
+                 check_launches: bool = True) -> dict:
+    """(ab)-(ae) ``arch`` at full size (or its smoke config), with its
+    config's remat unless ``remat`` says: random bf16 weights from
+    ``seed``, AdamW (``TRAIN_CELL_OPT`` over ``steps``), ``steps`` steps
+    of ``make_train_step`` on one fixed batch: ``batch`` × ``seq``
+    zipf(1.3) tokens and the VLM's patches or whisper's ``frames`` frames
+    (normals), with the launch counts zeroed just before and read just
+    after. The loss finite at every step and lower at the last than at
+    the first; step ms, train tokens/s (every position the model runs:
+    patches and frames too), the peak device memory against the
+    training state (``train_reckoning``). The model is freed."""
+    import gc
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.core import streams
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import torch_dtype
+    cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
+    if remat is not None:
+        cfg = cfg.replace(remat=remat)
+    reck = train_reckoning(cfg)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.init()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = zoo.init_params(cfg, seed, device=dev)
+    state = optim.init(model)
+    step = make_train_step(cfg, optim.AdamWConfig(**TRAIN_CELL_OPT,
+                                                  total_steps=steps))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inputs = {"tokens": streams.sample_zipf_stream(
+        seed, batch * seq, cfg.vocab, 1.3, device=dev).reshape(batch, seq)}
+    prefix = 0
+    if cfg.family == "vlm":
+        prefix = cfg.n_patches
+        inputs["patches"] = torch.randn(
+            (batch, prefix, cfg.vision_dim), generator=gen,
+            device=dev).to(torch_dtype(cfg.dtype))
+    if cfg.family == "audio":
+        prefix = frames
+        inputs["frames"] = torch.randn(
+            (batch, prefix, cfg.d_model), generator=gen,
+            device=dev).to(torch_dtype(cfg.dtype))
+    positions = batch * (prefix + seq)
+    name = (f"train {arch} {cfg.n_layers}L B={batch} S="
+            + (f"{prefix}+" if prefix else "") + f"{seq} remat {cfg.remat}")
+    rows = []
+    sync()
+    zero_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, inputs)
+        sync()
+        dt = time.perf_counter() - t0
+        row = dict(step=i + 1, loss=float(m["loss"]), lr=float(m["lr"]),
+                   grad_norm=float(m["grad_norm"]), ms=dt * 1e3,
+                   tokens_per_s=positions / dt)
+        rows.append(row)
+        log(f"  {name} step {i + 1}: loss {row['loss']:.5f}, grad_norm "
+            f"{row['grad_norm']:.4f}, lr {row['lr']:.2e}, {row['ms']:.1f} ms "
+            f"= {row['tokens_per_s']:,.0f} tokens/s")
+        if not (math.isfinite(row["loss"])
+                and math.isfinite(row["grad_norm"])):
+            fail(f"{name}: loss or grad_norm not finite at step {i + 1}")
+    counts = read_counts()
+    check_counts(name, counts, None, dev, check_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else 0.0
+    steady = rows[1:] or rows
+    step_ms = sum(r["ms"] for r in steady) / len(steady)
+    out = dict(run=name, arch=arch, remat=cfg.remat, batch=[batch, seq],
+               prefix=prefix, steps=rows, step_ms_mean=step_ms,
+               tokens_per_s=positions / step_ms * 1e3, peak_gb=peak,
+               reckoning=reck, launches=counts)
+    log(f"  {name}: loss {rows[0]['loss']:.5f} -> {rows[-1]['loss']:.5f}; "
+        f"steps 2-{steps} {step_ms:.1f} ms = {out['tokens_per_s']:,.0f} "
+        f"tokens/s; peak device memory {peak:.2f} GB against "
+        f"{reck['state_gb']:.2f} GB of training state ({reck['params']:,} "
+        f"parameters x {reck['bytes_per_param']} bytes)")
+    del model, state, step, inputs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail(f"{name}: the loss did not fall ({rows[0]['loss']} -> "
+             f"{rows[-1]['loss']})")
+    return out
+
+
+def check_remat_losses(runs: dict) -> dict:
+    """The remat policies' losses step by step against the first run's:
+    the first step within ``REMAT_LOSS_TOL[0]``, every step within
+    ``REMAT_LOSS_TOL[1]`` (relative)."""
+    base = next(iter(runs.values()))["steps"]
+    errs = {}
+    for remat, run in runs.items():
+        d = [abs(r["loss"] - b["loss"]) / abs(b["loss"])
+             for r, b in zip(run["steps"], base)]
+        errs[remat] = max(d)
+        if d[0] > REMAT_LOSS_TOL[0] or max(d) > REMAT_LOSS_TOL[1]:
+            fail(f"remat {remat}: losses differ from the first run's by "
+                 f"{d}")
+    log("  remat policies on " + REMAT_ARCH + ": " + "; ".join(
+        f"{r} {run['step_ms_mean']:.1f} ms a step, peak "
+        f"{run['peak_gb']:.2f} GB, losses max rel diff {errs[r]:.2e}"
+        for r, run in runs.items()))
+    return errs
+
+
+def whisper_driver(dev, *, batch: int = 8, seq: int = 448, steps: int = 6,
+                   smoke: bool = False, check_launches: bool = True) -> dict:
+    """``launch/train.py``'s ``Trainer`` on whisper-small at full size (or
+    its smoke config): ``steps`` steps of ``batch`` × ``seq`` tokens from
+    the pipeline with frames of the same length (as the reference's
+    ``make_batch`` fills them), 4 hosts, one checkpoint (step 0) in a
+    temporary directory (removed at the end); every step through
+    ``driver_run``, the loss at the last step below the first. The peak
+    lr is the driver's default, 3e-4, at full size, 1e-2 at the smoke
+    config (as phase 10's)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.launch import train as driver
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr = driver.Trainer(WHISPER, steps, batch=batch, seq=seq, smoke=smoke,
+                            ckpt_dir=root, ckpt_every=steps, n_hosts=4,
+                            lr=1e-2 if smoke else 3e-4, device=dev)
+        log(f"  {WHISPER}{' (smoke)' if smoke else ''}: the driver, batch "
+            f"{batch} x {seq} tokens and {seq} frames, 4 hosts, {steps} "
+            "steps")
+        run = driver_run(f"driver {WHISPER}", tr, dev, check_launches)
+        committed = sorted(ckpt.all_steps(root))
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if committed != [0]:
+        fail(f"driver {WHISPER}: committed {committed}, expected [0]")
+    first, last = run["steps"][0]["loss"], run["steps"][-1]["loss"]
+    if not last < first:
+        fail(f"driver {WHISPER}: the loss did not fall ({first} -> {last})")
+    return dict(run, committed=committed)
+
+
+def remat_reference_check(dev, seed: int) -> dict:
+    """On the card in f32, gemma3-1b's and whisper-small's smoke configs:
+    the loss and every gradient under remat "dots" and "attn_out" against
+    "none" within ``REMAT_GRAD_TOL`` (``grad_errors``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    errs = {}
+    for arch in (REMAT_ARCH, WHISPER):
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        model = zoo.init_params(cfg, seed, device=dev).requires_grad_(True)
+        batch = {k: v.to(dev) for k, v in smoke_batch(cfg, seed).items()}
+        names, leaves = zip(*model.named_parameters())
+        out = {}
+        for remat in ("none", "dots", "attn_out"):
+            loss = zoo.loss_fn(model, cfg.replace(remat=remat), batch)
+            grads = torch.autograd.grad(loss, leaves)
+            out[remat] = (float(loss.detach()), {n: g.detach().cpu()
+                                        for n, g in zip(names, grads)})
+        for remat in ("dots", "attn_out"):
+            loss_err = abs(out[remat][0] - out["none"][0]) / abs(
+                out["none"][0])
+            grad_err = max(grad_errors(out["none"][1],
+                                       out[remat][1]).values())
+            errs[f"{arch} {remat}"] = max(loss_err, grad_err)
+            if max(loss_err, grad_err) > REMAT_GRAD_TOL:
+                fail(f"{arch} remat {remat} on the card: loss rel "
+                     f"{loss_err}, worst gradient {grad_err} against none")
+        del model
+    log("  remat dots and attn_out against none on the card, smoke configs "
+        "in f32, loss and every gradient: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()))
+    return errs
+
+
+def whisper_reference_check(dev, seed: int) -> dict:
+    """whisper-small's smoke config in f32 on the card against the CPU,
+    the same weights: the logits of a prefill of 2 × 16 tokens against
+    16 frames and of 4 greedy decode steps within 1e-4 relative, the
+    greedy tokens equal."""
+    import copy
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    cfg = configs.get_smoke_config(WHISPER).replace(dtype="float32")
+    host = zoo.init_params(cfg, seed, device=torch.device("cpu"))
+    card = copy.deepcopy(host).to(dev)
+    b = smoke_batch(cfg, seed, B=2, S=16)
+    err = 0.0
+    for a, c in zip(greedy_logits(host, cfg, b["tokens"], frames=b["frames"]),
+                    greedy_logits(card, cfg, b["tokens"].to(dev),
+                                  frames=b["frames"].to(dev))):
+        err = max(err, relerr(a, c))
+        if not relerr(a, c) <= 1e-4 or not torch.equal(a.argmax(-1),
+                                                         c.argmax(-1)):
+            fail(f"{WHISPER} reference: the card's logits differ from the "
+                 f"CPU's (max rel {relerr(a, c)})")
+    log(f"  {WHISPER} smoke config in f32, card vs CPU: logits max rel err "
+        f"{err:.2e} over prefill + 4 decode steps; greedy tokens equal")
+    return dict(logits_rel_err=err)
+
+
+def encdec_train_phase(dev, seed: int, smoke: bool = False,
+                       check_launches: bool = True) -> dict:
+    """Phase 13: (aa) whisper served, (aa2) ``serve`` over it, the
+    training cells (ab)-(ae), gemma3-1b under the four remat policies
+    (its (ab) run among them), the driver's ``Trainer`` on whisper, then
+    the smoke configs in f32 card against CPU (every family's train step,
+    whisper's logits) and the policies against "none" on the card.
+    ``smoke`` runs the smoke configs at tiny shapes, for a rehearsal on
+    the CPU."""
+    if smoke:
+        wr = dict(batch=2, frames=24, max_len=24, decode_steps=3)
+        cells = {a: dict(batch=2, seq=32, **({"frames": 24}
+                                             if a == WHISPER else {}))
+                 for a in TRAIN_CELLS}
+        steps, drv = 3, dict(batch=2, seq=32, steps=3)
+    else:
+        wr, cells, steps, drv = WHISPER_RUN, TRAIN_CELLS, 5, {}
+    out = {"whisper": whisper_path(dev, seed, **wr, smoke=smoke,
+                                   check_launches=check_launches)}
+    out["train"] = {arch: family_train(dev, seed, arch, **cells[arch],
+                                       steps=steps, smoke=smoke,
+                                       check_launches=check_launches)
+                    for arch in TRAIN_CELLS}
+    base = out["train"][REMAT_ARCH]
+    remat = {base["remat"]: base}
+    for policy in ("full", "none", "dots", "attn_out"):
+        if policy not in remat:
+            remat[policy] = family_train(
+                dev, seed, REMAT_ARCH, **cells[REMAT_ARCH], steps=steps,
+                remat=policy, smoke=smoke, check_launches=check_launches)
+    out["remat"] = remat
+    out["remat_loss_rel_err"] = check_remat_losses(remat)
+    out["driver"] = whisper_driver(dev, **drv, smoke=smoke,
+                                   check_launches=check_launches)
+    out["reference"] = {arch: train_reference_check(dev, seed, arch)
+                        for arch in TRAIN_CELLS}
+    out["reference"][WHISPER].update(whisper_reference_check(dev, seed))
+    out["remat_reference"] = remat_reference_check(dev, seed)
+    return out
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -4130,7 +4636,19 @@ def main() -> int:
     dense = dense_phase(dev, args.seed)
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
-    # 13. report
+    # 13. whisper served and trained; the families trained
+    log("== whisper and the families' training: (aa) whisper-small at full "
+        "size: encode 8 x 1,500 frames, prefill the 4-token prompt, 64 "
+        "decode steps in a cache of 448; (aa2) launch/serve.py's serve(); "
+        "(ab) gemma3-1b, (ac) starcoder2-3b, (ad) internvl2-2b, (ae) "
+        "whisper-small trained at full size, 5 AdamW steps each; gemma3-1b "
+        "under remat none, dots and attn_out; the driver's Trainer on "
+        "whisper-small; the smoke configs in f32, card vs CPU")
+    t13 = time.perf_counter()
+    encdec = encdec_train_phase(dev, args.seed)
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    # 14. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -4139,6 +4657,9 @@ def main() -> int:
     # the router's launches serving gemma3-1b, phase 12 (v3)
     launches["porc_multisource_scan"] += \
         dense["gemma3-1b"]["serving"]["launches"]["porc_multisource_scan"]
+    # and serving whisper-small, phase 13 (aa2)
+    launches["porc_multisource_scan"] += \
+        encdec["whisper"]["serving"]["launches"]["porc_multisource_scan"]
     launches["porc_assign"] += sum(r["porc_assign_launches"]
                                    for r in schemes)
     launches["cg_dispatch"] = sum(
@@ -4222,7 +4743,7 @@ def main() -> int:
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
             train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
-            mesh=mesh, dense=dense, kernels=kernels),
+            mesh=mesh, dense=dense, encdec=encdec, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

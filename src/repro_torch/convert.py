@@ -10,8 +10,9 @@ into the port's state on ``device``, heavy-hitter sketch lanes included
 ``router_snapshot`` and ``load_router`` do the same for a serving
 router's whole routing, delegation and controller state.
 ``dense_params_from_jax``, ``moe_params_from_jax``,
-``mamba2_params_from_jax`` and ``hybrid_params_from_jax`` load a model's
-weights from the JAX pytree, so both packages compute the same model.
+``mamba2_params_from_jax``, ``hybrid_params_from_jax`` and
+``encdec_params_from_jax`` load a model's weights from the JAX pytree,
+so both packages compute the same model.
 """
 from __future__ import annotations
 
@@ -152,23 +153,26 @@ def _load(module: torch.nn.Module, tree: dict, device, index=()):
 
 def _load_model(model, params_np: dict, device, layer_index):
     """``embed``, ``final_norm`` (a LayerNorm's bias too), the VLM's
-    ``vision_proj`` and the ``shared`` block where the model has them,
-    and every layer from the stacked ``layers/*`` leaves at the index
-    ``layer_index`` gives it. Returns ``model``."""
+    ``vision_proj``, the ``shared`` block and the encoder's ``enc_norm``
+    where the model has them, and every layer from the stacked leaves of
+    the stack ``layer_index`` names for it, at the index it gives
+    (``(stack, index, layer)``). Returns ``model``."""
     with torch.no_grad():
         model.embed.copy_(_tensor(params_np["embed"], device))
         _load(model.final_norm, params_np["final_norm"], device)
         if "vision_proj" in params_np:
             model.vision_proj.copy_(_tensor(params_np["vision_proj"], device))
-        if "shared" in params_np:
-            _load(model.shared, params_np["shared"], device)
-        for index, layer in layer_index(model):
-            _load(layer, params_np["layers"], device, index)
+        for name in ("shared", "enc_norm"):
+            if name in params_np:
+                _load(getattr(model, name), params_np[name], device)
+        for stack, index, layer in layer_index(model):
+            _load(layer, params_np[stack], device, index)
     return model
 
 
-def _flat_layers(model):
-    return (((i,), layer) for i, layer in enumerate(model.layers))
+def _flat_layers(model, stack: str = "layers"):
+    return ((stack, (i,), layer)
+            for i, layer in enumerate(getattr(model, stack)))
 
 
 def dense_params_from_jax(params_np: dict, cfg, device="cuda"):
@@ -208,5 +212,17 @@ def hybrid_params_from_jax(params_np: dict, cfg, device="cuda"):
     from repro_torch.models.hybrid import Hybrid
     dev = resolve_device(device)
     return _load_model(Hybrid(cfg, dev), params_np, dev, lambda model: (
-        ((g, k), layer) for g, group in enumerate(model.layers)
+        ("layers", (g, k), layer) for g, group in enumerate(model.layers)
         for k, layer in enumerate(group)))
+
+
+def encdec_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``EncDec`` (whisper) from the reference's
+    encoder-decoder parameter pytree: ``embed``, the stacked
+    ``enc_layers/*`` and ``dec_layers/*`` leaves ([L, ...] each),
+    ``enc_norm`` and ``final_norm``."""
+    from repro_torch.models.encdec import EncDec
+    dev = resolve_device(device)
+    return _load_model(EncDec(cfg, dev), params_np, dev, lambda model: (
+        *_flat_layers(model, "enc_layers"),
+        *_flat_layers(model, "dec_layers")))

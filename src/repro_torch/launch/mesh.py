@@ -68,15 +68,23 @@ class SourceMesh:
         if not dist.is_initialized():
             raise RuntimeError("SourceMesh needs an initialised process "
                                "group (make_source_mesh or spawn_ranks)")
-        self.group = dist.group.WORLD
         self.device = _rank_device(device)
-        self.backend = dist.get_backend(self.group)
-        self.size = dist.get_world_size(self.group)
-        self.index = dist.get_rank(self.group)
+        self.backend = dist.get_backend()
+        self.size = dist.get_world_size()
+        self.index = dist.get_rank()
         self.shape = {SOURCES_AXIS: self.size}
         self.collectives = collections.Counter()
         self.host_copies = 0
         self._store_path = store_path
+
+    @property
+    def group(self):
+        """The initialised group, looked up at each use: a mesh holds no
+        reference to it, so ``destroy_process_group`` frees it. A group
+        object that outlives its destruction is freed only at interpreter
+        exit, if at all, and there gloo's teardown can abort the process
+        ("terminate called without an active exception")."""
+        return dist.group.WORLD
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         """A contiguous buffer of ``t`` the backend takes, which the
@@ -166,7 +174,15 @@ def n_chips(mesh: SourceMesh) -> int:
 def _rank_main(rank: int, n_ranks: int, tmp: str, backend, device: str,
                fn, args) -> None:
     """One spawned rank: join the group, run ``fn(mesh, *args)``, write
-    its result for the parent."""
+    its result for the parent, then leave the group with the others.
+
+    The rank meets every other at a barrier before it destroys the group,
+    so none tears its gloo context down while a peer is still in a
+    collective, and none leaves while a peer's ``fn`` has raised: such a
+    peer never reaches the barrier, and ``spawn_ranks`` stops the ranks
+    waiting there. A rank whose ``fn`` raises leaves the group as it is
+    (a peer may wait in a collective it will not join) and fails with
+    its traceback."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -177,14 +193,13 @@ def _rank_main(rank: int, n_ranks: int, tmp: str, backend, device: str,
                             store=dist.FileStore(os.path.join(tmp, "store"),
                                                  n_ranks),
                             rank=rank, world_size=n_ranks)
-    try:
-        out = fn(SourceMesh(device=dev), *args)
-    finally:
-        dist.destroy_process_group()
+    out = fn(SourceMesh(device=dev), *args)
     part = os.path.join(tmp, f"rank{rank}.part")
     with open(part, "wb") as f:
         pickle.dump(out, f)
     os.replace(part, os.path.join(tmp, f"rank{rank}.pkl"))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def spawn_ranks(fn, n_ranks: int, *args, backend: str | None = None,

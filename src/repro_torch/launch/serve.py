@@ -5,10 +5,12 @@
       [--arch gemma3-1b] --requests 64 --decode-steps 8 \\
       [--replicas 4] [--hetero] [--device cuda]
 
-Runs the arch's smoke config, as the reference does. Replicas share one
-model and one decode function. No mesh: the reference's ``enter_mesh``
-and ``install_act_rules`` go with the mesh tier (ROADMAP Queue 1
-item 7).
+Runs the arch's smoke config, as the reference does, any arch of the
+registry. Replicas share one model and one decode function; each batch
+decodes from ``zoo.init_cache``, so whisper-small's cross cache is
+zeros there, as in the reference (no frames reach a replica). No mesh:
+the reference's ``enter_mesh`` and ``install_act_rules`` go with the
+mesh tier (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -7,12 +7,18 @@ checkpointing → straggler delegation → elastic failure response.
       --steps 20 --batch 8 --seq 128 [--full] [--resume] [--device cuda]
 
 Without ``--full`` it runs the arch's smoke config, as the reference
-does. The step runs eagerly on one device: the reference's smoke mesh
-(``make_smoke_mesh``, ``install_act_rules``, ``enter_mesh``) is the
-identity there and comes with the mesh tier (ROADMAP Queue 1 item 7).
-The families the port does not train yet (the dense, audio and VLM
-archs, whose batches the reference also fills with frames or patches)
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 10b.
+does. Every family trains. The step runs eagerly on one device: the
+reference's smoke mesh (``make_smoke_mesh``, ``install_act_rules``,
+``enter_mesh``) is the identity there and comes with the mesh tier
+(ROADMAP Queue 1 item 7).
+
+A step's batch is the pipeline's tokens and, as the reference's
+``make_batch`` fills it, whisper's ``frames`` [B, seq, d_model] or the
+VLM's ``patches`` [B, n_patches, vision_dim], standard normals in bf16.
+The reference draws those with ``jax.random.fold_in(key, step)``, which
+torch cannot reproduce; here they come from a generator seeded by
+(0, step) (``_normals``): still a pure function of the step, other
+numbers.
 
 As in the reference, a resumed run restores step s, whose checkpoint
 was written after step s's update, and then trains from step s: batch
@@ -35,8 +41,14 @@ from repro_torch.runtime import DelegationBalancer, FTConfig, FaultTolerantRunne
 from . import steps
 
 
-# the families whose training comes with ROADMAP Queue 1 item 10b
-_NOT_TRAINED = ("dense", "vlm", "audio")
+def _normals(step: int, shape, device) -> torch.Tensor:
+    """Standard normals of ``shape`` in bf16 on ``device``, from a
+    ``torch.Generator`` there seeded by (0, step): the reference's
+    ``fold_in(PRNGKey(0), step)`` in torch's terms."""
+    seed = int(np.random.SeedSequence((0, step)).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16)
 
 
 class Trainer:
@@ -45,8 +57,8 @@ class Trainer:
     straggler balancer, all built (and, with ``resume``, restored) by the
     constructor. ``run`` trains ``start_step``…``n_steps - 1``;
     ``history`` holds a row per step (loss, lr, grad_norm, the step's ms
-    and, inside it, the ms the pipeline took to draw the batch, whether
-    it saved and the seconds the save held the loop)."""
+    and, inside it, the ms ``make_batch`` took to draw the batch onto the
+    device, whether it saved and the seconds the save held the loop)."""
 
     def __init__(self, arch: str, n_steps: int = 20, batch: int = 8,
                  seq: int = 128, smoke: bool = True,
@@ -57,10 +69,6 @@ class Trainer:
         self.device = resolve_device(device)
         cfg = (configs.get_smoke_config(arch) if smoke
                else configs.get_config(arch))
-        if cfg.family in _NOT_TRAINED:
-            raise NotImplementedError(
-                f"{arch}: training the {cfg.family!r} family is not ported "
-                "yet (ROADMAP Queue 1 item 10b)")
         self.cfg, self.n_steps, self.batch = cfg, n_steps, batch
         self.n_hosts, self.log_every = n_hosts, log_every
         self.fail_host_at = fail_host_at
@@ -109,6 +117,23 @@ class Trainer:
                 x.copy_(opt[part][name])
         self.opt_state["step"].copy_(opt["step"])
 
+    def make_batch(self, step: int) -> dict:
+        """Step ``step``'s batch on the device: the pipeline's tokens
+        [batch, seq] and, for whisper, ``frames`` [batch, seq, d_model],
+        for the VLM ``patches`` [batch, n_patches, vision_dim]
+        (``_normals``)."""
+        cfg = self.cfg
+        tokens = self.pipe.global_batch(step)[: self.batch]
+        batch = {"tokens": tokens.to(self.device)}
+        if cfg.family == "audio":
+            batch["frames"] = _normals(
+                step, (self.batch, tokens.shape[1], cfg.d_model), self.device)
+        if cfg.family == "vlm":
+            batch["patches"] = _normals(
+                step, (self.batch, cfg.n_patches, cfg.vision_dim),
+                self.device)
+        return batch
+
     def step(self, step: int) -> dict:
         """One train step: the simulated host loss at ``fail_host_at``,
         the step on this step's batch, every live host's step time to
@@ -119,10 +144,10 @@ class Trainer:
             print(f"[ft] host {self.n_hosts - 1} failed; re-paired shards: "
                   f"{self.evacuated}")
         t0 = time.perf_counter()
-        tokens = self.pipe.global_batch(step)[: self.batch]
+        batch = self.make_batch(step)
         feed = time.perf_counter() - t0
         self.model, self.opt_state, metrics = self.train_step(
-            self.model, self.opt_state, {"tokens": tokens.to(self.device)})
+            self.model, self.opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         for h in range(self.n_hosts):

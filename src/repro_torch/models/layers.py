@@ -14,13 +14,15 @@ window's lower bound. A layer's ``window_flag`` is a Python bool (the
 reference's traced flag inside its layer scan): False turns the window
 off, True or None keeps it.
 
+``attention`` takes whisper's cross-attention k and v precomputed
+(``kv_override``), and names its output for a selective checkpoint
+policy (:func:`attn_out`, the reference's ``checkpoint_name(out,
+"attn_out")``). ``rmsnorm`` and ``layernorm`` carry the reference's
+custom VJPs; the chunked attention's kv steps are rematerialised in the
+backward, as the reference's ``jax.checkpoint`` of each kv step does.
+
 Left out: ``shard_act`` and the activation-sharding rules, which are the
-identity on one device (the mesh tier is ROADMAP Queue 1 item 7);
-``attention``'s ``kv_override`` (whisper's cross-attention) and
-``layernorm``'s custom VJP, which come with item 10b. ``rmsnorm``
-carries the reference's custom VJP; the chunked attention's kv steps
-are rematerialised in the backward, as the reference's
-``jax.checkpoint`` of each kv step does.
+identity on one device (the mesh tier is ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -83,17 +85,51 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _rmsnorm(x, scale)
 
 
-def layernorm(x: torch.Tensor, scale: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
-    """LayerNorm in f32 with the population variance (``jnp.var``),
-    eps 1e-5, cast back to ``x``'s dtype. Forward only: the reference's
-    custom VJP comes with the dense family's training (item 10b)."""
+def _layernorm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
     out = (xf - mu) * torch.rsqrt(var + _LN_EPS)
     out = out * scale.to(torch.float32) + bias.to(torch.float32)
     return out.to(x.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The reference's custom VJP (``_ln_fwd``/``_ln_bwd``): the backward
+    keeps ``x`` in its own dtype and the scale, and works in f32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale)
+        return _layernorm(x, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        r = torch.rsqrt(var + _LN_EPS)
+        xhat = (xf - mu) * r
+        gs = gf * scale.to(torch.float32)
+        dx = r * (gs - torch.mean(gs, -1, keepdim=True)
+                  - xhat * torch.mean(gs * xhat, -1, keepdim=True))
+        axes = tuple(range(x.dim() - 1))
+        return (dx.to(x.dtype), torch.sum(gf * xhat, axes).to(scale.dtype),
+                torch.sum(gf, axes).to(scale.dtype))
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance (``jnp.var``),
+    eps 1e-5, cast back to ``x``'s dtype; differentiable with the
+    reference's custom VJP (dx, dscale, dbias)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
+        return _LayerNorm.apply(x, scale, bias)
+    return _layernorm(x, scale, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -426,10 +462,11 @@ class Attention(nn.Module):
                 self.register_parameter(name, zeros_param(n, dtype, device))
 
     def forward(self, x, *, positions, causal=True, window=None,
-                window_flag=None, return_kv=False):
+                kv_override=None, window_flag=None, return_kv=False):
         return attention(x, self, self.cfg, positions=positions,
                          causal=causal, window=window,
-                         window_flag=window_flag, return_kv=return_kv)
+                         kv_override=kv_override, window_flag=window_flag,
+                         return_kv=return_kv)
 
 
 def attn_params(key, cfg, dtype, device="cuda") -> Attention:
@@ -449,17 +486,49 @@ def project_qkv(x, p, cfg, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+@torch.library.custom_op("repro_torch::attn_out", mutates_args=())
+def _attn_out(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@_attn_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_attn_out.register_autograd(lambda ctx, g: g)
+
+
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """``x`` under the name "attn_out" (the reference's
+    ``checkpoint_name(out, "attn_out")``): under autograd a copy made by
+    the op ``torch.ops.repro_torch.attn_out``, which a selective
+    checkpoint policy can pick out (``transformer.remat``); without, ``x``
+    itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _attn_out(x)
+    return x
+
+
 def attention(x, p, cfg, *, positions, causal=True, window=None,
-              window_flag=None, return_kv=False):
+              kv_override=None, window_flag=None, return_kv=False):
     """Full attention sub-layer: proj → rope → attend → out-proj.
 
     p: an :class:`Attention`. ``window``/``window_flag``: the sliding
-    window and the layer's flag (:func:`dense_attention`). return_kv:
-    also return the (roped) k/v for KV-cache priming. Returns output
-    [B, S, D] (or (out, (k, v))).
+    window and the layer's flag (:func:`dense_attention`).
+    kv_override: (k, v) [B, Sk, KV, Dh] precomputed (cross-attention; no
+    RoPE on q or k). return_kv: also return the (roped) k/v for KV-cache
+    priming. The attention's output, before its projection, is named
+    "attn_out" (:func:`attn_out`). Returns output [B, S, D] (or
+    (out, (k, v))).
     """
     B, S, _ = x.shape
-    q, k, v = project_qkv(x, p, cfg, positions)
+    if kv_override is None:
+        q, k, v = project_qkv(x, p, cfg, positions)
+    else:
+        q = linear(x, p.wq, getattr(p, "bq", None)).reshape(
+            B, S, cfg.n_heads, cfg.d_head)
+        k, v = kv_override
     if max(S, k.shape[1]) > cfg.attn_chunk_threshold:
         out = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=min(cfg.q_chunk, S),
@@ -468,7 +537,8 @@ def attention(x, p, cfg, *, positions, causal=True, window=None,
     else:
         out = dense_attention(q, k, v, causal=causal, window=window,
                               window_flag=window_flag)
-    out = linear(out.reshape(B, S, -1), p.wo, getattr(p, "bo", None))
+    out = attn_out(out.reshape(B, S, -1))
+    out = linear(out, p.wo, getattr(p, "bo", None))
     if return_kv:
         return out, (k, v)
     return out

@@ -1,6 +1,7 @@
 """Family dispatcher: one API over the ported architectures (port of
-``repro.models.model_zoo``; the dense, VLM, MoE, Mamba-2 ("ssm") and
-hybrid families: all served, the MoE, Mamba-2 and hybrid trained).
+``repro.models.model_zoo``; the dense, VLM, MoE, Mamba-2 ("ssm"),
+hybrid and audio (whisper's encoder-decoder) families, every one served
+and trained).
 
 API:
   init_params(cfg, key, device)           → the family's weights module
@@ -10,14 +11,12 @@ API:
   decode_step(params, cfg, cache, tokens)  → (logits, cache); an
     attention cache's K/V are written in place
   init_cache(cfg, batch, max_len, device) / cache_spec(cfg, batch, max_len)
-    (gemma3's ring-buffer cache past 65,536 positions, ``_use_longctx``)
+    (gemma3's ring-buffer cache past 65,536 positions, ``_use_longctx``;
+    whisper's cross cache over ``enc_len = max_len``)
   input_specs(cfg, shape) / param_specs(cfg) → "meta" tensors, nothing
     allocated
   count_params(params) / count_params_specs(specs) /
     active_params(cfg, total) / metric_zeros(cfg)
-
-The audio family (whisper) raises ``NotImplementedError`` naming the
-ROADMAP item (Queue 1) that ports it.
 """
 from __future__ import annotations
 
@@ -26,23 +25,18 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.backend import resolve_device
 
-from . import hybrid, mamba2, moe_transformer, transformer
+from . import encdec, hybrid, mamba2, moe_transformer, transformer
 from .layers import torch_dtype
 from .lm_common import zeros_from_spec
 
 _FAMS = {"dense": transformer, "vlm": transformer, "moe": moe_transformer,
-         "ssm": mamba2, "hybrid": hybrid}
+         "ssm": mamba2, "hybrid": hybrid, "audio": encdec}
 _WEIGHTS = {"dense": transformer.Transformer, "vlm": transformer.Transformer,
             "moe": moe_transformer.MoETransformer, "ssm": mamba2.Mamba2,
-            "hybrid": hybrid.Hybrid}
-_NOT_PORTED = {"audio": "item 10b (encoder-decoder)"}
+            "hybrid": hybrid.Hybrid, "audio": encdec.EncDec}
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family not in _FAMS:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 {_NOT_PORTED.get(cfg.family, '')})")
     return _FAMS[cfg.family]
 
 
@@ -125,7 +119,6 @@ def param_specs(cfg: ModelConfig) -> dict:
     """The weights' names, shapes and dtypes as tensors on the "meta"
     device (the reference's ``eval_shape`` of ``init_params``): nothing
     is allocated."""
-    family_module(cfg)
     model = _WEIGHTS[cfg.family](cfg, device="meta")
     return dict(model.named_parameters())
 
@@ -137,15 +130,21 @@ def count_params_specs(specs) -> int:
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
     """"meta" tensors standing in for every model input of a cell:
     train/prefill → {"batch": {"tokens": [B, S] int32}} (the VLM:
-    {"patches": [B, n_patches, vision_dim], "tokens": [B, S - n_patches]});
+    {"patches": [B, n_patches, vision_dim], "tokens": [B, S - n_patches]};
+    the audio family: {"frames": [B, S, d_model], "tokens": [B, S]});
     decode → {"cache": ``cache_spec``, "tokens": [B, 1] int32}."""
-    family_module(cfg)
     B, S = shape.global_batch, shape.seq_len
 
     def tokens(*dims):
         return torch.empty(dims, dtype=torch.int32, device="meta")
 
     if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            return {"batch": {
+                "frames": torch.empty((B, S, cfg.d_model),
+                                      dtype=torch_dtype(cfg.dtype),
+                                      device="meta"),
+                "tokens": tokens(B, S)}}
         if cfg.family == "vlm":
             return {"batch": {
                 "patches": torch.empty(

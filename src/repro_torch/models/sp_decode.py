@@ -4,8 +4,10 @@ branch of ``repro.models.sp_decode``).
 The reference's sequence-parallel branch (a ``shard_map`` over the
 "model" axis with a log-sum-exp combine) runs only on a mesh whose
 "model" axis shards the cache; it goes to the mesh tier (ROADMAP Queue 1
-item 7). On one device the reference takes the branch ported here.
-``seqpar_attend`` (whisper's cross-attention) comes with item 10b.
+item 7). On one device the reference takes the branch ported here,
+for the cache write with its attention (``seqpar_update_and_attend``)
+and for the read-only attention of whisper's cross cache
+(``seqpar_attend``).
 """
 from __future__ import annotations
 
@@ -25,3 +27,13 @@ def seqpar_update_and_attend(q, k_cache, v_cache, k_new, v_new, pos,
     """
     kc, vc = update_kv_cache(k_cache, v_cache, k_new, v_new, pos)
     return decode_attention(q, kc, vc, pos + 1, lo_idx=lo), kc, vc
+
+
+def seqpar_attend(q, k_cache, v_cache, valid_len):
+    """Read-only decode attention (whisper's cross-attention against its
+    static encoder memory): no cache write.
+
+    q: [B, 1, H, Dh]; caches: [B, S, KV, Dh]; valid_len: entries at
+    position ≥ it are masked. Returns [B, 1, H, Dh].
+    """
+    return decode_attention(q, k_cache, v_cache, valid_len)

@@ -24,9 +24,12 @@ of bf16). A caller that needs the cache as it was copies it first.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.backend import resolve_device
 
@@ -100,25 +103,51 @@ def _window_flags(cfg):
     return [ge is None or l % ge != ge - 1 for l in range(cfg.n_layers)]
 
 
+# the ops whose outputs a selective policy keeps for the backward: "dots"
+# the unbatched products (the reference's
+# ``dots_with_no_batch_dims_saveable``: the projections and the MLP, not
+# attention's batched products), "attn_out" the attention output named
+# by ``layers.attn_out`` (the reference's ``save_only_these_names``)
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "attn_out": (torch.ops.repro_torch.attn_out.default,),
+}
+
+
+def _policy(saved):
+    """A selective checkpoint policy: keep the outputs of the ops in
+    ``saved``, recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
 def remat(fn, cfg):
     """``fn`` under ``cfg.remat``: "none" keeps every activation for the
     backward; "full" keeps only the layer's inputs and runs ``fn`` again
     in the backward (``torch.utils.checkpoint``, non-reentrant: one
-    checkpoint per layer, as the reference's ``jax.checkpoint``). Without
-    autograd (serving) ``fn`` runs as it is. The reference's selective
-    policies ("dots", "attn_out") come with the dense family's training
-    (ROADMAP Queue 1 item 10b)."""
+    checkpoint per layer, as the reference's ``jax.checkpoint``); "dots"
+    and "attn_out" run it again too, but keep the outputs of the ops of
+    ``_SAVED_OPS`` (``create_selective_checkpoint_contexts``), which the
+    recompute reads instead of computing them. Without autograd
+    (serving) ``fn`` runs as it is. The results are the same under every
+    policy; only memory and time differ."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet; it comes with the "
-            "dense family's training (ROADMAP Queue 1 item 10b)")
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat in _SAVED_OPS:
+        kw = dict(context_fn=partial(create_selective_checkpoint_contexts,
+                                     _policy(_SAVED_OPS[cfg.remat])))
+    else:
+        raise ValueError(f"remat={cfg.remat!r}: not one of none, full, "
+                         f"{', '.join(_SAVED_OPS)}")
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -174,8 +203,7 @@ def _positions(x):
 def loss_fn(params: Transformer, cfg, batch):
     """Next-token cross-entropy of ``batch["tokens"]`` [B, S] against the
     tied table (+ ``"patches"`` for the VLM, whose prefix is left out of
-    the loss). Forward only: the dense family's training comes with
-    ROADMAP Queue 1 item 10b."""
+    the loss)."""
     tokens, x, n_prefix = _embed_inputs(params, cfg, batch)
     x = hidden_states(params, cfg, x, _positions(x))
     return chunked_xent(x[:, n_prefix:], params.embed, shift_labels(tokens))

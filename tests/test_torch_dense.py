@@ -329,8 +329,8 @@ def test_zoo_surface(arch):
 def test_longctx_spec_input_specs_and_cells():
     """gemma3's long-context cache spec (meta, as the reference's), the
     VLM's input specs (patches and S - n_patches tokens), and the
-    registry's cells and applicability for every ported arch equal the
-    reference's; whisper-small still says which item ports it."""
+    registry's cells and applicability equal the reference's, every arch
+    of it ported, whisper-small's config too."""
     for arch in ("gemma3-1b",):
         cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
         spec = zoo.cache_spec(cfg, 1, 524_288)
@@ -351,21 +351,18 @@ def test_longctx_spec_input_specs_and_cells():
         got = jax.tree_util.tree_map(lambda x: tuple(x.shape), ours)
         want = jax.tree_util.tree_map(lambda x: tuple(x.shape), theirs)
         assert got == want, shape.name
-    want = [c for c in jconfigs.cells() if c[0] != "whisper-small"]
-    assert configs.cells() == want and len(want) == 36
+    want = jconfigs.cells()
+    assert configs.cells() == want and len(want) == 40
     for arch, shape, ok in want:
         assert configs.shape_applicable(arch, shape) == ok
-    assert configs.ARCH_IDS == tuple(a for a in jconfigs.ARCH_IDS
-                                     if a != "whisper-small")
-    for arch in ARCHS:
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in ARCHS + ("whisper-small",):
         ours = configs.get_config(arch)
         theirs = jconfigs.get_config(arch)
         assert {f: getattr(ours, f) for f in ours.__dataclass_fields__} \
             == {f: getattr(theirs, f) for f in theirs.__dataclass_fields__}
         assert configs.get_smoke_config(arch).__dict__ == \
             jconfigs.get_smoke_config(arch).__dict__
-    with pytest.raises(NotImplementedError, match="item 10"):
-        configs.get_config("whisper-small")
 
 
 # --------------------------------------------------------------- serving

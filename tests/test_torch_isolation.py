@@ -38,6 +38,7 @@ from repro_torch.launch import steps
 from repro_torch.data import pipeline
 from repro_torch.runtime import straggler
 from repro_torch.launch import train
+from repro_torch.models import encdec
 from repro_torch.kernels import mesh as kmesh
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import make_source_mesh
@@ -130,7 +131,9 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.launch.mesh",
                                     "repro_torch.launch.sharding",
                                     "repro_torch.kernels.mesh",
-                                    "repro_torch.serve.mesh"])
+                                    "repro_torch.serve.mesh",
+                                    "repro_torch.models.encdec",
+                                    "repro_torch.configs.whisper_small"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -162,7 +165,8 @@ def test_ast_scan_finds_no_jax_or_repro_imports():
             "launch/serve.py", "kernels/ssd_scan.py", "models/mamba2.py",
             "models/hybrid.py", "configs/mamba2_130m.py",
             "configs/zamba2_2_7b.py", "launch/mesh.py", "launch/sharding.py",
-            "kernels/mesh.py", "serve/mesh.py"} <= names
+            "kernels/mesh.py", "serve/mesh.py", "models/encdec.py",
+            "configs/whisper_small.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -221,7 +225,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     hybrid_cfg = configs.get_smoke_config("zamba2-2.7b")
     dense_cfg = configs.get_smoke_config("gemma3-1b")
     vlm_cfg = configs.get_smoke_config("internvl2-2b")
-    from repro_torch.models import hybrid, mamba2, transformer
+    audio_cfg = configs.get_smoke_config("whisper-small")
+    from repro_torch.models import encdec, hybrid, mamba2, transformer
     from repro_torch.launch import train
     from repro_torch.runtime import fault_tolerance, straggler
     from repro_torch.launch.mesh import make_source_mesh, run_all, spawn_ranks
@@ -249,6 +254,14 @@ def test_cuda_device_without_cuda_raises(tmp_path):
                  lambda: transformer.init_params(vlm_cfg, 0),
                  lambda: model_zoo.init_cache(dense_cfg, 2, 70_000),
                  lambda: transformer.init_longctx_cache(dense_cfg, 2, 64),
+                 lambda: encdec.init_params(audio_cfg, 0),
+                 lambda: model_zoo.init_params(audio_cfg, 0),
+                 lambda: encdec.init_cache(audio_cfg, 2, 16),
+                 lambda: model_zoo.init_cache(audio_cfg, 2, 16),
+                 lambda: serve.main(["--arch", "whisper-small",
+                                     "--requests", "4"]),
+                 lambda: train.Trainer("whisper-small", n_steps=1,
+                                       ckpt_dir=str(tmp_path)),
                  lambda: serve.main(["--arch", "zamba2-2.7b",
                                      "--requests", "4"]),
                  lambda: serve.main(["--requests", "4"]),
@@ -373,7 +386,7 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.runtime.straggler", "repro_torch.launch.train",
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
             "repro_torch.kernels.mesh",
-            "repro_torch.serve.mesh")
+            "repro_torch.serve.mesh", "repro_torch.models.encdec")
 
 
 def _public_callables():
@@ -433,7 +446,10 @@ def test_no_public_entry_point_defaults_to_the_cpu():
                  "repro_torch.launch.mesh.make_source_mesh",
                  "repro_torch.launch.mesh.spawn_ranks",
                  "repro_torch.launch.mesh.SourceMesh",
-                 "repro_torch.serve.mesh.MeshCGRequestRouter"):
+                 "repro_torch.serve.mesh.MeshCGRequestRouter",
+                 "repro_torch.models.encdec.init_params",
+                 "repro_torch.models.encdec.EncDec",
+                 "repro_torch.models.encdec.init_cache"):
         assert must in with_device, must
 
 

@@ -229,14 +229,20 @@ def test_zoo_surface(arch):
 
 
 def test_unported_archs_say_so():
-    """The encoder-decoder family (whisper) still raises, naming the
-    ROADMAP item that ports it; the dense and VLM families are ported
-    (``tests/test_torch_dense.py``)."""
+    """No arch is left unported: the encoder-decoder family (whisper,
+    ``tests/test_torch_encdec.py``) is in the registry and the zoo as in
+    the reference (its configs, its parameter count), and the registry
+    is the reference's."""
     for arch in ("whisper-small",):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            zoo.init_params(jconfigs.get_smoke_config(arch), 0, device="cpu")
+        assert configs.get_config(arch).__dict__ == \
+            jconfigs.get_config(arch).__dict__
+        assert configs.get_smoke_config(arch).__dict__ == \
+            jconfigs.get_smoke_config(arch).__dict__
+        model = zoo.init_params(configs.get_smoke_config(arch), 0,
+                                device="cpu")
+        assert zoo.count_params(model) == jzoo.count_params_specs(
+            jzoo.param_specs(jconfigs.get_smoke_config(arch)))
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     assert set(ARCHS) <= set(configs.ARCH_IDS)
 
 

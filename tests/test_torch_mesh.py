@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 from jax.sharding import PartitionSpec as P
 
 from repro.core import delegation as JD
@@ -76,6 +77,7 @@ CASES = {
     "chaos": (engine_chaos, {}),
     "async_sync": (R.engine_async_vs_sync, {}),
     "dead": (R.engine_dead_replica, {}),
+    "kept": (R.keep_mesh, {}),
 }
 
 
@@ -359,6 +361,31 @@ def test_async_admission_to_declared_dead_replica_retries(ranks):
     for out in ranks["dead"]:
         assert out["queue0"] == 0 and out["retried"] > 0
         assert out["submitted"] == out["served"] + out["in_flight"]
+
+
+def test_a_mesh_holds_no_reference_to_its_group(ranks):
+    """A mesh that outlives its rank program (here in a reference cycle)
+    keeps no reference to the process group: ``mesh.group`` is looked up
+    at each use, so the group is freed when the rank destroys it, not at
+    interpreter exit, where gloo's teardown can abort the rank; the
+    fixture's spawn, which keeps such a mesh on every rank, succeeded."""
+    for out in ranks["kept"]:
+        assert out == dict(holds_group=False, group_is_world=True)
+
+
+def test_spawn_ranks_fails_with_the_rank_traceback(tmp_path, monkeypatch):
+    """A rank whose program raises fails ``spawn_ranks`` with its
+    traceback; the rank that returned waits at the barrier until it is
+    stopped, and the ranks' directory (the store, the results) is
+    removed (``torch.multiprocessing`` leaves its error files beside
+    it)."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with pytest.raises(mp.ProcessRaisedException,
+                       match="rank 1 fails after the all-reduce"):
+        spawn_ranks(R.fails_on, 2, 1, device="cpu")
+    assert not [p for p in tmp_path.iterdir()
+                if p.name.startswith("repro_torch_ranks_")]
 
 
 def test_one_rank_mesh_removes_its_store_file(tmp_path, monkeypatch):

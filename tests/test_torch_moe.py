@@ -346,8 +346,9 @@ def test_prefill_matches_jax_in_bf16():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_zoo_surface(arch):
     """Parameter counts, cache shapes and telemetry template equal the
-    reference's; the unported family (whisper's) says which ROADMAP item
-    ports it."""
+    reference's; whisper-small, the last family to be ported, is in the
+    registry and the zoo as in the reference (its config, its parameter
+    count)."""
     cfg = configs.get_smoke_config(arch)
     jcfg = jconfigs.get_smoke_config(arch)
     jp, tp = params(arch, "bfloat16")
@@ -363,11 +364,11 @@ def test_zoo_surface(arch):
     zeros = zoo.metric_zeros(cfg, device="cpu")
     assert zeros.keys() == jzoo.metric_zeros(jcfg).keys()
     assert zeros["moe_load"].shape == (cfg.moe.n_experts,)
-    whisper = jconfigs.get_smoke_config("whisper-small")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        zoo.init_params(whisper, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        configs.get_config("whisper-small")
+    whisper = configs.get_config("whisper-small")
+    jwhisper = jconfigs.get_config("whisper-small")
+    assert whisper.__dict__ == jwhisper.__dict__
+    assert zoo.count_params_specs(zoo.param_specs(whisper)) \
+        == jzoo.count_params_specs(jzoo.param_specs(jwhisper))
 
 
 def test_random_init_shapes_and_determinism():

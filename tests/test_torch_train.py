@@ -254,7 +254,9 @@ def tokens(B, S, vocab, seed=3):
 def test_remat_full_equals_none_and_routes_the_same_twice(monkeypatch):
     """remat "full" (one checkpoint per layer) gives the loss and every
     gradient of remat "none"; the rematerialised forward dispatches again
-    and routes exactly as the first one did."""
+    and routes exactly as the first one did. The selective policy "dots"
+    (the projections' outputs kept, the rest recomputed, the dispatch
+    too) gives them as well."""
     cfg, _ = smoke_configs()
     toks = torch.from_numpy(tokens(2, 64, cfg.vocab))
     calls = []
@@ -286,8 +288,15 @@ def test_remat_full_equals_none_and_routes_the_same_twice(monkeypatch):
     assert torch.equal(l0, l1)
     for name, g in g0.items():
         assert rel(g1[name], g.numpy()) < 1e-6, name
-    with pytest.raises(NotImplementedError, match="item 10"):
-        zoo.loss_fn(model, cfg.replace(remat="dots"), {"tokens": toks})
+    calls.clear()
+    dots = cfg.replace(remat="dots")
+    loss = zoo.loss_fn(model, dots, {"tokens": toks})
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    assert len(calls) == 2 * cfg.n_layers
+    assert torch.equal(loss.detach(), l0)
+    for name, g in zip(names, grads):
+        assert rel(g, g0[name].numpy()) < 1e-6, name
 
 
 def test_zoo_specs_and_unported_training():

@@ -33,7 +33,6 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro import configs as jconfigs
@@ -52,7 +51,9 @@ from repro_torch.launch import train as driver
 
 LOSS_TOL = 1e-5
 CONVERT = {"ssm": convert.mamba2_params_from_jax,
-           "moe": convert.moe_params_from_jax}
+           "moe": convert.moe_params_from_jax,
+           "dense": convert.dense_params_from_jax,
+           "audio": convert.encdec_params_from_jax}
 
 
 def f32_smoke(pkg, arch):
@@ -83,9 +84,11 @@ def setup_both(monkeypatch, arch, n_shards, steps, seq, vocab=256):
 
 def reference_train(jcfg, params, n_steps, batch, seq, ckpt_dir,
                     resume=False, ckpt_every=10, n_hosts=4, lr=3e-4,
-                    fail_host_at=None):
+                    fail_host_at=None, features=None):
     """``repro.launch.train.train``'s loop without its mesh: (rows of
-    (step, loss, lr), start step, pipeline)."""
+    (step, loss, lr), start step, pipeline). ``features(step)``: the
+    batch's other inputs (whisper's frames), where the reference's
+    ``make_batch`` draws them with ``jax.random``."""
     opt_cfg = joptim.AdamWConfig(lr_peak=lr,
                                  warmup_steps=max(2, n_steps // 10),
                                  total_steps=n_steps)
@@ -107,8 +110,10 @@ def reference_train(jcfg, params, n_steps, batch, seq, ckpt_dir,
         if fail_host_at is not None and step == fail_host_at:
             runner.on_failure(n_hosts - 1)
         t0 = time.time()
-        params, opt_state, m = step_fn(
-            params, opt_state, {"tokens": pipe.global_batch(step)[:batch]})
+        inputs = {"tokens": pipe.global_batch(step)[:batch]}
+        if features is not None:
+            inputs.update(features(step))
+        params, opt_state, m = step_fn(params, opt_state, inputs)
         loss = float(m["loss"])
         dt = time.time() - t0
         for h in range(n_hosts):
@@ -235,7 +240,34 @@ def test_driver_survives_host_failure_like_the_reference(monkeypatch,
     assert counts[2] == 0 and counts.sum() == 24
 
 
-def test_driver_refuses_families_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        driver.train("gemma3-1b", n_steps=1, ckpt_dir=str(tmp_path),
-                     device="cpu")
+def test_driver_refuses_families_not_ported(monkeypatch, tmp_path):
+    """No family is refused any more: the driver trains gemma3-1b's and
+    whisper-small's smoke configs (4 steps of 4 × 32 tokens on 2 hosts;
+    whisper's frames [4, 32, 64] a step) with the losses and lrs of the
+    reference's loop. Both read one table of tokens (``_shard_batch``)
+    and one of frames (the port's ``_normals``, the loop's
+    ``features``), bf16 values as the reference's ``make_batch`` draws
+    them."""
+    n_hosts, batch, seq, steps = 2, 4, 32, 4
+    kw = dict(batch=batch, seq=seq, n_hosts=n_hosts)
+    for arch in ("gemma3-1b", "whisper-small"):
+        jcfg, jp = setup_both(monkeypatch, arch, 8 * n_hosts, steps, seq)
+        frames = torch.randn((steps, batch, seq, jcfg.d_model),
+                             generator=torch.Generator().manual_seed(6)).to(
+            torch.bfloat16).float().numpy()
+        monkeypatch.setattr(driver, "_normals",
+                            lambda step, shape, device: torch.from_numpy(
+                                frames[step]).to(device, torch.bfloat16))
+        tr = driver.Trainer(arch, steps, ckpt_dir=str(tmp_path / arch),
+                            device="cpu", **kw)
+        assert ("frames" in tr.make_batch(0)) == (arch == "whisper-small")
+        losses = tr.run()
+        features = None
+        if jcfg.family == "audio":
+            def features(step):
+                return {"frames": jnp.asarray(frames[step], jnp.bfloat16)}
+        rows, start, jpipe = reference_train(
+            jcfg, jp, steps, ckpt_dir=str(tmp_path / f"jax-{arch}"),
+            features=features, **kw)
+        assert len(losses) == steps and np.isfinite(losses).all()
+        check_against(tr, rows, start, jpipe)

@@ -9,6 +9,8 @@ imports no JAX.
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core.delegation import VersionedOwnerMap
 from repro_torch.kernels.blocks import HHPolicy
@@ -184,3 +186,27 @@ def engine_dead_replica(mesh) -> dict:
     return dict(queue0=len(eng.replicas[0].queue), retried=eng.retried,
                 submitted=eng.submitted, served=_served(eng),
                 in_flight=eng.in_flight)
+
+
+# meshes that outlive their rank program, as a router's reference cycle
+# would keep one until the interpreter exits
+_KEPT: list = []
+
+
+def keep_mesh(mesh) -> dict:
+    """Keep ``mesh`` past the program's end, in a reference cycle; what
+    it holds of the group."""
+    cycle = {"mesh": mesh}
+    cycle["self"] = cycle
+    _KEPT.append(cycle)
+    return dict(holds_group="group" in vars(mesh),
+                group_is_world=mesh.group is dist.group.WORLD)
+
+
+def fails_on(mesh, rank: int) -> float:
+    """An all-reduce on every rank, then rank ``rank`` raises; the others
+    return."""
+    total = float(mesh.all_reduce(torch.ones(1))[0])
+    if mesh.index == rank:
+        raise ValueError(f"rank {rank} fails after the all-reduce")
+    return total
