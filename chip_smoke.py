@@ -213,7 +213,26 @@ Phases:
      train step in f32 card vs CPU (every gradient within 1e-4),
      whisper's logits card vs CPU (1e-4), and "dots" and "attn_out"
      against "none" on the card (loss and gradients within 1e-6);
- 14. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 14. the model mesh (``launch/steps.py``'s ``jit_*_step``: DTensor
+     placements, ``local_map`` around the kernels): (a) gemma3-1b at full
+     size, 2 AdamW steps of 8 × 1,024 through ``jit_train_step`` on a
+     one-rank ("data", "model") NCCL mesh against 2 of
+     ``make_train_step`` from the same weights: the losses and the
+     weights after equal bit for bit, both step times and their ratio
+     (DTensor's host cost on one rank); (b) the same for mamba2-130m at
+     8 × 4,096: ``ssd_scan`` and ``ssd_scan_bwd`` launch through
+     ``local_map``, as many times as unplaced; (c) qwen3-moe-235b-a22b at
+     full width cut to 1 layer, ``jit_prefill_step`` on 8 × 1,024 and 16
+     ``jit_serve_step`` steps against ``prefill_step``/``decode_step``:
+     every logit and every route's ``assign``, ``slot`` and ``load``
+     equal, ``cg_dispatch`` launched as often; then gemma3-1b, 8 × 1,024
+     and 32 steps; (d) the 2×2 mesh: gemma3-1b in f32 at full width (2
+     layers), a train step on 4 × 256, a prefill and 8 decode steps on
+     4 ranks against the unplaced run within the CPU test's tolerances,
+     the collectives by kind: NCCL ranks on 4 cards; on one card gloo
+     ranks, if gloo carries every collective DTensor issues for CUDA
+     tensors (a probe in ranks of its own), else one line naming it;
+ 15. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -221,6 +240,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -4363,6 +4383,662 @@ def encdec_train_phase(dev, seed: int, smoke: bool = False,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the model side of the mesh tier
+# ---------------------------------------------------------------------------
+
+# (a) (ab)'s batch, (b) (q)'s, (c) the MoE cut to one layer and gemma3-1b;
+# (d) gemma3-1b in f32 at full width, its depth cut to 2 layers (rank 0
+# holds the unplaced run's host copies of every gradient beside its own)
+MESH_A = dict(arch="gemma3-1b", batch=8, seq=1024, steps=2)
+MESH_B = dict(arch="mamba2-130m", batch=8, seq=4096, steps=2)
+MESH_C = (dict(arch=MOE_ARCH, n_layers=1, batch=8, seq=1024, decode=16),
+          dict(arch="gemma3-1b", n_layers=None, batch=8, seq=1024,
+               decode=32))
+# (d): f32 on a 2x2 mesh. mamba2-130m's smoke config at B 2, so its
+# heads shard over "model" (at a batch of 4 it is pure data parallel):
+# at full width the f32 SSD backward's CTA would need 287,520 bytes of
+# shared memory (P 64, N 128, chunk 128), past the card's 232,448. The
+# MoE's smoke config, as its full width's training state (~60 GB in f32
+# for one layer) would not fit unplaced on rank 0's card beside its
+# shard.
+MESH_D = (dict(arch="gemma3-1b", full=True, n_layers=2, B=4, S=256,
+               decode_steps=8),
+          dict(arch="mamba2-130m", B=2, S=256, decode_steps=8),
+          dict(arch=MOE_ARCH, B=4, S=256, decode_steps=8))
+
+
+def _item(x) -> float:
+    from torch.distributed.tensor import DTensor
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
+
+
+def _weights(model) -> dict:
+    from repro_torch.models.layers import local
+    return {n: local(p).detach().clone() for n, p in model.named_parameters()}
+
+
+# -- the placed steps against the unplaced ones: the rank program of (d),
+# which tests/test_torch_model_mesh.py runs on 4 gloo CPU ranks ------------
+
+# placed against unplaced, in f32: sharded sums add in another order
+MESH_TOL = dict(loss_rel=1e-6, grad=1e-5, logits=1e-5, cache=1e-5)
+
+
+def _host(x):
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.detach().cpu().numpy()
+
+
+def family_config(arch: str, full: bool = False,
+                  n_layers: int | None = None):
+    """``arch``'s config at full width (else its smoke config) in f32,
+    its depth cut to ``n_layers``."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch) if full else configs.get_smoke_config(arch)
+    cfg = cfg.replace(dtype="float32")
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+
+
+def family_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """Tokens [B, S] and, for whisper, frames [B, S, d_model], for the
+    VLM patches [B, n_patches, vision_dim] (S counts them), from
+    ``default_rng(seed)``: host tensors."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    n_tok = S - cfg.n_patches if cfg.family == "vlm" else S
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, n_tok), dtype=np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model), dtype=np.float32))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_patches, cfg.vision_dim), dtype=np.float32))
+    return batch
+
+
+@contextlib.contextmanager
+def recording_routes(out: list):
+    """Record (assign, slot, load) of every MoE ``route`` call into
+    ``out``, as host arrays (whole, of DTensors): the layer's ``route``
+    is swapped for a recording one while the block runs."""
+    from repro_torch.moe import layer
+    route = layer.route
+
+    def rec(*args, **kw):
+        r = route(*args, **kw)
+        out.append(tuple(_host(t) for t in (r.assign, r.slot, r.load)))
+        return r
+
+    layer.route = rec
+    try:
+        yield
+    finally:
+        layer.route = route
+
+
+@contextlib.contextmanager
+def recording_kernel_comms(out: dict):
+    """Count, by kind, the collectives each placed kernel call issues in
+    its forward (the redistribution of its inputs to the layout its
+    ``local_map`` states): ``out[name]`` gets a dict a call, for
+    ``moe.router._dispatch`` ("cg_dispatch") and
+    ``models.mamba2._ssd_placed`` ("ssd_scan"), each swapped for a
+    counting one while the block runs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.models import mamba2
+    from repro_torch.moe import router
+    saved = {"cg_dispatch": (router, "_dispatch"),
+             "ssd_scan": (mamba2, "_ssd_placed")}
+    fns = {k: getattr(mod, attr) for k, (mod, attr) in saved.items()}
+
+    def counted(name):
+        def call(*args, **kw):
+            with CommDebugMode() as cm:
+                r = fns[name](*args, **kw)
+            if any(isinstance(a, DTensor) for a in args):
+                out.setdefault(name, []).append(
+                    {str(k): v for k, v in cm.get_comm_counts().items()})
+            return r
+        return call
+
+    for k, (mod, attr) in saved.items():
+        setattr(mod, attr, counted(k))
+    try:
+        yield
+    finally:
+        for k, (mod, attr) in saved.items():
+            setattr(mod, attr, fns[k])
+
+
+def family_run(cfg, *, mesh=None, device="cuda", B: int = 4, S: int = 32,
+               serve_batch: int | None = None, decode_steps: int = 4,
+               seed: int = 0, rank0: bool = True) -> dict:
+    """One AdamW step (eps 1e-5) on a [B, S] batch, one prefill of
+    ``serve_batch`` (default B) prompts (its cache padded for the decode
+    steps) and ``decode_steps`` greedy decode steps of ``cfg`` from
+    ``zoo.init_params(cfg, seed)``, placed on the ``DeviceMesh`` ``mesh``
+    (``launch.steps.jit_*_step``) or, without one, unplaced on ``device``
+    (``make_train_step``, ``zoo.prefill_step``, ``zoo.decode_step``).
+    Where ``rank0``, returns as host arrays the loss, the grad norm,
+    AdamW's first moments after the step (``(1 - b1)·clip·g``: the
+    gradients), the logits and caches, the MoE routing of every ``route``
+    call; always the collectives by kind of each step (``CommDebugMode``)
+    and of each placed kernel call, the kernels' launches and the step
+    seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import optim
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo as zoo
+    opt_cfg = optim.AdamWConfig(eps=1e-5, warmup_steps=2)
+    batch = family_batch(cfg, B, S, seed)
+    dev = torch.device(device)
+    res: dict = dict(seconds={}, comms={}, routes={}, kernel_comms={})
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if mesh is not None:
+            dist.barrier()
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        with CommDebugMode() as cm:
+            out = fn()
+        sync()
+        res["seconds"][name] = time.perf_counter() - t0
+        res["comms"][name] = {str(k): v
+                              for k, v in cm.get_comm_counts().items()}
+        return out
+
+    zero_counts()
+    model = zoo.init_params(cfg, seed, device=dev)
+    state = optim.init(model)
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    step = (steps.jit_train_step(cfg, mesh, opt_cfg)[0](on_dev)
+            if mesh is not None else steps.make_train_step(cfg, opt_cfg))
+    routes: list = []
+    with recording_routes(routes), \
+            recording_kernel_comms(res["kernel_comms"].setdefault(
+                "train", {})):
+        _, state, metrics = timed("train",
+                                  lambda: step(model, state, on_dev))
+    res["routes"]["train"] = routes
+    m = {n: _host(t) for n, t in state["m"].items()}
+    res.update(loss=float(_host(metrics["loss"])),
+               grad_norm=float(_host(metrics["grad_norm"])), m=m)
+    del model, state, m
+    model = zoo.init_params(cfg, seed + 1, device=dev)
+    on_dev = {k: v[:serve_batch or B].to(dev) for k, v in batch.items()}
+    pad = S + decode_steps
+    if mesh is not None:
+        prefill = steps.jit_prefill_step(cfg, mesh, pad_to=pad)[0](on_dev)
+        serve_for = steps.jit_serve_step(cfg, mesh)[0]
+    else:
+        def prefill(p, b):
+            return zoo.prefill_step(p, cfg, b, pad_to=pad)
+    routes = []
+    with recording_routes(routes), recording_kernel_comms(
+            res["kernel_comms"].setdefault("serve", {})):
+        logits, cache = timed("prefill", lambda: prefill(model, on_dev))
+        host = _host(logits)
+        res["prefill_logits"] = host
+        out = []
+        for i in range(decode_steps):
+            # greedy, first index on ties, from the whole logits
+            tok = torch.from_numpy(
+                host.argmax(-1)[:, None].astype(np.int32)).to(dev)
+            if mesh is not None:
+                step = serve_for(cache, tok)
+            else:
+                def step(p, c, t):
+                    return zoo.decode_step(p, cfg, c, t)
+            logits, cache = timed(f"decode{i}",
+                                  lambda: step(model, cache, tok))
+            host = _host(logits)
+            out.append(host)
+    res["launches"] = {k: v for k, v in read_counts().items()
+                       if k in ("cg_dispatch", "ssd_scan", "ssd_scan_bwd")}
+    res["decode_logits"] = out
+    res["cache"] = {k: _host(v) for k, v in cache.items()}
+    res["routes"]["serve"] = routes
+    if not rank0:
+        return {k: res[k] for k in ("seconds", "comms", "kernel_comms",
+                                    "launches")}
+    return res
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| (0 for two zero arrays)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max() if b.size else 0.0
+    err = np.abs(a - b).max() if b.size else 0.0
+    return float(err / scale) if scale else float(err)
+
+
+def compare_runs(placed: dict, plain: dict, tol: dict = MESH_TOL) -> dict:
+    """The placed run against the unplaced one: the largest relative
+    error of each quantity (each over its own largest magnitude; every
+    gradient over the largest gradient of all), whether the logits'
+    shapes and the MoE routing are equal (routing bit for bit), and
+    ``ok``."""
+    import numpy as np
+    out: dict = {}
+    out["loss_rel"] = abs(placed["loss"] - plain["loss"]) / abs(plain["loss"])
+    if plain["m"]:
+        g_max = max(float(np.abs(v).max()) for v in plain["m"].values())
+        out["grad"] = max(float(np.abs(placed["m"][n] - v).max())
+                          for n, v in plain["m"].items()) / g_max
+    got = [placed["prefill_logits"], *placed["decode_logits"]]
+    want = [plain["prefill_logits"], *plain["decode_logits"]]
+    out["shapes_equal"] = [a.shape for a in got] == [b.shape for b in want]
+    out["logits"] = max(_rel(a, b) for a, b in zip(got, want))
+    out["cache"] = max(_rel(placed["cache"][k], v)
+                       for k, v in plain["cache"].items())
+    routes_p = [r for k in sorted(placed["routes"])
+                for r in placed["routes"][k]]
+    routes_u = [r for k in sorted(plain["routes"]) for r in plain["routes"][k]]
+    out["routing_equal"] = len(routes_p) == len(routes_u) and all(
+        all(np.array_equal(a, b) for a, b in zip(rp, ru))
+        for rp, ru in zip(routes_p, routes_u))
+    out["ok"] = out["routing_equal"] and out["shapes_equal"] and all(
+        out[k] <= tol[k] for k in ("loss_rel", "grad", "logits", "cache")
+        if k in out)
+    return out
+
+
+def placed_vs_plain(mesh, runs, shape=(2, 2),
+                    tol: dict = MESH_TOL) -> dict | None:
+    """Rank program (``launch.mesh.spawn_ranks``): for each of ``runs``
+    (dicts of ``arch``, optionally ``full`` and ``n_layers`` for
+    ``family_config``, and ``family_run``'s options), ``family_run``
+    placed on a ``shape`` ("data", "model") mesh of the group's ranks,
+    then on rank 0 alone the unplaced run on its device (the others wait
+    at a barrier), so no array leaves rank 0. Rank 0 returns, by arch,
+    ``compare_runs`` of the two, the MoE routes a step kind, the
+    collectives by kind (a step's and each kernel call's), both runs'
+    kernel launches and seconds; the others None. On the CPU each rank
+    takes one thread: the ranks share the host's cores."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.layers import act_sharding
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)
+    dmesh = make_smoke_mesh(shape, device=mesh.device)
+    rank0 = dist.get_rank() == 0
+    out = {}
+    for run in runs:
+        run = dict(run)
+        arch = run.pop("arch")
+        cfg = family_config(arch, run.pop("full", False),
+                            run.pop("n_layers", None))
+        with act_sharding({}):
+            placed = family_run(cfg, mesh=dmesh, device=mesh.device,
+                                rank0=rank0, **run)
+            plain = (family_run(cfg, device=mesh.device, **run) if rank0
+                     else None)
+        dist.barrier()
+        if rank0:
+            out[arch] = dict(
+                compare=compare_runs(placed, plain, tol),
+                routes={k: len(v) for k, v in placed["routes"].items()},
+                comms=placed["comms"], kernel_comms=placed["kernel_comms"],
+                launches=placed["launches"],
+                plain_launches=plain["launches"], seconds=placed["seconds"],
+                plain_seconds=plain["seconds"])
+    return out if rank0 else None
+
+
+# the DTensor collectives of a placed step, as redistributions on a 2-D
+# mesh: (name, from placements, to placements)
+DTENSOR_COLLECTIVES = (
+    ("all_gather", ("S0", "S1"), ("R", "R")),
+    ("all_reduce", ("P", "P"), ("R", "R")),
+    ("reduce_scatter", ("P", "P"), ("S0", "S1")),
+    ("all_to_all", ("S0", "R"), ("S1", "R")),
+)
+
+
+def dtensor_collectives(mesh, progress: str) -> list:
+    """Rank program: each redistribution of ``DTENSOR_COLLECTIVES`` on a
+    (2, 2) mesh of the group's 4 ranks, on this rank's device, checked
+    against the whole tensor; before each, its name is written to the
+    file ``progress`` + the rank, so a rank that dies in one names it.
+    The names that passed."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    dmesh = make_smoke_mesh((2, 2), device=mesh.device)
+    pl = {"S0": Shard(0), "S1": Shard(1), "R": Replicate(), "P": Partial()}
+    x = torch.arange(64, dtype=torch.float32, device=mesh.device).reshape(
+        8, 8)
+    done = []
+    for name, src, dst in DTENSOR_COLLECTIVES:
+        with open(f"{progress}{dist.get_rank()}", "w") as f:
+            f.write(name)
+        src_pl = tuple(pl[p] for p in src)
+        if "P" in src:
+            # a partial sum whose ranks' parts add up to x
+            d = DTensor.from_local(x / 4, dmesh, src_pl)
+        else:
+            d = distribute_tensor(x, dmesh, src_pl)
+        out = d.redistribute(dmesh, tuple(pl[p] for p in dst)).full_tensor()
+        if not torch.equal(out, x):
+            raise AssertionError(f"{name}: the redistribution changed x")
+        done.append(name)
+    return done
+
+
+def placed_train(dev, seed: int, arch: str, *, batch: int, seq: int,
+                 steps: int, smoke: bool = False,
+                 check_launches: bool = True) -> dict:
+    """(a), (b): ``steps`` AdamW steps of ``make_train_step`` from random
+    weights drawn from ``seed``, then the same from the same weights
+    through ``jit_train_step`` on a one-rank ("data", "model") mesh, on
+    one fixed batch of ``batch`` × ``seq`` zipf(1.3) tokens; the launch
+    counts zeroed just before each run and read just after. The losses
+    and the weights after the steps must be equal bit for bit, and so
+    the launches; the step ms of both (the first step of each includes
+    DTensor's first dispatch of every op) and their ratio."""
+    import gc
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.core import streams
+    from repro_torch.launch.mesh import enter_mesh, make_smoke_mesh
+    from repro_torch.launch.steps import jit_train_step, make_train_step
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import act_sharding
+    cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
+    opt_cfg = optim.AdamWConfig(**TRAIN_CELL_OPT, total_steps=steps)
+    batch_in = {"tokens": streams.sample_zipf_stream(
+        seed, batch * seq, cfg.vocab, 1.3, device=dev).reshape(batch, seq)}
+    cuda = dev.type == "cuda"
+    name = f"placed train {arch} {cfg.n_layers}L B={batch} S={seq}"
+    runs = {}
+    for placed in (False, True):
+        model = zoo.init_params(cfg, seed, device=dev)
+        state = optim.init(model)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(act_sharding({}))
+            if placed:
+                mesh = make_smoke_mesh(device=dev)
+                stack.enter_context(enter_mesh(mesh))
+                step = jit_train_step(cfg, mesh, opt_cfg)[0](batch_in)
+            else:
+                step = make_train_step(cfg, opt_cfg)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            zero_counts()
+            rows = []
+            for i in range(steps):
+                t0 = time.perf_counter()
+                model, state, m = step(model, state, batch_in)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                rows.append(dict(loss=_item(m["loss"]),
+                                 ms=(time.perf_counter() - t0) * 1e3))
+            counts = read_counts()
+        check_counts(name, counts, "ssd_scan" if cfg.family == "ssm"
+                     else None, dev, check_launches)
+        runs[placed] = dict(rows=rows, launches=counts,
+                            weights=_weights(model))
+        del model, state, step
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    plain, placed = runs[False], runs[True]
+    losses = [r["loss"] for r in plain["rows"]]
+    if [r["loss"] for r in placed["rows"]] != losses:
+        fail(f"{name}: the placed losses {placed['rows']} differ from the "
+             f"unplaced {plain['rows']}")
+    bad = [n for n, w in plain["weights"].items()
+           if not torch.equal(placed["weights"][n], w)]
+    if bad:
+        fail(f"{name}: weights after the steps differ: {bad[:5]}")
+    kernels = ("ssd_scan", "ssd_scan_bwd", "cg_dispatch")
+    launches = {k: (plain["launches"][k], placed["launches"][k])
+                for k in kernels}
+    if any(a != b for a, b in launches.values()):
+        fail(f"{name}: launches (unplaced, placed) {launches}")
+    ms = [plain["rows"][-1]["ms"], placed["rows"][-1]["ms"]]
+    log(f"  {name}: losses {losses} equal bit for bit, and every weight "
+        f"after {steps} steps; launches (unplaced, placed) {launches}; step "
+        f"{steps} {ms[0]:.1f} ms unplaced, {ms[1]:.1f} ms placed (ratio "
+        f"{ms[1] / ms[0]:.3f}); first steps {plain['rows'][0]['ms']:.1f} / "
+        f"{placed['rows'][0]['ms']:.1f} ms")
+    return dict(run=name, losses=losses, launches=launches,
+                step_ms=dict(plain=[r["ms"] for r in plain["rows"]],
+                             placed=[r["ms"] for r in placed["rows"]]),
+                ratio=ms[1] / ms[0])
+
+
+def placed_serve(dev, seed: int, arch: str, *, n_layers: int | None,
+                 batch: int, seq: int, decode: int, smoke: bool = False,
+                 check_launches: bool = True) -> dict:
+    """(c): ``prefill_step`` on ``batch`` × ``seq`` random tokens and
+    ``decode`` greedy ``decode_step``s of ``arch`` (depth cut to
+    ``n_layers``), then the same on the same weights through
+    ``jit_prefill_step`` and ``jit_serve_step`` on a one-rank mesh. Every
+    step's logits, every MoE route's ``assign``, ``slot`` and ``load``
+    and the ``cg_dispatch`` launches must be equal; prefill and decode ms
+    of both."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import enter_mesh, make_smoke_mesh
+    from repro_torch.launch.steps import jit_prefill_step, jit_serve_step
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import act_sharding, local
+    cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    model = zoo.init_params(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch_in, pad = {"tokens": tokens}, seq + decode
+    name = f"placed serve {arch} {cfg.n_layers}L B={batch} S={seq}"
+    runs = {}
+    for placed in (False, True):
+        routes, logits_all, times = [], [], []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(act_sharding({}))
+            if placed:
+                mesh = make_smoke_mesh(device=dev)
+                stack.enter_context(enter_mesh(mesh))
+                prefill = jit_prefill_step(cfg, mesh, pad_to=pad)[0](batch_in)
+                serve_for = jit_serve_step(cfg, mesh)[0]
+            else:
+                def prefill(p, b):
+                    return zoo.prefill_step(p, cfg, b, pad_to=pad)
+
+                def serve_for(c, t):
+                    return lambda p, c, t: zoo.decode_step(p, cfg, c, t)
+            stack.enter_context(recording_routes(routes))
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            logits, cache = prefill(model, batch_in)
+            sync()
+            times.append(time.perf_counter() - t0)
+            logits_all.append(local(logits).clone())
+            for _ in range(decode):
+                tok = torch.argmax(local(logits), -1)[:, None].to(torch.int32)
+                t0 = time.perf_counter()
+                logits, cache = serve_for(cache, tok)(model, cache, tok)
+                sync()
+                times.append(time.perf_counter() - t0)
+                logits_all.append(local(logits).clone())
+            counts = read_counts()
+        check_counts(name, counts, "cg_dispatch" if cfg.family == "moe"
+                     else None, dev, check_launches)
+        runs[placed] = dict(routes=routes, logits=logits_all, times=times,
+                            launches=counts["cg_dispatch"])
+        del cache, logits
+        gc.collect()
+    plain, placed = runs[False], runs[True]
+    if plain["launches"] != placed["launches"]:
+        fail(f"{name}: cg_dispatch launches {plain['launches']} unplaced, "
+             f"{placed['launches']} placed")
+    if not all(torch.equal(a, b) for a, b in zip(plain["logits"],
+                                                  placed["logits"])):
+        fail(f"{name}: placed logits differ from the unplaced")
+    same_routes = len(plain["routes"]) == len(placed["routes"]) and all(
+        all(np.array_equal(a, b) for a, b in zip(ra, rb))
+        for ra, rb in zip(plain["routes"], placed["routes"]))
+    if not same_routes:
+        fail(f"{name}: placed MoE routing differs from the unplaced")
+    ms = {k: dict(prefill=r["times"][0] * 1e3,
+                  decode=sum(r["times"][2:]) / max(1, decode - 1) * 1e3)
+          for k, r in (("plain", plain), ("placed", placed))}
+    log(f"  {name} + {decode} decode steps: logits of every step "
+        f"{'and every route ' if plain['routes'] else ''}equal bit for bit; "
+        f"cg_dispatch launches {plain['launches']} each; prefill "
+        f"{ms['plain']['prefill']:.1f} ms unplaced, "
+        f"{ms['placed']['prefill']:.1f} placed; decode steps 2-{decode} "
+        f"{ms['plain']['decode']:.2f} / {ms['placed']['decode']:.2f} ms a "
+        f"step (ratio {ms['placed']['decode'] / ms['plain']['decode']:.3f})")
+    del model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(run=name, ms=ms, launches=plain["launches"],
+                routes=len(plain["routes"]))
+
+
+def mesh_2x2(dev, seed: int, runs) -> dict:
+    """(d): the 2×2 ("data", "model") mesh: ``placed_vs_plain`` of each
+    of ``runs`` on 4 ranks against the unplaced run on rank 0, within
+    the CPU test's tolerances (``MESH_TOL``), with the kernels' launches
+    of both equal (on the card, non-zero where the family runs a kernel);
+    the collectives by kind and the step ms. With 4 cards the ranks are
+    NCCL, one a card; with one, 4 gloo ranks share it, if gloo carries
+    every collective a placed step's DTensors issue
+    (``dtensor_collectives``, first, in ranks of their own). A rank that
+    dies there (a signal, as gloo's all-gather of CUDA tensors ends it)
+    gives one line that says in which, and the 2×2 mesh stays checked by
+    the CPU tests alone; a rank that raises (a redistribution that
+    changed the data) fails the phase."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as tmp_mp
+    from repro_torch.launch.mesh import run_all, spawn_ranks
+    backend = ("nccl" if dev.type == "cuda" and torch.cuda.device_count() >= 4
+               else "gloo")
+    if backend == "gloo" and dev.type == "cuda":
+        with tempfile.TemporaryDirectory(prefix="repro_torch_probe_") as tmp:
+            progress = str(Path(tmp) / "progress")
+            try:
+                spawn_ranks(dtensor_collectives, 4, progress,
+                            backend="gloo", device=str(dev))
+            except tmp_mp.ProcessExitedException as e:
+                names = sorted({Path(f"{progress}{r}").read_text()
+                                for r in range(4)
+                                if Path(f"{progress}{r}").exists()})
+                log(f"  (d) 2x2 mesh: gloo does not carry DTensor's "
+                    f"{'/'.join(names)} for {dev.type} tensors (a rank "
+                    f"ended: {str(e).splitlines()[0]}); the 2x2 mesh was "
+                    f"checked only by the CPU tests "
+                    f"(tests/test_torch_model_mesh.py)")
+                return dict(run="2x2", backend="gloo", checked=False,
+                            collective=names)
+    t0 = time.perf_counter()
+    out = spawn_ranks(run_all, 4, [(placed_vs_plain, dict(
+        runs=tuple(dict(r, seed=seed) for r in runs)))],
+        backend=backend, device=str(dev) if backend == "gloo" else "cuda")
+    spawn_s = time.perf_counter() - t0
+    kernels = {"moe": ("cg_dispatch",), "ssm": ("ssd_scan", "ssd_scan_bwd"),
+               "hybrid": ("ssd_scan", "ssd_scan_bwd")}
+    report = {}
+    for run in runs:
+        arch = run["arch"]
+        res = out[0]["results"][0][arch]
+        c = res["compare"]
+        if not c["ok"]:
+            fail(f"(d) {arch} on a 2x2 mesh over {backend}: placed against "
+                 f"unplaced {c}")
+        if res["launches"] != res["plain_launches"]:
+            fail(f"(d) {arch}: launches placed {res['launches']}, unplaced "
+                 f"{res['plain_launches']}")
+        cfg = family_config(arch, run.get("full", False),
+                            run.get("n_layers"))
+        if dev.type == "cuda" and any(res["launches"][k] <= 0
+                                      for k in kernels.get(cfg.family, ())):
+            fail(f"(d) {arch}: the placed steps never launched "
+                 f"{kernels[cfg.family]}: {res['launches']}")
+        comms = res["comms"]
+        steps_ms = {k: v * 1e3 for k, v in res["seconds"].items()}
+        log(f"  (d) {arch} {cfg.n_layers}L "
+            f"{'full width' if run.get('full') else 'smoke config'} f32, "
+            f"B {run['B']} S {run['S']}, on a 2x2 mesh of {backend} ranks: "
+            f"loss {c['loss_rel']:.2e}, gradients {c.get('grad', 0):.2e}, "
+            f"logits {c['logits']:.2e}, caches {c['cache']:.2e} of the "
+            f"unplaced run's (tolerances {MESH_TOL}); routing equal: "
+            f"{c['routing_equal']}; launches (rank 0, placed = unplaced) "
+            f"{res['launches']}; ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in steps_ms.items()))
+        for k in ("train", "prefill", "decode1"):
+            log(f"    collectives of {k}: {comms[k]}")
+        for step, calls in res["kernel_comms"].items():
+            for name, per_call in calls.items():
+                kinds = []
+                for k in per_call:
+                    if k not in kinds:
+                        kinds.append(k)
+                log(f"    {name} calls of {step}: {len(per_call)}, each "
+                    f"redistributing {' or '.join(map(str, kinds))}")
+        report[arch] = dict(compare=c, comms=comms, ms=steps_ms,
+                            launches=res["launches"],
+                            kernel_comms=res["kernel_comms"])
+    log(f"  (d) the spawn took {spawn_s:.1f} s")
+    return dict(run="2x2", backend=backend, checked=True, runs=report)
+
+
+def model_mesh_phase(dev, seed: int, cells: str = "abcd",
+                     smoke: bool = False, check_launches: bool = True) -> dict:
+    """Phase 14, or those of its ``cells``: (a), (b) the placed train
+    step against the unplaced on one rank, (c) the placed prefill and
+    serve steps, (d) the 2×2 mesh. ``smoke``: the smoke configs at small
+    shapes, which rehearses (a)–(c) on the CPU
+    (``tests/test_torch_isolation.py``; (d)'s rank program runs there in
+    ``tests/test_torch_model_mesh.py``)."""
+    if smoke:
+        a = dict(MESH_A, batch=2, seq=64)
+        b = dict(MESH_B, batch=2, seq=64)
+        c = tuple(dict(x, n_layers=None, batch=2, seq=32, decode=3)
+                  for x in MESH_C)
+    else:
+        a, b, c = MESH_A, MESH_B, MESH_C
+    out = {}
+    for cell, cfg in (("a", a), ("b", b)):
+        if cell in cells:
+            out[cell] = placed_train(dev, seed, smoke=smoke,
+                                     check_launches=check_launches, **cfg)
+    if "c" in cells:
+        out["c"] = [placed_serve(dev, seed, smoke=smoke,
+                                 check_launches=check_launches, **x)
+                    for x in c]
+    if "d" in cells:
+        out["d"] = mesh_2x2(dev, seed, MESH_D)
+    return out
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -4648,7 +5324,19 @@ def main() -> int:
     encdec = encdec_train_phase(dev, args.seed)
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
-    # 14. report
+    # 14. the model mesh
+    log("== model mesh: (a) gemma3-1b at full size, 2 AdamW steps of 8 x "
+        "1,024 through jit_train_step on a one-rank mesh against "
+        "make_train_step; (b) mamba2-130m at 8 x 4,096 the same way; (c) "
+        "qwen3-moe-235b-a22b (1 layer) jit_prefill_step 8 x 1,024 + 16 "
+        "jit_serve_step steps, then gemma3-1b + 32 steps, against the "
+        "unplaced steps; (d) gemma3-1b, mamba2-130m's and the MoE's smoke "
+        "configs in f32 on a 2x2 mesh")
+    t14 = time.perf_counter()
+    model_mesh = model_mesh_phase(dev, args.seed)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # 15. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -4666,6 +5354,8 @@ def main() -> int:
         r["launches"]["cg_dispatch"]
         for r in moe["runs"] + [moe["long"], moe["serving"]] + train["runs"]
         + feed["stream"]["runs"])
+    # phase 14 (c): the MoE's unplaced and placed serving runs
+    launches["cg_dispatch"] += 2 * model_mesh["c"][0]["launches"]
     # per launch shape: (a)'s block-128 slots and their tails, its block-1
     # slots; zamba2 8 × 1,024 and 8 × 4,096, mamba2 8 × 4,096
     snap = {k: sum(r["launches"][k] for r in runs + fig11)
@@ -4692,6 +5382,10 @@ def main() -> int:
     for run in (feed["driver"]["a"], feed["driver"]["b"]):
         launches["ssd_scan[mamba2]"] += run["launches"]["ssd_scan"]
         launches["ssd_scan_bwd[mamba2]"] += run["launches"]["ssd_scan_bwd"]
+    # phase 14 (b): mamba2 at 8 × 4,096, unplaced and placed
+    for k, row in (("ssd_scan", "ssd_scan[mamba2]"),
+                   ("ssd_scan_bwd", "ssd_scan_bwd[mamba2]")):
+        launches[row] += sum(model_mesh["b"]["launches"][k])
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, count, src, replaces in (
@@ -4743,7 +5437,8 @@ def main() -> int:
             schemes=schemes, serving=serving, moe=moe, ssd=ssd_err,
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
             train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
-            mesh=mesh, dense=dense, encdec=encdec, kernels=kernels),
+            mesh=mesh, dense=dense, encdec=encdec, model_mesh=model_mesh,
+            kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ the programs ``chip_smoke.py`` and the CPU tests give it:
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import pickle
 import tempfile
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.kernels.backend import resolve_device
 
@@ -167,8 +169,105 @@ def make_source_mesh(n_hosts: int | None = None, *, backend: str | None = None,
     return mesh
 
 
-def n_chips(mesh: SourceMesh) -> int:
+def n_chips(mesh) -> int:
+    """Devices of a source mesh, a ``DeviceMesh`` or a ``ShapeMesh``."""
+    if isinstance(mesh, DeviceMesh):
+        return mesh.size()
     return mesh.size
+
+
+# -- the model mesh ------------------------------------------------------------
+
+class ShapeMesh:
+    """A mesh's shape and nothing else: ``shape`` (axis name → size),
+    ``axis_names`` and ``size``. The placement rules read only these, so
+    it stands for the production meshes, whose 256 or 512 ranks no
+    process here owns (the counterpart of JAX's ``AbstractMesh``)."""
+
+    def __init__(self, shape, axis_names):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ "
+                             "in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.size = int(np.prod(list(self.shape.values()), dtype=np.int64))
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape})"
+
+
+def mesh_shape(mesh) -> dict:
+    """Axis name → size of a ``DeviceMesh`` or a ``ShapeMesh``, in the
+    mesh's order."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(mesh.shape)
+
+
+def data_axes(mesh) -> tuple:
+    """The combined batch-sharding axes of this mesh."""
+    return ("pod", "data") if "pod" in mesh_shape(mesh) else ("data",)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The reference's production shapes, (16, 16) ``("data", "model")``
+    or (2, 16, 16) ``("pod", "data", "model")``, as a ``ShapeMesh``
+    (``launch/dryrun.py`` places every cell on them)."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
+    return ShapeMesh((16, 16), ("data", "model"))
+
+
+def make_smoke_mesh(shape=(1, 1), axes=("data", "model"),
+                    device="cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over the initialised process group
+    (its world size must be the mesh's size); each rank's tensors live on
+    ``device`` (a bare ``"cuda"``: the rank's current card). Where no
+    group is initialised, starts one rank (NCCL on the card, gloo on the
+    CPU, a ``FileStore`` under ``$TMPDIR``), which leaving
+    ``enter_mesh(mesh)`` destroys."""
+    dev = _rank_device(device)
+    path = None
+    n = int(np.prod(shape))
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"no process group for a {shape} mesh: start "
+                             "the ranks with launch.mesh.spawn_ranks")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        fd, path = tempfile.mkstemp(prefix="repro_torch_store_")
+        os.close(fd)
+        backend = _default_backend(dev)
+        dist.init_process_group(
+            backend, store=dist.FileStore(path, 1), rank=0, world_size=1,
+            device_id=dev if backend == "nccl" else None)
+    elif dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks, but the process "
+                         f"group has {dist.get_world_size()}")
+    mesh = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=axes)
+    mesh.store_path = path
+    return mesh
+
+
+@contextlib.contextmanager
+def enter_mesh(mesh):
+    """Install ``mesh`` as the ambient mesh (a ``DeviceMesh``'s own
+    context); on leaving, destroy the one-rank group ``make_smoke_mesh``
+    started for it. A ``ShapeMesh`` has nothing to install."""
+    if not isinstance(mesh, DeviceMesh):
+        yield mesh
+        return
+    try:
+        with mesh:
+            yield mesh
+    finally:
+        path = getattr(mesh, "store_path", None)
+        if path is not None:
+            mesh.store_path = None
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            if os.path.exists(path):
+                os.unlink(path)
 
 
 def _rank_main(rank: int, n_ranks: int, tmp: str, backend, device: str,

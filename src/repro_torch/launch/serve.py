@@ -8,9 +8,10 @@
 Runs the arch's smoke config, as the reference does, any arch of the
 registry. Replicas share one model and one decode function; each batch
 decodes from ``zoo.init_cache``, so whisper-small's cross cache is
-zeros there, as in the reference (no frames reach a replica). No mesh:
-the reference's ``enter_mesh`` and ``install_act_rules`` go with the
-mesh tier (ROADMAP Queue 1 item 7).
+zeros there, as in the reference (no frames reach a replica). ``serve``
+runs inside the reference's smoke mesh (``steps.smoke_mesh``): one
+rank, where every activation rule is the identity and the tensors stay
+plain.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 from repro_torch import configs
 from repro_torch.models import model_zoo as zoo
 from repro_torch.serve import CGRequestRouter, ServingEngine
+
+from .steps import smoke_mesh
 
 
 def build_replica(cfg, params, decode_steps: int, slow: float = 0.0,
@@ -88,13 +91,14 @@ def serve(cfg, params, *, requests: int = 64, decode_steps: int = 8,
     rng = np.random.default_rng(seed)
     zipf_keys = rng.zipf(1.3, size=requests) % 1000         # skewed sessions
     prompts = rng.integers(0, cfg.vocab, size=(requests, 1))
-    t0 = time.time()
-    engine.submit_batch(zipf_keys.astype(np.int32),
-                        [(i, int(p[0])) for i, p in enumerate(prompts)])
-    served = 0
-    while served < requests:
-        served += engine.step()
-    dt = time.time() - t0
+    with smoke_mesh(params.embed.device):
+        t0 = time.time()
+        engine.submit_batch(zipf_keys.astype(np.int32),
+                            [(i, int(p[0])) for i, p in enumerate(prompts)])
+        served = 0
+        while served < requests:
+            served += engine.step()
+        dt = time.time() - t0
     lat = np.asarray(engine.latencies)
     return dict(engine=engine, served=served, seconds=dt,
                 requests_per_s=served / dt, latency_mean_s=float(lat.mean()),

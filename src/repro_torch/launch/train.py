@@ -7,10 +7,10 @@ checkpointing → straggler delegation → elastic failure response.
       --steps 20 --batch 8 --seq 128 [--full] [--resume] [--device cuda]
 
 Without ``--full`` it runs the arch's smoke config, as the reference
-does. Every family trains. The step runs eagerly on one device: the
-reference's smoke mesh (``make_smoke_mesh``, ``install_act_rules``,
-``enter_mesh``) is the identity there and comes with the mesh tier
-(ROADMAP Queue 1 item 7).
+does. Every family trains. ``run`` trains inside the reference's smoke
+mesh (``steps.smoke_mesh``: ``make_smoke_mesh``, the activation rules,
+``enter_mesh``): one rank, where every rule is the identity, so the
+step runs eagerly on the device with plain tensors.
 
 A step's batch is the pipeline's tokens and, as the reference's
 ``make_batch`` fills it, whisper's ``frames`` [B, seq, d_model] or the
@@ -171,10 +171,11 @@ class Trainer:
     def run(self, on_step=None) -> np.ndarray:
         """Train the remaining steps (``on_step(row)`` after each), wait
         for the last checkpoint to commit; the losses."""
-        for step in range(self.start_step, self.n_steps):
-            row = self.step(step)
-            if on_step is not None:
-                on_step(row)
+        with steps.smoke_mesh(self.device):
+            for step in range(self.start_step, self.n_steps):
+                row = self.step(step)
+                if on_step is not None:
+                    on_step(row)
         self.runner.saver.wait()
         return np.asarray([r["loss"] for r in self.history])
 

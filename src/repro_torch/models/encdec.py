@@ -29,7 +29,8 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 
 from .layers import (Attention, GeluMLP, as_generator, attention,
-                     drawn_param, gelu_mlp, linear, project_qkv, torch_dtype)
+                     drawn_param, gelu_mlp, linear, project_qkv, shard_act,
+                     torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels, zeros_from_spec)
 from .sp_decode import seqpar_attend, seqpar_update_and_attend
@@ -96,13 +97,15 @@ def encode(params: EncDec, cfg, frames):
     [B, S_enc, D] (final-normed), in ``cfg.dtype``."""
     x = torch.as_tensor(frames, device=params.embed.device).to(
         torch_dtype(cfg.dtype))
+    x = shard_act(x, "btd")
     positions = _positions(x)
 
     def body(x, lp):
         h = attention(norm(x, lp.attn_norm, cfg), lp.attn, cfg,
                       positions=positions, causal=False)
         x = x + h
-        return x + gelu_mlp(norm(x, lp.mlp_norm, cfg), lp.mlp)
+        return shard_act(x + gelu_mlp(norm(x, lp.mlp_norm, cfg), lp.mlp),
+                         "btd")
 
     body = remat(body, cfg)
     for lp in params.enc_layers:
@@ -138,7 +141,8 @@ def _decoder(params: EncDec, cfg, x, memory, collect_kv: bool = False):
         h = attention(norm(x, lp.cross_norm, cfg), lp.cross_attn, cfg,
                       positions=positions, causal=False, kv_override=ckv)
         x = x + h
-        return x + gelu_mlp(norm(x, lp.mlp_norm, cfg), lp.mlp), kv + ckv
+        return (shard_act(x + gelu_mlp(norm(x, lp.mlp_norm, cfg), lp.mlp),
+                          "btd"), kv + ckv)
 
     body = remat(body, cfg)
     kvs = []
@@ -156,7 +160,7 @@ def decode_train(params: EncDec, cfg, tokens, memory):
     """The decoder over ``tokens`` [B, S] against the encoder's
     ``memory`` → [B, S, D] (final-normed)."""
     tokens = torch.as_tensor(tokens, device=params.embed.device)
-    x = embed_tokens(params.embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(params.embed, tokens, cfg.d_model), "btd")
     return _decoder(params, cfg, x, memory)
 
 
@@ -178,7 +182,7 @@ def prefill_step(params: EncDec, cfg, batch, pad_to: int | None = None):
     sequence, cross K/V over the frames, ``pos`` = S)."""
     memory = encode(params, cfg, batch["frames"])
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-    x = embed_tokens(params.embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(params.embed, tokens, cfg.d_model), "btd")
     x, (k, v, ck, cv) = _decoder(params, cfg, x, memory, collect_kv=True)
     logits = last_logits(x[:, -1], params.embed)
     dtype = torch_dtype(cfg.dtype)

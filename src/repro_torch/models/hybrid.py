@@ -26,7 +26,8 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 
 from .layers import (MLP, Attention, apply_rope, as_generator, attention,
-                     drawn_param, linear, swiglu_mlp, torch_dtype)
+                     drawn_param, linear, shard_act, swiglu_mlp,
+                     torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels)
 from .mamba2 import MambaLayer, _dims, mamba_block, mamba_step
@@ -91,10 +92,11 @@ def hidden_states(params: Hybrid, cfg, x, positions):
 
     def group_body(x, group):
         for lp in group:
-            x = x + mamba_block(norm(x, lp.norm, cfg), lp, cfg)
+            x = shard_act(x + mamba_block(norm(x, lp.norm, cfg), lp, cfg),
+                          "btd")
         x = x + attention(norm(x, shared.attn_norm, cfg), shared.attn, cfg,
                           positions=positions, causal=True)
-        return _shared_mlp(x, shared, cfg)
+        return shard_act(_shared_mlp(x, shared, cfg), "btd")
 
     group_body = remat(group_body, cfg)
     for group in params.layers:
@@ -107,7 +109,7 @@ def loss_fn(params: Hybrid, cfg, batch):
     ``arange(S)``: the chunked cross-entropy against the tied table."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     B, S = tokens.shape
     positions = torch.arange(S, device=embed.device).expand(B, S)
     x = hidden_states(params, cfg, x, positions)
@@ -121,7 +123,7 @@ def prefill_step(params: Hybrid, cfg, batch, pad_to: int | None = None):
     [n_groups, B, S (or pad_to), KV, Dh] of the shared block."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     B, S = tokens.shape
     positions = torch.arange(S, device=embed.device).expand(B, S)
     shared = params.shared
@@ -131,13 +133,13 @@ def prefill_step(params: Hybrid, cfg, batch, pad_to: int | None = None):
         for lp in group:
             y, (conv, h) = mamba_block(norm(x, lp.norm, cfg), lp, cfg,
                                        return_state=True)
-            x = x + y
+            x = shard_act(x + y, "btd")
             gconv.append(conv)
             gh.append(h)
         out, (k, v) = attention(norm(x, shared.attn_norm, cfg), shared.attn,
                                 cfg, positions=positions, causal=True,
                                 return_kv=True)
-        x = _shared_mlp(x + out, shared, cfg)
+        x = shard_act(_shared_mlp(x + out, shared, cfg), "btd")
         convs.append(torch.stack(gconv))
         hs.append(torch.stack(gh))
         ks.append(k)

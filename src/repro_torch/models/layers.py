@@ -21,18 +21,157 @@ policy (:func:`attn_out`, the reference's ``checkpoint_name(out,
 custom VJPs; the chunked attention's kv steps are rematerialised in the
 backward, as the reference's ``jax.checkpoint`` of each kv step does.
 
-Left out: ``shard_act`` and the activation-sharding rules, which are the
-identity on one device (the mesh tier is ROADMAP Queue 1 item 7).
+The model code is mesh-agnostic, as the reference's: the launcher
+installs activation rules (``set_act_sharding``, ``act_sharding``;
+``launch.steps.install_act_rules``) and the layers call
+:func:`shard_act` at the reference's cut points. On a ``DTensor`` it
+redistributes to the installed rule; on a plain tensor, or with no rules
+installed, it is the identity. A placed step (``launch.steps``) runs the
+same functions on DTensors: DTensor's sharding propagation stands where
+GSPMD stands in the reference, and ``torch.distributed.tensor.
+experimental.local_map`` where its ``shard_map`` does (the kernels, the
+sequence-parallel decode).
 """
 from __future__ import annotations
 
+import contextlib
+from functools import partial
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map, register_sharding
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.sharding import spec_if_divisible, to_placements
 
 _RMS_EPS = 1e-6
 _LN_EPS = 1e-5
 _NEG = -1e30            # the reference's mask value: finite, not -inf
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding context (installed by repro_torch.launch)
+# ---------------------------------------------------------------------------
+
+_ACT_RULES: dict[str, object] = {}
+
+
+def set_act_sharding(rules: dict[str, object]) -> None:
+    """Install {kind: spec} activation rules and their ``"_mesh"``
+    (``launch.sharding.act_rules``; the launcher)."""
+    global _ACT_RULES
+    _ACT_RULES = dict(rules)
+
+
+@contextlib.contextmanager
+def act_sharding(rules: dict[str, object]):
+    """The rules installed for the ``with`` block, the old ones after."""
+    global _ACT_RULES
+    old = _ACT_RULES
+    _ACT_RULES = dict(rules)
+    try:
+        yield
+    finally:
+        _ACT_RULES = old
+
+
+def installed_act_rules() -> dict:
+    """The installed rules (read only)."""
+    return _ACT_RULES
+
+
+def rule_placements(shape, spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh`` for a
+    tensor of ``shape``, every axis that does not divide its dimension
+    dropped (e.g. batch 1 cells), as the reference's ``shard_act`` drops
+    it; an axis of one device replicates (``sharding.to_placements``)."""
+    return to_placements(
+        spec_if_divisible(shape, mesh, tuple(spec)[:len(shape)]), mesh)
+
+
+def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x`` redistributed to the installed rule for ``kind``: the
+    reference's ``with_sharding_constraint`` at a cut point. The identity
+    on a plain tensor and where no rule is installed."""
+    spec = _ACT_RULES.get(kind)
+    if spec is None or not isinstance(x, DTensor):
+        return x
+    want = rule_placements(x.shape, spec, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def relayout(base: tuple, dims: dict, partial: bool = False) -> tuple:
+    """Placements of a tensor laid out after a rule's: per mesh dimension,
+    the rule's ``Shard(d)`` becomes ``Shard(dims[d])`` where this tensor
+    has the rule's dimension d, else ``Replicate()`` (``Partial()`` with
+    ``partial``: a gradient that each rank computes from its part of the
+    rule's dimension is a partial sum over that mesh dimension)."""
+    out = []
+    for p in base:
+        if isinstance(p, Shard):
+            if p.dim in dims:
+                out.append(Shard(dims[p.dim]))
+            else:
+                out.append(Partial() if partial else Replicate())
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def whole_middle(x):
+    """A DTensor with every dimension between its first and its last
+    whole on each rank (their shards all-gathered); anything else as it
+    is. The "btd" rule cuts the residual stream's sequence over "model"
+    (sequence parallelism); a product folds the leading dimensions into
+    one, which DTensor does not do over a sharded sequence on every
+    torch, so the sequence is gathered first, as Megatron's sequence
+    parallelism gathers it after the norm."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = tuple(Replicate() if isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+               else p for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+class _GradLayout(torch.autograd.Function):
+    """Identity whose backward lays the gradient out as ``placements``."""
+
+    @staticmethod
+    def forward(ctx, y, placements):
+        ctx.placements = placements
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
+
+
+def grad_as_forward(y):
+    """``y``, whose gradient (on a DTensor under autograd) is laid out as
+    ``y`` is (a partial sum's as whole) before it reaches the product
+    that made ``y``: the residual stream cuts the sequence (the "btd"
+    rule), so the gradient a block's output gets back is
+    sequence-sharded, and the product's backward folds that dimension,
+    which DTensor does not do over a sharded sequence on every torch. No
+    data moves in the forward."""
+    if not (isinstance(y, DTensor) and y.requires_grad
+            and torch.is_grad_enabled()):
+        return y
+    want = tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in y.placements)
+    return _GradLayout.apply(y, want)
+
+
+def local(x):
+    """A DTensor's local shard; a plain tensor (or anything else) as it
+    is."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -372,17 +511,23 @@ def decode_attention(q, k_cache, v_cache, valid_len,
 # ---------------------------------------------------------------------------
 
 def linear(x, w, b=None):
-    y = x @ w
+    """x [..., D] @ w [D, F] (+ b), the leading dims folded into one mm
+    explicitly: ``torch.matmul`` folds a 3-D x only where its strides
+    allow a view, and a DTensor's may not (then it broadcasts into a bmm,
+    whose sums round otherwise), so a placed step on one rank would not
+    reproduce the unplaced one's bits."""
+    y = (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
     if b is not None:
         y = y + b
-    return y
+    return grad_as_forward(y)
 
 
 def swiglu_mlp(x, p):
     """LLaMA-style gated MLP: w1 (gate), w3 (up), w2 (down); ``p`` an
     :class:`MLP`."""
     h = torch.nn.functional.silu(x @ p.w1) * (x @ p.w3)
-    return h @ p.w2
+    h = shard_act(h, "btf")
+    return grad_as_forward(h @ p.w2)
 
 
 def gelu_mlp(x, p):
@@ -499,6 +644,13 @@ def _(x):
 _attn_out.register_autograd(lambda ctx, g: g)
 
 
+@register_sharding(torch.ops.repro_torch.attn_out.default)
+def _attn_out_sharding(x):
+    """A copy: the output is laid out as its input, whatever that is."""
+    out = [([Replicate()], [Replicate()]), ([Partial()], [Partial()])]
+    return out + [([Shard(d)], [Shard(d)]) for d in range(x.ndim)]
+
+
 def attn_out(x: torch.Tensor) -> torch.Tensor:
     """``x`` under the name "attn_out" (the reference's
     ``checkpoint_name(out, "attn_out")``): under autograd a copy made by
@@ -508,6 +660,29 @@ def attn_out(x: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return _attn_out(x)
     return x
+
+
+def _on_heads(core, q, k, v):
+    """``core(q, k, v)``, the attention of [B, S, H, Dh] queries; on
+    DTensors a ``local_map`` in the "bshd" layout, where each rank attends
+    its batch rows and query heads, which are independent, with the KV
+    heads cut as the query heads are (expanded to the query heads first
+    where the head shards do not divide them). The gradients are exact
+    on each rank's shard."""
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    mesh = q.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in q.placements)
+    n_heads = 1
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            n_heads *= mesh.size(i)
+    if k.shape[2] % n_heads:
+        k, v = _expand_kv(k, q.shape[2]), _expand_kv(v, q.shape[2])
+    return local_map(core, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     in_grad_placements=(pl, pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def attention(x, p, cfg, *, positions, causal=True, window=None,
@@ -529,15 +704,18 @@ def attention(x, p, cfg, *, positions, causal=True, window=None,
         q = linear(x, p.wq, getattr(p, "bq", None)).reshape(
             B, S, cfg.n_heads, cfg.d_head)
         k, v = kv_override
+    q = shard_act(q, "bshd")
+    k = shard_act(k, "bskd")
+    v = shard_act(v, "bskd")
     if max(S, k.shape[1]) > cfg.attn_chunk_threshold:
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                q_chunk=min(cfg.q_chunk, S),
-                                kv_chunk=min(cfg.kv_chunk, k.shape[1]),
-                                window_flag=window_flag)
+        core = partial(chunked_attention, causal=causal, window=window,
+                       q_chunk=min(cfg.q_chunk, S),
+                       kv_chunk=min(cfg.kv_chunk, k.shape[1]),
+                       window_flag=window_flag)
     else:
-        out = dense_attention(q, k, v, causal=causal, window=window,
-                              window_flag=window_flag)
-    out = attn_out(out.reshape(B, S, -1))
+        core = partial(dense_attention, causal=causal, window=window,
+                       window_flag=window_flag)
+    out = attn_out(_on_heads(core, q, k, v).reshape(B, S, -1))
     out = linear(out, p.wo, getattr(p, "bo", None))
     if return_kv:
         return out, (k, v)

@@ -29,11 +29,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, use_kernel
 
-from .layers import _param, as_generator, drawn_param, rmsnorm, torch_dtype
+from .layers import (_param, as_generator, drawn_param, grad_as_forward,
+                     installed_act_rules, relayout, rmsnorm,
+                     rule_placements, shard_act, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pick_chunk, shift_labels)
 from .transformer import remat
@@ -154,6 +158,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_state: bool = False):
         coef = dtc * torch.exp(s[:, -1:, :] - s)     # [B,Q,H]
         h = torch.exp(sm[:, :, -1])[..., None, None] * h + torch.einsum(
             "bqhp,bqhn->bhpn", xc * coef[..., None], bch)
+        h = shard_act(h, "bhpn")
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P).to(x.dtype)
     if return_state:
@@ -283,7 +288,10 @@ def _ssd(x, dt, A, Bm, Cm, cfg, return_state: bool = False):
     input needs a gradient, "auto" and "always" take
     ``ssd_scan_with_grad``, which follows the device (the CUDA kernels,
     or ``ssd_chunked`` and ``ssd_chunked_bwd`` on the CPU); "never"
-    keeps autograd through ``ssd_chunked``."""
+    keeps autograd through ``ssd_chunked``. DTensors go through
+    :func:`_ssd_placed`."""
+    if isinstance(x, DTensor):
+        return _ssd_placed(x, dt, A, Bm, Cm, cfg, return_state)
     chunk = pick_chunk(x.shape[1], cfg.ssm.chunk)
     kernel = use_kernel(cfg.use_pallas, x.device)
     if (not return_state and cfg.use_pallas != "never"
@@ -297,6 +305,45 @@ def _ssd(x, dt, A, Bm, Cm, cfg, return_state: bool = False):
                              Cm.contiguous(), chunk=chunk,
                              return_state=return_state)
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, return_state)
+
+
+def _ssd_placed(x, dt, A, Bm, Cm, cfg, return_state: bool):
+    """:func:`_ssd` of DTensors: a ``local_map`` that runs the scan (the
+    CUDA kernels on the card) on each rank's shard. The heads are
+    independent, so the layout is the "bhpn" rule's: the batch over the
+    data axes, the heads (with x, dt and A) over "model"; the sequence
+    whole. B and C shard with the heads where their G groups divide
+    over the same axes, else stay whole (G = 1: every head reads group
+    0). The gradients of A (batch-sharded work) and of whole B and C
+    (head-sharded work) leave each rank a partial sum; the rest is
+    exact on its shard."""
+    mesh = x.device_mesh
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    base = rule_placements((Bsz, H, P, N),
+                           installed_act_rules().get("bhpn", ()), mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    n_heads = 1
+    for name, p in zip(sizes, base):
+        if p == Shard(1):
+            n_heads *= sizes[name]
+    g_split = G % n_heads == 0 and G >= n_heads
+    if n_heads > 1 and G > 1 and not g_split:
+        raise ValueError(f"SSD on a mesh: {G} groups do not split over the "
+                         f"{n_heads} head shards")
+    head = relayout(base, {0: 0, 1: 2})
+    g_dims = {0: 0, 1: 2} if g_split else {0: 0}
+    groups = relayout(base, g_dims)
+    a_pl = relayout(base, {1: 0})
+    fn = local_map(
+        lambda *t: _ssd(*t, cfg, return_state),
+        out_placements=(head, base) if return_state else (head,),
+        in_placements=(head, head, a_pl, groups, groups),
+        in_grad_placements=(head, head, relayout(base, {1: 0}, True),
+                            relayout(base, g_dims, True),
+                            relayout(base, g_dims, True)),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, dt, A, Bm, Cm)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +381,7 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
     y = y + lp.D[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, d_in)
     y = rmsnorm(y * F.silu(z), lp.ssm_norm)
-    out = y @ lp.out_proj
+    out = grad_as_forward(y @ lp.out_proj)
     if return_state:
         return out, (xbc_raw[:, S - (s.d_conv - 1):], h_fin)
     return out
@@ -343,7 +390,8 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
 def hidden_states(params: Mamba2, cfg, x):
     """The layer stack, each layer under ``transformer.remat``."""
     def body(x, lp):
-        return x + mamba_block(norm(x, lp.norm, cfg), lp, cfg)
+        return shard_act(x + mamba_block(norm(x, lp.norm, cfg), lp, cfg),
+                         "btd")
 
     body = remat(body, cfg)
     for lp in params.layers:
@@ -356,7 +404,7 @@ def loss_fn(params: Mamba2, cfg, batch):
     cross-entropy of the final hidden states against the tied table."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     x = hidden_states(params, cfg, x)
     return chunked_xent(x, embed, shift_labels(tokens))
 
@@ -369,12 +417,12 @@ def prefill_step(params: Mamba2, cfg, batch,
     cache. ``batch["tokens"]`` [B, S] int."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     convs, hs = [], []
     for lp in params.layers:
         y, (conv, h) = mamba_block(norm(x, lp.norm, cfg), lp, cfg,
                                    return_state=True)
-        x = x + y
+        x = shard_act(x + y, "btd")
         convs.append(conv)
         hs.append(h)
     x = norm(x, params.final_norm, cfg)
@@ -405,6 +453,22 @@ def cache_spec(cfg, batch: int, max_len: int):  # noqa: ARG001
     }
 
 
+def _read_state(h, Cm):
+    """y[b, h, p] = Σ_n state[b, h, p, n]·C[b, h, n]. On DTensors a
+    ``local_map`` in the state's (batch, heads) layout: each rank reads
+    its heads of its sequences. (DTensor's own einsum flattens batch and
+    heads into one dimension, which a torch that refuses to flatten a
+    sharded inner dimension, as 2.11 does, cannot do.)"""
+    if not isinstance(h, DTensor):
+        return torch.einsum("bhpn,bhn->bhp", h, Cm)
+    pl = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+               for p in h.placements)
+    return local_map(lambda s, c: torch.einsum("bhpn,bhn->bhp", s, c),
+                     out_placements=(pl,), in_placements=(pl, pl),
+                     device_mesh=h.device_mesh,
+                     redistribute_inputs=True)(h, Cm)
+
+
 def mamba_step(xt, lp: MambaLayer, cfg, conv_state, h):
     """Single-token recurrence. xt: [B, D] → ([B, D], conv_state, h)."""
     s, d_in, H, d_xbc = _dims(cfg)
@@ -429,7 +493,7 @@ def mamba_step(xt, lp: MambaLayer, cfg, conv_state, h):
     A = -torch.exp(lp.A_log)
     decay = torch.exp(dtv * A[None])[..., None, None]          # [B,H,1,1]
     h = decay * h + (dtv[..., None] * xh)[..., None] * Bm[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", h, Cm)
+    y = _read_state(h, Cm)
     y = y + lp.D[None, :, None] * xh
     y = y.reshape(B, d_in).to(xt.dtype)
     y = rmsnorm(y * F.silu(z), lp.ssm_norm)

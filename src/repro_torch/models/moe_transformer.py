@@ -21,7 +21,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.moe.layer import MoEFFN, moe_ffn
 
 from .layers import (Attention, as_generator, attention, drawn_param,
-                     linear, project_qkv, torch_dtype)
+                     linear, project_qkv, shard_act, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels)
 from .sp_decode import seqpar_update_and_attend
@@ -84,7 +84,7 @@ def hidden_states(params: MoETransformer, cfg, x, positions,
                           window=cfg.sliding_window, return_kv=True)
         x = x + h
         h, m = moe_ffn(norm(x, lp.mlp_norm, cfg), lp.moe, cfg)
-        return x + h, m, kv
+        return shard_act(x + h, "btd"), m, kv
 
     body = remat(body, cfg)
     for lp in params.layers:
@@ -115,7 +115,7 @@ def loss_fn(params: MoETransformer, cfg, batch, with_metrics: bool = False):
     ``moe_max_load_frac``, ``moe_load`` [E])."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     B, S = tokens.shape
     positions = torch.arange(S, device=embed.device).expand(B, S)
     x, aux, z, rm = hidden_states(params, cfg, x, positions)
@@ -135,7 +135,7 @@ def prefill_step(params: MoETransformer, cfg, batch,
     ``batch["tokens"]`` [B, S] int."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
-    x = embed_tokens(embed, tokens, cfg.d_model)
+    x = shard_act(embed_tokens(embed, tokens, cfg.d_model), "btd")
     B, S = tokens.shape
     positions = torch.arange(S, device=embed.device).expand(B, S)
     x, _, _, _, (k, v) = hidden_states(params, cfg, x, positions,

@@ -35,7 +35,7 @@ from repro_torch.kernels.backend import resolve_device
 
 from .layers import (MLP, Attention, GeluMLP, as_generator, attention,
                      decode_attention, drawn_param, gelu_mlp, linear,
-                     project_qkv, swiglu_mlp, torch_dtype)
+                     project_qkv, shard_act, swiglu_mlp, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels, update_kv_cache,
                         zeros_from_spec)
@@ -166,7 +166,8 @@ def hidden_states(params: Transformer, cfg, x, positions,
                           window=cfg.sliding_window, window_flag=flag,
                           return_kv=True)
         x = x + h
-        return x + _mlp(norm(x, lp.mlp_norm, cfg), lp.mlp, cfg), kv
+        x = x + _mlp(norm(x, lp.mlp_norm, cfg), lp.mlp, cfg)
+        return shard_act(x, "btd"), kv
 
     body = remat(body, cfg)
     kvs = []
@@ -184,15 +185,15 @@ def hidden_states(params: Transformer, cfg, x, positions,
 def _embed_inputs(params: Transformer, cfg, batch):
     """(tokens, x [B, P + S, D], P): the embedded tokens, for the VLM
     after its P patches (``batch["patches"]`` [B, P, vision_dim]
-    projected by ``vision_proj``)."""
+    projected by ``vision_proj``), cut by the "btd" rule."""
     embed = params.embed
     tokens = torch.as_tensor(batch["tokens"], device=embed.device)
     x = embed_tokens(embed, tokens, cfg.d_model)
     if cfg.family != "vlm":
-        return tokens, x, 0
+        return tokens, shard_act(x, "btd"), 0
     patches = torch.as_tensor(batch["patches"], device=embed.device)
     vis = patches.to(x.dtype) @ params.vision_proj
-    return tokens, torch.cat([vis, x], dim=1), vis.shape[1]
+    return tokens, shard_act(torch.cat([vis, x], dim=1), "btd"), vis.shape[1]
 
 
 def _positions(x):

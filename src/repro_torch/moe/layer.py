@@ -6,13 +6,17 @@ is one group); every group routes its S·k slots against per-expert
 capacity (1+ε)·S·k/E. Dispatch and combine are gathers between the
 token rows and [B, E, C, D] expert buffers, through the slot→token
 inverse permutation; the expert products are plain batched products.
-The reference's ``shard_act`` cut points (expert parallelism over a
-mesh) are the identity on one device and are left out.
+The expert buffers are cut by the "becd" rule (``layers.shard_act``:
+experts over "model" on a mesh, the identity on one device).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.ref import _capacity_vector
 
@@ -62,14 +66,92 @@ def init_moe_params(key, cfg, dtype, device="cuda") -> MoEFFN:
     return MoEFFN(cfg, dtype, device, key=key)
 
 
+def _dispatch_rows(x, assign, slot, E: int, capacity: int):
+    """The slot→token inverse permutation and the dispatch gather of each
+    group: (buf [B, E, C, D], flat_idx [B, T, k] long)."""
+    B, T, D = x.shape
+    k = assign.shape[-1]
+    dev = x.device
+    flat_idx = torch.where(assign >= 0, assign * capacity + slot,
+                           E * capacity).long()              # [B, T, k]
+    tok_idx = torch.arange(T, dtype=torch.int32, device=dev)[None, :, None]
+    slot_token = torch.full((B, E * capacity + 1), T, dtype=torch.int32,
+                            device=dev)
+    slot_token.scatter_(1, flat_idx.reshape(B, T * k),
+                        tok_idx.expand(B, T, k).reshape(B, T * k))
+    slot_token = slot_token[:, : E * capacity].long()        # [B, E*C]
+    xp = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    rows = torch.arange(B, device=dev)[:, None]
+    return xp[rows, slot_token].reshape(B, E, capacity, D), flat_idx
+
+
+def _combine_rows(out, flat_idx, weights):
+    """Gather each group's expert outputs [B, E, C, D] back to its token
+    slots (the sentinel row for dropped ones) and sum them with the
+    combine weights → [B, T, D]."""
+    B, E, C, D = out.shape
+    T, k = flat_idx.shape[1], flat_idx.shape[2]
+    out_flat = torch.cat([out.reshape(B, E * C, D),
+                          out.new_zeros((B, 1, D))], dim=1)  # sentinel row
+    rows = torch.arange(B, device=out.device)[:, None]
+    gathered = out_flat[rows, flat_idx.reshape(B, T * k)].reshape(B, T, k, D)
+    return torch.sum(gathered * weights[..., None].to(out.dtype), dim=2)
+
+
+def _expert_ffn(buf, w1, w3, w2):
+    h = torch.einsum("becd,edf->becf", buf, w1)
+    g = torch.einsum("becd,edf->becf", buf, w3)
+    h = torch.nn.functional.silu(h) * g
+    return torch.einsum("becf,efd->becd", h, w2)
+
+
+def _experts(buf, w1, w3, w2):
+    """The gated expert MLPs on the buffers [B, E, C, D]. On DTensors a
+    ``local_map`` in the "becd" layout: each rank runs its groups on its
+    experts, whose weights it gathers whole over the data axes (the FSDP
+    all-gather; their gradients are partial sums there)."""
+    if not isinstance(buf, DTensor):
+        return _expert_ffn(buf, w1, w3, w2)
+    layers = _layers()
+    base = layers.rule_placements(
+        buf.shape, layers.installed_act_rules().get("becd", ()),
+        buf.device_mesh)
+    w, w_grad = layers.relayout(base, {1: 0}), layers.relayout(base, {1: 0},
+                                                                True)
+    return local_map(_expert_ffn, out_placements=(base,),
+                     in_placements=(base, w, w, w),
+                     in_grad_placements=(base, w_grad, w_grad, w_grad),
+                     device_mesh=buf.device_mesh,
+                     redistribute_inputs=True)(buf, w1, w3, w2)
+
+
+def _per_group(fn, n_out: int, x, *args, **kw):
+    """``fn(x, *args)`` (``n_out`` tensors) whose work is independent across the groups (the
+    leading dimension); on DTensors a ``local_map`` in which each rank
+    runs its groups whole: the groups keep the data shards ``x`` has on
+    its first dimension, every other dimension is whole (a group's
+    tokens index one another)."""
+    if not isinstance(x, DTensor):
+        return fn(x, *args, **kw)
+    pl = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    f = local_map(partial(fn, **kw), out_placements=(pl,) * n_out,
+                  in_placements=(pl,) * (1 + len(args)),
+                  in_grad_placements=(pl,) * (1 + len(args)),
+                  device_mesh=x.device_mesh, redistribute_inputs=True)
+    return f(x, *args)
+
+
 def moe_ffn(x: torch.Tensor, p: MoEFFN, cfg):
     """x: [B, S, D] → ([B, S, D], aux_metrics dict).
 
     The only scatter is of int32 indices (the slot→token inverse
     permutation, with the sentinel row E·C for dropped slots: only that
     column takes duplicate writes, and it is sliced off); token rows move
-    by gathers.
+    by gathers. On a mesh the dispatch and the combine run each group
+    whole on a rank (``_per_group``) and the expert buffers are cut by
+    the "becd" rule: experts over "model".
     """
+    shard_act = _layers().shard_act
     moe = cfg.moe
     B, S, D = x.shape
     E, k = moe.n_experts, moe.top_k
@@ -84,37 +166,21 @@ def moe_ffn(x: torch.Tensor, p: MoEFFN, cfg):
 
     r: RoutingResult = route(x, p.router, moe)               # leaves [B, ...]
 
-    # ---- inverse permutation: which token fills expert slot [e, c] ----
-    flat_idx = torch.where(r.assign >= 0, r.assign * capacity + r.slot,
-                           E * capacity).long()              # [B, T, k]
-    tok_idx = torch.arange(T, dtype=torch.int32, device=dev)[None, :, None]
-    slot_token = torch.full((B, E * capacity + 1), T, dtype=torch.int32,
-                            device=dev)
-    slot_token.scatter_(1, flat_idx.reshape(B, T * k),
-                        tok_idx.expand(B, T, k).reshape(B, T * k))
-    slot_token = slot_token[:, : E * capacity].long()        # [B, E*C]
-
     # ---- dispatch: gather token rows into expert buffers ----
-    xp = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    rows = torch.arange(B, device=dev)[:, None]
-    buf = xp[rows, slot_token].reshape(B, E, capacity, D)
+    buf, flat_idx = _per_group(_dispatch_rows, 2, x, r.assign, r.slot, E=E,
+                               capacity=capacity)
+    buf = shard_act(buf, "becd")
 
     # ---- expert compute ----
-    h = torch.einsum("becd,edf->becf", buf, p.w1)
-    g = torch.einsum("becd,edf->becf", buf, p.w3)
-    h = torch.nn.functional.silu(h) * g
-    out = torch.einsum("becf,efd->becd", h, p.w2)
+    out = shard_act(_experts(buf, p.w1, p.w3, p.w2), "becd")
 
     # ---- combine: gather expert outputs back to token slots ----
-    out_flat = torch.cat([out.reshape(B, E * capacity, D),
-                          out.new_zeros((B, 1, D))], dim=1)  # sentinel row
-    gathered = out_flat[rows, flat_idx.reshape(B, T * k)].reshape(B, T, k, D)
-    y = torch.sum(gathered * r.weights[..., None].to(out.dtype), dim=2)
+    y = _per_group(_combine_rows, 1, out, flat_idx, r.weights)
 
     if p.shared is not None:
         sp = p.shared
         hs = torch.nn.functional.silu(x @ sp["w1"]) * (x @ sp["w3"])
-        y = y + hs @ sp["w2"]
+        y = y + _layers().grad_as_forward(hs @ sp["w2"])
 
     metrics = {
         "aux_loss": torch.mean(r.aux_loss),

@@ -13,13 +13,16 @@ hand-written CUDA kernel for CUDA tensors, the plain ``ref_cg_dispatch``
 for CPU tensors, with the combine weights' gradient reaching the router
 as it does through the reference's jnp ``ref_cg_dispatch`` (which the
 reference calls once per group under ``vmap``, for its 512-device dry
-run).
+run). On DTensors the call goes through ``local_map`` (``_dispatch``).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.cg_dispatch import cg_dispatch_with_grad
 
@@ -89,6 +92,25 @@ def _aux_losses(logits: torch.Tensor, assign: torch.Tensor, n_experts: int):
     return aux, z
 
 
+def _dispatch(pref, gates, **kw):
+    """``cg_dispatch_with_grad``; on DTensors a ``local_map`` that runs it
+    (the CUDA kernel on the card) on each rank's groups. A group's
+    capacity counts all T of its tokens, so the token and preference
+    dimensions are made whole on every rank first (what GSPMD does with
+    an opaque custom call); the group dimensions keep their shards. The
+    gates' gradient is then exact on each rank."""
+    if not isinstance(gates, DTensor):
+        return cg_dispatch_with_grad(pref, gates, **kw)
+    lead = gates.dim() - 2
+    pl = tuple(p if isinstance(p, Shard) and p.dim < lead else Replicate()
+               for p in gates.placements)
+    fn = local_map(partial(cg_dispatch_with_grad, **kw),
+                   out_placements=(pl, pl, pl, pl),
+                   in_placements=(pl, pl), in_grad_placements=(pl, pl),
+                   device_mesh=gates.device_mesh, redistribute_inputs=True)
+    return fn(pref, gates)
+
+
 def route(x: torch.Tensor, router_w: torch.Tensor, moe, *,
           block: int | None = None) -> RoutingResult:
     """Route token groups. x: [G, T, D] (or one group [T, D]);
@@ -111,10 +133,10 @@ def route(x: torch.Tensor, router_w: torch.Tensor, moe, *,
     if block is None:
         block = min(128, T)
     if len(set(caps)) == 1:
-        assign, slot, weights, load = cg_dispatch_with_grad(
-            pref, gates, n_experts=E, k=k, capacity=caps[0], block=block)
+        kw = dict(capacity=caps[0])
     else:
-        assign, slot, weights, load = cg_dispatch_with_grad(
-            pref, gates, n_experts=E, k=k, capacities=caps, block=block)
+        kw = dict(capacities=caps)
+    assign, slot, weights, load = _dispatch(pref, gates, n_experts=E, k=k,
+                                            block=block, **kw)
     aux, z = _aux_losses(logits, assign, E)
     return RoutingResult(assign, slot, weights, load, aux, z)

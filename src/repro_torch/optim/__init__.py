@@ -1,2 +1,3 @@
 """Optimizers (port of ``repro.optim``)."""
-from .adamw import AdamWConfig, global_norm, init, schedule, update  # noqa: F401
+from .adamw import (AdamWConfig, global_norm, init, init_specs,  # noqa: F401
+                    schedule, update)

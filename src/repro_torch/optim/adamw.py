@@ -9,8 +9,13 @@ rewritten from the master — and within a leaf in flat slices of
 ``_SLICE`` elements, each with the reference's operations in the
 reference's order, so that no temporary is larger than a slice: one f32
 temporary of an expert leaf of qwen3-moe-235b-a22b (128 × 4,096 × 1,536)
-would be 3.2 GB. (The reference's ``init_specs`` belongs to the mesh
-tier, ROADMAP Queue 1 item 7.)
+would be 3.2 GB.
+
+On a mesh (``launch.steps.jit_train_step``) m, v and the master are laid
+out as their weights (``init_specs``: ZeRO-1 comes with the weights'
+2-D sharding) and the step counter replicates. ``update`` then takes
+DTensors: the global norm is summed over the ranks, and the update, which
+is elementwise, runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.layers import local
 
 _SLICE = 1 << 24        # elements of a leaf updated at a time
 
@@ -68,10 +76,22 @@ def init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def init_specs(param_specs: dict, scalar_spec) -> dict:
+    """The optimizer state's specs: m, v and the master mirror the
+    weights' (name → spec), the step counter takes ``scalar_spec``."""
+    return {"m": dict(param_specs), "v": dict(param_specs),
+            "master": dict(param_specs), "step": scalar_spec}
+
+
+def _norm(x) -> torch.Tensor:
+    n = torch.linalg.vector_norm(x, dtype=torch.float32)
+    return n.full_tensor() if isinstance(n, DTensor) else n
+
+
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ over leaves of Σ x²), in f32 (no f32 copy of a leaf)."""
-    total = sum(torch.linalg.vector_norm(x, dtype=torch.float32) ** 2
-                for x in _named(tree).values())
+    """√(Σ over leaves of Σ x²), in f32 (no f32 copy of a leaf); of
+    DTensor leaves, over every rank's shard."""
+    total = sum(_norm(x) ** 2 for x in _named(tree).values())
     return torch.sqrt(total)
 
 
@@ -80,22 +100,27 @@ def update(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step: (params, state, {"lr", "grad_norm"}). ``grads`` is
     a dict keyed by parameter name (any float dtype). The weights, m, v
     and the master are updated in place; the returned ``params`` and
-    ``state`` are the ones passed in (``state["step"]`` a new tensor)."""
+    ``state`` are the ones passed in (``state["step"]`` a new tensor).
+    DTensor weights, gradients and state must share their layouts: the
+    update runs on each rank's shards."""
     step = state["step"] + 1
-    lr = schedule(cfg, step)
+    lr = schedule(cfg, local(step))
     g_norm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(g_norm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
-    stepf = step.to(torch.float32)
+    stepf = local(step).to(torch.float32)
     c1 = 1.0 - torch.pow(torch.full_like(stepf, b1), stepf)
     c2 = 1.0 - torch.pow(torch.full_like(stepf, b2), stepf)
     for name, p in _named(params).items():
-        g = grads[name].reshape(-1)
-        m = state["m"][name].view(-1)
-        v = state["v"][name].view(-1)
-        mw = state["master"][name].view(-1)
-        out = p.view(-1)
+        g, m, v, mw, out = (local(t) for t in (
+            grads[name], state["m"][name], state["v"][name],
+            state["master"][name], p))
+        if any(t.shape != out.shape for t in (g, m, v, mw)):
+            raise ValueError(f"update: {name}'s gradient or state is laid "
+                             "out unlike the weight")
+        g, m, v, mw, out = (g.reshape(-1), m.view(-1), v.view(-1),
+                            mw.view(-1), out.view(-1))
         for s in range(0, g.numel(), _SLICE):
             sl = slice(s, s + _SLICE)
             gs = g[sl].to(torch.float32) * scale

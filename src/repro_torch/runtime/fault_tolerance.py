@@ -17,8 +17,10 @@
   planning round until the dead host owns nothing. Shards therefore
   land **capacity-proportionally** — a 3× host absorbs ~3× the shards —
   not round-robin. When the host pool changes durably, ``plan_remesh``
-  picks the largest (data × model) mesh that fits the survivors (the
-  mesh itself comes with the mesh tier, ROADMAP Queue 1 item 7).
+  picks the largest (data × model) mesh that fits the survivors: the
+  shape that ``launch.mesh.make_smoke_mesh`` builds a ``DeviceMesh`` of
+  over the surviving ranks, and that ``launch.sharding``'s rules place
+  the weights on.
 
 * **Failure detection** here is heartbeat-based (hosts report each
   step). ``on_failure`` is the single dead-marking path: heartbeat

@@ -133,7 +133,9 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.kernels.mesh",
                                     "repro_torch.serve.mesh",
                                     "repro_torch.models.encdec",
-                                    "repro_torch.configs.whisper_small"])
+                                    "repro_torch.configs.whisper_small",
+                                    "repro_torch.models.sp_decode",
+                                    "repro_torch.launch.dryrun"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -166,7 +168,8 @@ def test_ast_scan_finds_no_jax_or_repro_imports():
             "models/hybrid.py", "configs/mamba2_130m.py",
             "configs/zamba2_2_7b.py", "launch/mesh.py", "launch/sharding.py",
             "kernels/mesh.py", "serve/mesh.py", "models/encdec.py",
-            "configs/whisper_small.py"} <= names
+            "configs/whisper_small.py", "launch/steps.py",
+            "launch/dryrun.py"} <= names
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
@@ -386,7 +389,8 @@ _MODULES = ("repro_torch.convert", "repro_torch.checkpoint.checkpointer",
             "repro_torch.runtime.straggler", "repro_torch.launch.train",
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
             "repro_torch.kernels.mesh",
-            "repro_torch.serve.mesh", "repro_torch.models.encdec")
+            "repro_torch.serve.mesh", "repro_torch.models.encdec",
+            "repro_torch.models.sp_decode", "repro_torch.launch.dryrun")
 
 
 def _public_callables():
@@ -537,3 +541,25 @@ def test_chip_smoke_training_phase_rehearses_on_cpu():
                for r in out["runs"])
     ref_check = chip_smoke.train_reference_check(dev, 0)
     assert ref_check["loss_rel_err"] == 0.0
+
+
+def test_chip_smoke_model_mesh_phase_rehearses_on_cpu():
+    """``chip_smoke.py``'s phase 14 at the smoke size on the CPU, with
+    every check it makes on the card but the launches: (a), (b) the placed
+    train step on a one-rank mesh against the unplaced one (losses and
+    weights bit for bit), (c) the placed prefill and serve steps (every
+    logit and route bit for bit). (d)'s rank program, ``placed_vs_plain``,
+    runs on 4 gloo ranks in ``tests/test_torch_model_mesh.py``."""
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    import torch.distributed as dist
+    out = chip_smoke.model_mesh_phase(torch.device("cpu"), 0, "abc",
+                                      smoke=True, check_launches=False)
+    assert out["a"]["losses"] and out["b"]["losses"]
+    assert [r["routes"] for r in out["c"]] == [2 * 4, 0]
+    assert "d" not in out
+    assert not dist.is_initialized()

@@ -210,3 +210,39 @@ def fails_on(mesh, rank: int) -> float:
     if mesh.index == rank:
         raise ValueError(f"rank {rank} fails after the all-reduce")
     return total
+
+
+def seqpar_cases(mesh, cases) -> list:
+    """``sp_decode.seqpar_update_and_attend`` and ``seqpar_attend`` of each
+    case (host arrays q, k_cache, v_cache, k_new, v_new, pos, lo) on a
+    (2, 2) ("data", "model") mesh of the group's 4 ranks, the caches
+    sharded on batch over "data" and sequence over "model": the outputs
+    and the written caches, whole, as host arrays."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import sp_decode
+    from repro_torch.models.layers import act_sharding
+
+    dmesh = make_smoke_mesh((2, 2), device="cpu")
+    row, cache = (Shard(0), Replicate()), (Shard(0), Shard(1))
+    out = []
+    with act_sharding({"_mesh": dmesh}):
+        for c in cases:
+            q, kc, vc, kn, vn = (
+                distribute_tensor(torch.from_numpy(c[n]), dmesh, pl)
+                for n, pl in (("q", row), ("k", cache), ("v", cache),
+                              ("k_new", row), ("v_new", row)))
+            pos = torch.tensor(c["pos"], dtype=torch.int32)
+            lo = None if c["lo"] is None else torch.tensor(
+                c["lo"], dtype=torch.int32)
+            o, kc2, vc2 = sp_decode.seqpar_update_and_attend(
+                q, kc, vc, kn, vn, pos, lo=lo)
+            a = sp_decode.seqpar_attend(q, kc2, vc2, pos + 1)
+            out.append(dict(out=o.full_tensor().numpy(),
+                            k=kc.full_tensor().numpy(),
+                            v=vc.full_tensor().numpy(),
+                            attend=a.full_tensor().numpy(),
+                            placements=str(kc2.placements),
+                            written_in_place=kc2 is kc))
+    return out
