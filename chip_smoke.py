@@ -232,7 +232,13 @@ Phases:
      the collectives by kind: NCCL ranks on 4 cards; on one card gloo
      ranks, if gloo carries every collective DTensor issues for CUDA
      tensors (a probe in ranks of its own), else one line naming it;
- 15. prints the ``{"kernels": [...]}`` line and, last, the device line.
+ 15. the dry run (``launch/dryrun.py``) on fake CUDA tensors over a fake
+     process group, the kernels' custom ops in place of their launches:
+     (a) 14 (a)'s and (b)'s train steps on one fake rank, argument +
+     temp bytes within 10% of the real placed step's own peak (both
+     printed with their ratio); (b) ``lower_cell`` of gemma3-1b ×
+     train_4k on the (16, 16) mesh, its report line;
+ 16. prints the ``{"kernels": [...]}`` line and, last, the device line.
 
 Any mismatch, build failure or launch error exits non-zero. Imports
 nothing of the JAX package.
@@ -1477,8 +1483,9 @@ def check_ssd_bwd(dev) -> dict:
     ``ssd_chunked_bwd`` on the same CUDA tensors, within ``SSD_BWD_TOL``:
     the JAX SSD tests' grid (G 1, 2, 3) in f32 and bf16, chunk invariance
     Q ∈ {16, 32, 64, 128} (each also within 1e-4 of chunk 128), C ≡ 0
-    (dx, ddt, dA and dB exactly 0, dC not), and phase 9's three training
-    shapes in bf16. Returns the largest absolute and relative errors."""
+    (dx, ddt, dA and dB exactly 0, dC not), phase 9's three training
+    shapes in bf16 and mamba2's in f32 (x and dy unstaged). Returns the
+    largest absolute and relative errors."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd
     from repro_torch.models.mamba2 import ssd_chunked_bwd
@@ -1538,13 +1545,19 @@ def check_ssd_bwd(dev) -> dict:
         hold(f"{arch} train B={B} L={L} H={H} P={P} N={N} Q={Q} bfloat16",
              ssd_inputs(B, L, H, P, G, N, dev, bf16, seed=26 + i), Q,
              seed=36 + i)
+    # f32 at mamba2's full width: x and dy read from global memory
+    arch, B, L, H, P, G, N, Q = ssd_train_shapes()[2]
+    hold(f"{arch} train B={B} L={L} H={H} P={P} N={N} Q={Q} float32",
+         ssd_inputs(B, L, H, P, G, N, dev, torch.float32, seed=29), Q,
+         seed=39)
     return worst
 
 
 def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
-                 N: int, Q: int, plain: bool = True) -> dict:
+                 N: int, Q: int, plain: bool = True, dtype=None) -> dict:
     """ssd_scan_bwd at a training shape of phase 9, bf16 as the model runs
-    it: ``ms`` between CUDA events, ``device_ms`` the sum of the device
+    it (or ``dtype``: f32 runs the FMA kernel, held against the f32
+    rate): ``ms`` between CUDA events, ``device_ms`` the sum of the device
     times of every kernel the call launches (names holding "_bwd_"; each
     kernel's own in ``kernels_ms``), the plain ``ssd_chunked_bwd`` on the
     same inputs, and the CTAs an SM holds of the chunk body (the
@@ -1558,8 +1571,10 @@ def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
     import torch
     from repro_torch.models.mamba2 import ssd_chunked_bwd
     mod = importlib.import_module("repro_torch.kernels.ssd_scan")
-    inputs = ssd_inputs(B, L, H, P, G, N, dev, torch.bfloat16, seed=13)
+    dtype = dtype or torch.bfloat16
+    inputs = ssd_inputs(B, L, H, P, G, N, dev, dtype, seed=13)
     dy = ssd_cotangent(inputs[0], 14)
+    e = inputs[0].element_size()
 
     def run():
         return mod.ssd_scan_bwd(*inputs, dy, chunk=Q)
@@ -1570,28 +1585,31 @@ def time_ssd_bwd(dev, arch: str, B: int, L: int, H: int, P: int, G: int,
                        warmup=1) if plain else None
     resident = getattr(mod, "bwd_resident_ctas", None)
     plan = getattr(mod, "bwd_plan", None)
-    # x, dy, B, C in bf16 and dt, A in f32 read once; dx, dB, dC in bf16
-    # and ddt, dA in f32 written once
-    nbytes = (2 * 2 * B * L * H * P + 4 * B * L * H + 4 * H
-              + 2 * 2 * B * L * G * N + 2 * B * L * H * P + 4 * B * L * H
-              + 2 * 2 * B * L * G * N + 4 * H)
+    # x, dy, B, C in x's dtype and dt, A in f32 read once; dx, dB, dC in
+    # x's dtype and ddt, dA in f32 written once
+    nbytes = (2 * e * B * L * H * P + 4 * B * L * H + 4 * H
+              + 2 * e * B * L * G * N + e * B * L * H * P + 4 * B * L * H
+              + 2 * e * B * L * G * N + 4 * H)
     # per chunk and head, in multiply-adds: G = C·Bᵀ over N and D = dy·xᵀ
     # over P, then dx over P and dB, dC over N, each on the Q(Q+1)/2
     # entries of the causal triangle; five [P, N] products over Q (the
     # entering state, the three inter-chunk terms, dh); two operations each
     nc = L // Q
     ops = B * H * nc * (Q * (Q + 1) * (3 * N + 2 * P) + 10 * Q * P * N)
+    bf16 = dtype == torch.bfloat16
     return dict(shape=f"{arch} train B={B} L={L} H={H} P={P} G={G} N={N} "
-                f"Q={Q} bf16", ms=ms, device_ms=device_ms,
+                f"Q={Q} {'bf16' if bf16 else 'f32'}", ms=ms,
+                device_ms=device_ms,
                 kernels_ms={re.search(r"\w*_bwd_\w*(<\d+>)?", k)[0]: v
                             for k, v in each.items()},
                 plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                ops_per_s=BF16_TC_OPS_PER_S,
+                ops_per_s=BF16_TC_OPS_PER_S if bf16 else OPS_PER_S,
                 bound_f32_ms=max(nbytes / HBM_BYTES_PER_S,
                                  ops / OPS_PER_S) * 1e3,
-                ctas_per_sm=resident(P, N, Q) if resident else None,
+                ctas_per_sm=(resident(P, N, Q) if resident and bf16
+                             else None),
                 ctas_per_sm_planned=(plan(B, L, H, P, G, N, Q)[
-                    "ctas_per_sm"]["chunk"] if plan else None))
+                    "ctas_per_sm"]["chunk"] if plan and bf16 else None))
 
 
 def bound(t: dict) -> tuple[float, str]:
@@ -4395,16 +4413,16 @@ MESH_B = dict(arch="mamba2-130m", batch=8, seq=4096, steps=2)
 MESH_C = (dict(arch=MOE_ARCH, n_layers=1, batch=8, seq=1024, decode=16),
           dict(arch="gemma3-1b", n_layers=None, batch=8, seq=1024,
                decode=32))
-# (d): f32 on a 2x2 mesh. mamba2-130m's smoke config at B 2, so its
-# heads shard over "model" (at a batch of 4 it is pure data parallel):
-# at full width the f32 SSD backward's CTA would need 287,520 bytes of
-# shared memory (P 64, N 128, chunk 128), past the card's 232,448. The
-# MoE's smoke config, as its full width's training state (~60 GB in f32
-# for one layer) would not fit unplaced on rank 0's card beside its
-# shard.
+# (d): f32 on a 2x2 mesh. mamba2-130m at full width cut to 2 layers, at
+# B 2, so its heads shard over "model" (at a batch of 4 it is pure data
+# parallel); the f32 SSD backward takes its P 64, N 128, chunk 128 with
+# x and dy unstaged. The MoE's smoke config, as its full width's
+# training state (~60 GB in f32 for one layer) would not fit unplaced on
+# rank 0's card beside its shard.
 MESH_D = (dict(arch="gemma3-1b", full=True, n_layers=2, B=4, S=256,
                decode_steps=8),
-          dict(arch="mamba2-130m", B=2, S=256, decode_steps=8),
+          dict(arch="mamba2-130m", full=True, n_layers=2, B=2, S=256,
+               decode_steps=8),
           dict(arch=MOE_ARCH, B=4, S=256, decode_steps=8))
 
 
@@ -4752,7 +4770,12 @@ def placed_train(dev, seed: int, arch: str, *, batch: int, seq: int,
     counts zeroed just before each run and read just after. The losses
     and the weights after the steps must be equal bit for bit, and so
     the launches; the step ms of both (the first step of each includes
-    DTensor's first dispatch of every op) and their ratio."""
+    DTensor's first dispatch of every op) and their ratio. On the card,
+    the last placed step's own peak (``step_peak``): the most the
+    allocator held during it (``max_memory_allocated``, reset just
+    before), less what it held before the step beyond the step's inputs
+    (the weights, the AdamW state, the batch), for phase 15's fake
+    run to hold its memory against."""
     import gc
     import torch
     from repro_torch import configs, optim
@@ -4784,12 +4807,24 @@ def placed_train(dev, seed: int, arch: str, *, batch: int, seq: int,
             zero_counts()
             rows = []
             for i in range(steps):
+                if cuda and placed and i == steps - 1:
+                    from repro_torch.launch.step_trace import StepTrace
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    held = torch.cuda.memory_allocated(dev)
+                    inputs = StepTrace().resident(
+                        (list(model.parameters()), state, batch_in))
                 t0 = time.perf_counter()
                 model, state, m = step(model, state, batch_in)
                 if cuda:
                     torch.cuda.synchronize(dev)
                 rows.append(dict(loss=_item(m["loss"]),
                                  ms=(time.perf_counter() - t0) * 1e3))
+            if cuda and placed:
+                step_peak = dict(
+                    peak=torch.cuda.max_memory_allocated(dev),
+                    held_before=held, inputs=inputs,
+                    step=torch.cuda.max_memory_allocated(dev) - held
+                    + inputs)
             counts = read_counts()
         check_counts(name, counts, "ssd_scan" if cfg.family == "ssm"
                      else None, dev, check_launches)
@@ -4822,7 +4857,7 @@ def placed_train(dev, seed: int, arch: str, *, batch: int, seq: int,
     return dict(run=name, losses=losses, launches=launches,
                 step_ms=dict(plain=[r["ms"] for r in plain["rows"]],
                              placed=[r["ms"] for r in placed["rows"]]),
-                ratio=ms[1] / ms[0])
+                ratio=ms[1] / ms[0], step_peak=step_peak if cuda else None)
 
 
 def placed_serve(dev, seed: int, arch: str, *, n_layers: int | None,
@@ -5039,6 +5074,59 @@ def model_mesh_phase(dev, seed: int, cells: str = "abcd",
     return out
 
 
+# phase 15: the fake run's argument + temp bytes against the real placed
+# step's own peak
+DRYRUN_TOL = 0.10
+
+
+def dryrun_phase(dev, model_mesh: dict) -> dict:
+    """Phase 15, the dry run (``launch/dryrun.py``) on fake CUDA tensors,
+    the kernels' custom ops standing in for their launches: (a) phase 14
+    (a)'s gemma3-1b and (b)'s mamba2-130m train steps on a one-rank fake
+    mesh, whose argument + temp bytes must come within ``DRYRUN_TOL`` of
+    the real placed step's own peak (``placed_train``'s ``step_peak``);
+    (b) gemma3-1b × train_4k on the (16, 16) mesh of 256 fake ranks, its
+    report line. Each starts and destroys its fake group: no group may be
+    up (phase 14 destroyed its own)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    out = {}
+    for cell, spec in (("a", MESH_A), ("b", MESH_B)):
+        real = model_mesh[cell]["step_peak"]["step"]
+        t0 = time.perf_counter()
+        r = dryrun.lower_step(
+            configs.get_config(spec["arch"]),
+            ShapeSpec("phase 14", spec["seq"], spec["batch"], "train"),
+            (1, 1), ("data", "model"), device=dev.type)
+        mem = r["memory"]
+        fake = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        ratio = fake / real
+        log(f"  ({cell}) {spec['arch']} train {spec['batch']} x "
+            f"{spec['seq']} on a one-rank fake mesh: arguments "
+            f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB + temp "
+            f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB = "
+            f"{fake / 2**30:.3f} GiB against the real placed step's "
+            f"{real / 2**30:.3f} GiB (ratio {ratio:.4f}); flops "
+            f"{r['flops_per_device']:.4g}; {time.perf_counter() - t0:.1f} s")
+        if abs(ratio - 1.0) > DRYRUN_TOL:
+            fail(f"dry run ({cell}): the fake step's {fake} bytes are not "
+                 f"within {DRYRUN_TOL:.0%} of the real step's {real}")
+        out[cell] = dict(fake=fake, real=real, ratio=ratio,
+                         memory=mem, flops=r["flops_per_device"],
+                         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    r = dryrun.lower_cell("gemma3-1b", "train_4k", multi_pod=False,
+                          device=dev.type)
+    log(f"  [{'OK' if r['ok'] else 'FAIL'}] gemma3-1b × train_4k × 16x16: "
+        f"{dryrun.summary(r)}")
+    out["cell"] = {k: r[k] for k in ("ok", "device", "param_mode", "memory",
+                                     "flops_per_device", "bytes_per_device",
+                                     "collectives", "lower_s")}
+    out["cell_s"] = time.perf_counter() - t0
+    return out
+
+
 def sample(spec: dict, seed: int, n_messages: int, dev):
     from repro_torch.core import streams
     t0 = time.perf_counter()
@@ -5156,6 +5244,9 @@ def main() -> int:
     # the backward at phase 9's training shapes
     for name, shape in zip(BWD_ROWS, ssd_train_shapes()):
         timing[name] = time_ssd_bwd(dev, *shape)
+    # f32 at mamba2's full width (no row: no main path trains it)
+    timing["ssd_scan_bwd[mamba2 f32]"] = time_ssd_bwd(
+        dev, *ssd_train_shapes()[2], dtype=torch.float32)
     for name, t in timing.items():
         b, by = bound(t)
         extra = (f", {t['ranks_per_block']:.2f} ranks per block, "
@@ -5330,13 +5421,22 @@ def main() -> int:
         "make_train_step; (b) mamba2-130m at 8 x 4,096 the same way; (c) "
         "qwen3-moe-235b-a22b (1 layer) jit_prefill_step 8 x 1,024 + 16 "
         "jit_serve_step steps, then gemma3-1b + 32 steps, against the "
-        "unplaced steps; (d) gemma3-1b, mamba2-130m's and the MoE's smoke "
-        "configs in f32 on a 2x2 mesh")
+        "unplaced steps; (d) gemma3-1b and mamba2-130m at full width (2 "
+        "layers) and the MoE's smoke config in f32 on a 2x2 mesh")
     t14 = time.perf_counter()
     model_mesh = model_mesh_phase(dev, args.seed)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
-    # 15. report
+    # 15. the dry run on fake CUDA tensors
+    log("== dry run: launch/dryrun.py's lower_step on fake CUDA tensors "
+        "over a fake process group: phase 14 (a)'s and (b)'s train steps "
+        "on one fake rank against their real peaks, then lower_cell of "
+        "gemma3-1b × train_4k on the (16, 16) mesh")
+    t15 = time.perf_counter()
+    dry = dryrun_phase(dev, model_mesh)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    # 16. report
     launches = {k: sum(r["launches"][k] for r in runs + fig11)
                 for k in ("porc_snapshot", "porc_multisource_scan",
                           "porc_multisource_scan_hh", "porc_assign",
@@ -5438,7 +5538,7 @@ def main() -> int:
             chunked_attention=attn, ssm=ssm, ssm_reference=ssm_ref,
             train=train, ssd_bwd=bwd_err, ssm_train=ssm_train, feed=feed,
             mesh=mesh, dense=dense, encdec=encdec, model_mesh=model_mesh,
-            kernels=kernels),
+            dryrun=dry, kernels=kernels),
             indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

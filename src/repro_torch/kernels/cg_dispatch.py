@@ -4,7 +4,8 @@
 gradient.
 
 A CUDA tensor always goes to the kernel, which launches on the current
-stream; a CPU tensor goes to the plain torch version
+stream (through the op ``repro_torch::cg_dispatch``, whose fake stands
+in for it on fake tensors); a CPU tensor goes to the plain torch version
 ``ref.ref_cg_dispatch`` (the CPU has no kernel). The wrapper counts its
 kernel launches in ``cg_dispatch.launches``, a plain integer.
 
@@ -19,6 +20,8 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .build import I as _I, P as _P
@@ -102,10 +105,16 @@ def cg_dispatch(pref: torch.Tensor, gates: torch.Tensor, *, n_experts: int,
     ``capacities`` ([E]) must be given. T must be a multiple of
     ``block``, and T·k below 2^24 (the loads are exact counts).
 
+    On fake tensors (a dry run, ``launch.dryrun``: shapes and no data)
+    of either device the op ``repro_torch::cg_dispatch`` takes the call
+    and its fake gives the outputs: the plain version's block-by-block
+    loop has nothing to route, and at qwen3-moe's 94 layers × 8
+    micro-batches its ops would take hours.
+
     Returns (assign, slot [.., T, k] int32; weights [.., T, k] f32;
     load [.., E] f32).
     """
-    if not pref.is_cuda:
+    if not (pref.is_cuda or isinstance(pref, FakeTensor)):
         return ref_cg_dispatch(pref, gates, n_experts=n_experts, k=k,
                                capacity=capacity, capacities=capacities,
                                block=block)
@@ -130,14 +139,9 @@ def cg_dispatch(pref: torch.Tensor, gates: torch.Tensor, *, n_experts: int,
     wts = torch.empty((G, T, k), dtype=torch.float32, device=dev)
     load = torch.empty((G, E), dtype=torch.float32, device=dev)
     if G * T:
-        err = _lib().cg_dispatch_launch(
-            pref.data_ptr(), gates.data_ptr(), caps.data_ptr(),
-            assign.data_ptr(), slot.data_ptr(), wts.data_ptr(),
-            load.data_ptr(), G, T, D, E, k, block, stages,
-            int(name == "cta"), nbytes,
-            torch.cuda.current_stream(dev).cuda_stream)
-        raise_on(err, "cg_dispatch")
-        cg_dispatch.launches += 1
+        torch.ops.repro_torch.cg_dispatch(
+            pref, gates, caps, assign, slot, wts, load, E, k, block, stages,
+            name == "cta", nbytes)
     else:
         load.zero_()
     if squeeze:
@@ -146,6 +150,46 @@ def cg_dispatch(pref: torch.Tensor, gates: torch.Tensor, *, n_experts: int,
 
 
 cg_dispatch.launches = 0
+
+
+# the launch as an op of its own, so a fake run (fake tensors have no data
+# pointer) takes its fake in its place (``launch.dryrun``); defined on the
+# dispatcher directly, with no Python autograd layer on the launch path
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("cg_dispatch(Tensor pref, Tensor gates, Tensor caps, "
+            "Tensor(a!) assign, Tensor(b!) slot, Tensor(c!) wts, "
+            "Tensor(d!) load, int n_experts, int k, int block, int stages, "
+            "bool cta, int nbytes) -> ()")
+
+
+def _cg_dispatch_op(pref, gates, caps, assign, slot, wts, load, n_experts,
+                    k, block, stages, cta, nbytes):
+    """The kernel's launch into the outputs ``cg_dispatch`` allocated."""
+    G, T, D = pref.shape
+    err = _lib().cg_dispatch_launch(
+        pref.data_ptr(), gates.data_ptr(), caps.data_ptr(),
+        assign.data_ptr(), slot.data_ptr(), wts.data_ptr(), load.data_ptr(),
+        G, T, D, n_experts, k, block, stages, int(cta), nbytes,
+        torch.cuda.current_stream(pref.device).cuda_stream)
+    raise_on(err, "cg_dispatch")
+    cg_dispatch.launches += 1
+
+
+_OPS.impl("cg_dispatch", _cg_dispatch_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::cg_dispatch", lib=_OPS)
+def _(pref, gates, caps, assign, slot, wts, load, n_experts, k, block,
+      stages, cta, nbytes):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.cg_dispatch)
+def _(pref, gates, caps, assign, slot, wts, load, n_experts, k, block,
+      stages, cta, nbytes, **_):
+    # integer bids and a normalisation: no products, which is all that
+    # torch's flop counter counts (of the plain version too)
+    return 0
 
 
 def dispatch_gates_grad(pref: torch.Tensor, gates: torch.Tensor,

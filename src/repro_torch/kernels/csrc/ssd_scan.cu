@@ -782,7 +782,9 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
 //     to an f32 scratch [B, H, L/Q, P, N] (the state kept in shared
 //     memory, as the f32 forward keeps it);
 //   pass 2 walks them in reverse with dh [P, N] in shared memory. Per
-//     chunk x, dy, B and C are staged, and the Q x Q products G = C.B^T
+//     chunk B and C are staged, and x and dy too where they fit
+//     (BwdLayout::staged; else read from global memory through L1),
+//     and the Q x Q products G = C.B^T
 //     and D = dy.x^T are built kBT rows or columns at a time, twice: a
 //     column sweep (kBT columns j, rows i >= j) gives dx and dB of those
 //     columns and m_j = sum_i E G D, a row sweep (kBT rows i, columns
@@ -1923,11 +1925,15 @@ constexpr int kWarps = kThreads / kWarp;
 // regions of `rs` floats, the chunk's vectors, the block sum's per-warp
 // slots, then x, dy [Q][P+1] and B, C [Q][N+1]. A tile region holds a
 // column tile [Q][kBT+1] or a row tile [kBT][Q+1], or [kBT][max(P, N)+1]
-// of a sweep's side product.
+// of a sweep's side product. Where all of it outgrows a CTA's 227 KB
+// (mamba2: P 64, N 128, chunk 128 would take 287,520 bytes), x and dy
+// are not staged (`staged` false): the products read them from global
+// memory, through L1, where they stay for the chunk's sweeps.
 struct BwdLayout {
   size_t dh, r1, r2, r3, vec, red, nf;  // the f32 work space
   size_t x, dy, b, c, nt;               // the chunk's inputs
   size_t rs, bytes;
+  bool staged;
   __host__ __device__ BwdLayout(int Q, int P, int N) {
     const size_t sp = P + 1, sn = N + 1;
     const int most = Q > N ? (Q > P ? Q : P) : (N > P ? N : P);
@@ -1941,9 +1947,10 @@ struct BwdLayout {
     vec = r3 + rs;
     red = vec + static_cast<size_t>(kBwdVecs) * Q;
     nf = red + kWarps;
+    staged = 4 * (nf + 2 * Q * (sp + sn)) <= kMaxSmem;
     x = 0;
-    dy = x + Q * sp;
-    b = dy + Q * sp;
+    dy = x + (staged ? Q * sp : 0);
+    b = dy + (staged ? Q * sp : 0);
     c = b + Q * sn;
     nt = c + Q * sn;
     bytes = 4 * (nf + nt);
@@ -1980,11 +1987,15 @@ __global__ void __launch_bounds__(kThreads)
   float* rv = uv + Q;        // r_i = C_i . (dy_i h0)
   float* dsv = rv + Q;       // ds, then dda
   float* red = f + lay.red;  // the block sum's per-warp slots
-  float* sx = f + lay.nf + lay.x;
-  float* sdy = f + lay.nf + lay.dy;
+  float* stage_x = f + lay.nf + lay.x;
+  float* stage_dy = f + lay.nf + lay.dy;
   float* sb = f + lay.nf + lay.b;
   float* sc = f + lay.nf + lay.c;
   const int sp = P + 1, sn = N + 1;
+  // chunk c's x and dy, row j at [j * xst]: staged, or in global memory
+  const float* sx = stage_x;
+  const float* sdy = stage_dy;
+  const int xst = lay.staged ? sp : H * P;
 
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int bh = blockIdx.x;
@@ -2000,11 +2011,16 @@ __global__ void __launch_bounds__(kThreads)
   const auto load = [&](int c, bool all) {
     const size_t row0 =
         static_cast<size_t>(b) * L + static_cast<size_t>(c) * Q;
-    for (int i = tid; i < Q * P; i += kThreads) {
-      const int j = i / P, p = i % P;
-      const size_t at = ((row0 + j) * H + hd) * P + p;
-      sx[j * sp + p] = x[at];
-      if (all) sdy[j * sp + p] = dy[at];
+    if (lay.staged) {
+      for (int i = tid; i < Q * P; i += kThreads) {
+        const int j = i / P, p = i % P;
+        const size_t at = ((row0 + j) * H + hd) * P + p;
+        stage_x[j * sp + p] = x[at];
+        if (all) stage_dy[j * sp + p] = dy[at];
+      }
+    } else {
+      sx = x + (row0 * H + hd) * P;
+      sdy = dy + (row0 * H + hd) * P;
     }
     for (int i = tid; i < Q * N; i += kThreads) {
       const int j = i / N, n = i % N;
@@ -2037,7 +2053,7 @@ __global__ void __launch_bounds__(kThreads)
     const float decay = expf(s[Q - 1]);
     tile_products<4, 4>(
         P, N, Q,
-        [&](int p, int j) { return (sx[j * sp + p]) * coef[j]; },
+        [&](int p, int j) { return (sx[j * xst + p]) * coef[j]; },
         [&](int j, int n) { return (sb[j * sn + n]); }, 0, none, none,
         [&](int p, int n, float v, float) {
           dh[p * sn + n] = decay * dh[p * sn + n] + v;
@@ -2065,8 +2081,8 @@ __global__ void __launch_bounds__(kThreads)
           rows, cols, N,
           [&](int ii, int n) { return (sc[(j0 + ii) * sn + n]); },
           [&](int n, int jj) { return (sb[(j0 + jj) * sn + n]); }, P,
-          [&](int ii, int p) { return (sdy[(j0 + ii) * sp + p]); },
-          [&](int p, int jj) { return (sx[(j0 + jj) * sp + p]); },
+          [&](int ii, int p) { return (sdy[(j0 + ii) * xst + p]); },
+          [&](int p, int jj) { return (sx[(j0 + jj) * xst + p]); },
           [&](int ii, int jj, float gij, float dij) {
             float w = 0.0f, v = 0.0f, m = 0.0f;
             if (jj <= ii) {
@@ -2091,7 +2107,7 @@ __global__ void __launch_bounds__(kThreads)
       // dx_j = sum_i W_ij dy_i + coef_j (B_j dh^T)
       tile_products<2, 4>(
           cols, P, rows, [&](int jj, int ii) { return r1[ii * tw + jj]; },
-          [&](int ii, int p) { return (sdy[(j0 + ii) * sp + p]); }, N,
+          [&](int ii, int p) { return (sdy[(j0 + ii) * xst + p]); }, N,
           [&](int jj, int n) { return (sb[(j0 + jj) * sn + n]); },
           [&](int n, int p) { return dh[p * sn + n]; },
           [&](int jj, int p, float intra, float bd) {
@@ -2104,7 +2120,7 @@ __global__ void __launch_bounds__(kThreads)
       tile_products<2, 4>(
           cols, N, rows, [&](int jj, int ii) { return r2[ii * tw + jj]; },
           [&](int ii, int n) { return (sc[(j0 + ii) * sn + n]); }, P,
-          [&](int jj, int p) { return (sx[(j0 + jj) * sp + p]); },
+          [&](int jj, int p) { return (sx[(j0 + jj) * xst + p]); },
           [&](int p, int n) { return dh[p * sn + n]; },
           [&](int jj, int n, float intra, float xd) {
             const int j = j0 + jj;
@@ -2114,7 +2130,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = warp; jj < cols; jj += kWarps) {
         float acc = 0.0f;
         for (int p = lane; p < P; p += kWarp)
-          acc += (sx[(j0 + jj) * sp + p]) * r3[jj * sp + p];
+          acc += (sx[(j0 + jj) * xst + p]) * r3[jj * sp + p];
         acc = warp_sum(acc);
         if (lane == 0) uv[j0 + jj] = ex[j0 + jj] * acc;
       }
@@ -2130,8 +2146,8 @@ __global__ void __launch_bounds__(kThreads)
           rows, cols, N,
           [&](int ii, int n) { return (sc[(i0 + ii) * sn + n]); },
           [&](int n, int j) { return (sb[j * sn + n]); }, P,
-          [&](int ii, int p) { return (sdy[(i0 + ii) * sp + p]); },
-          [&](int p, int j) { return (sx[j * sp + p]); },
+          [&](int ii, int p) { return (sdy[(i0 + ii) * xst + p]); },
+          [&](int p, int j) { return (sx[j * xst + p]); },
           [&](int ii, int j, float gij, float dij) {
             float v = 0.0f, t = 0.0f;
             if (j <= i0 + ii) {
@@ -2153,7 +2169,7 @@ __global__ void __launch_bounds__(kThreads)
       tile_products<2, 4>(
           rows, N, cols, [&](int ii, int j) { return r1[ii * tq + j]; },
           [&](int j, int n) { return (sb[j * sn + n]); }, P,
-          [&](int ii, int p) { return (sdy[(i0 + ii) * sp + p]); },
+          [&](int ii, int p) { return (sdy[(i0 + ii) * xst + p]); },
           [&](int p, int n) { return h0[p * N + n]; },
           [&](int ii, int n, float intra, float dhv) {
             const int i = i0 + ii;
@@ -2204,7 +2220,7 @@ __global__ void __launch_bounds__(kThreads)
     // dh <- e^{s_Q} dh + sum_i e^{s_i} dy_i (x) C_i
     const float decay = expf(s_last);
     tile_products<4, 4>(
-        P, N, Q, [&](int p, int i) { return es[i] * (sdy[i * sp + p]); },
+        P, N, Q, [&](int p, int i) { return es[i] * (sdy[i * xst + p]); },
         [&](int i, int n) { return (sc[i * sn + n]); }, 0, none, none,
         [&](int p, int n, float v, float) {
           dh[p * sn + n] = decay * dh[p * sn + n] + v;

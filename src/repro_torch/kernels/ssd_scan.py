@@ -23,6 +23,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .build import I as _I, P as _P
@@ -147,26 +148,77 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check(A, "A", torch.float32, (H,), dev)
     check(Bm, "Bm", x.dtype, (Bsz, L, G, N), dev)
     check(Cm, "Cm", x.dtype, (Bsz, L, G, N), dev)
-    # the bf16 kernel copies rows 16 bytes at a time
-    x, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
-                 for t in (x, Bm, Cm))
     y = torch.empty_like(x)
     h = (torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
          if return_state else None)
     if Bsz * H * L:
-        err = _lib().ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), 0 if h is None else h.data_ptr(),
-            Bsz, L, H, P, G, N, Q, _DTYPES[x.dtype], smem,
-            torch.cuda.current_stream(dev).cuda_stream)
-        raise_on(err, "ssd_scan")
-        ssd_scan.launches += 1
+        torch.ops.repro_torch.ssd_scan(x, dt, A, Bm, Cm, y, h, Q, smem)
     elif h is not None:
         h.zero_()
     return (y, h) if return_state else y
 
 
 ssd_scan.launches = 0
+
+
+# each launch as an op of its own, so a fake run (fake tensors have no
+# data pointer) takes its fake in its place (``launch.dryrun``); defined
+# on the dispatcher directly, with no Python autograd layer on the launch
+# path
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+            "Tensor(a!) y, Tensor(b!)? h, int chunk, int smem) -> ()")
+_OPS.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, "
+            "Tensor Cm, Tensor dy, Tensor(a!) dx, Tensor(b!) ddt, "
+            "Tensor(c!) dA, Tensor(d!) dBm, Tensor(e!) dCm, "
+            "Tensor(f!)[] scratch, int chunk, int tile, int[] smem) -> ()")
+
+
+def _ssd_scan_op(x, dt, A, Bm, Cm, y, h, chunk, smem):
+    """The forward kernel's launch into ``y`` (and ``h``), the buffers
+    ``ssd_scan`` allocated."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    # the bf16 kernel copies rows 16 bytes at a time
+    x, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, Bm, Cm))
+    err = _lib().ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), y.data_ptr(), 0 if h is None else h.data_ptr(),
+        Bsz, L, H, P, G, N, chunk, _DTYPES[x.dtype], smem,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on(err, "ssd_scan")
+    ssd_scan.launches += 1
+
+
+_OPS.impl("ssd_scan", _ssd_scan_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan", lib=_OPS)
+def _(x, dt, A, Bm, Cm, y, h, chunk, smem):
+    return None
+
+
+def _ssd_flops(x_shape, N: int, chunk: int, backward: bool = False) -> int:
+    """The products of the plain scan ``models.mamba2.ssd_chunked``, or of
+    its explicit backward ``ssd_chunked_bwd``, as torch's flop counter
+    counts them there (2 flops a multiply-add, each [Q, Q] product
+    whole). Per chunk and head, the forward: C·B^T [Q, Q] over N, its
+    decay-weighted product with x over P, the entering state read (C·h)
+    and the state update, each [Q] × P × N. The backward: three [Q, Q]
+    products over N (C·B^T, dB, dC), two over P (dy·x^T, dx) and five
+    [Q] × P × N (the state and cotangent increments, x·dh, B·dh,
+    dy·h0)."""
+    Bsz, L, H, P = x_shape
+    Q = chunk
+    if backward:
+        return 2 * Bsz * L * H * (3 * Q * N + 2 * Q * P + 5 * P * N)
+    return 2 * Bsz * L * H * (Q * N + Q * P + 2 * P * N)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x, dt, A, Bm, Cm, y, h, chunk, smem, **_):
+    return _ssd_flops(x, Bm[3], chunk)
 
 
 # the f32 backward's tiles: rows or columns of a Q x Q product built at
@@ -253,13 +305,18 @@ def bwd_smem_bytes(P: int, N: int, Q: int, dtype=torch.bfloat16) -> int:
     launcher refuses another sum): in f32, dh [P, N+1], three tile
     regions each holding a column tile [Q, 33], a row tile [32, Q+1] or
     a side product [32, max(P, N)+1], ten [Q] vectors and eight slots,
-    then x and dy [Q, P+1] and B and C [Q, N+1], all f32; in bf16 the
-    largest of the tensor-core kernels' (``bwd_plan``)."""
+    then x and dy [Q, P+1] and B and C [Q, N+1], all f32; where that
+    outgrows a CTA's 227 KB, x and dy are read from global memory and
+    not staged (``BwdLayout::staged``: mamba2's P 64, N 128, chunk 128).
+    In bf16 the largest of the tensor-core kernels' (``bwd_plan``)."""
     if dtype != torch.float32:
         return max(_bwd_tc_smem(P, N, Q).values())
     rs = max(Q * (_BT + 1), _BT * (max(Q, N, P) + 1))
     floats = P * (N + 1) + 3 * rs + _BWD_VECS * Q + _BWD_WARPS
-    return 4 * floats + 4 * (2 * Q * (P + 1) + 2 * Q * (N + 1))
+    staged = 4 * floats + 4 * (2 * Q * (P + 1) + 2 * Q * (N + 1))
+    if staged <= _SMEM_LIMIT:
+        return staged
+    return 4 * floats + 4 * 2 * Q * (N + 1)
 
 
 def _bwd_fits(P: int, N: int, Q: int, dtype) -> int:
@@ -303,7 +360,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     version. Its own refusals (``ValueError``): x f32 or bf16, B, C and
     dy in x's dtype, L a multiple of ``chunk``, H of G; in bf16 the sizes
     of ``tc_takes``, as the forward; in f32 ``bwd_smem_bytes`` within a
-    CTA's 227 KB (mamba2's P 64, N 128 and chunk 128 does not fit).
+    CTA's 227 KB (x and dy left unstaged where they do not fit).
     Scratch, all f32: in bf16 one buffer (``bwd_plan``'s ``scratch``):
     the states and their cotangents [B, H, L/Q, P, N], the tiles' Vbar
     [B, L/Q, G, tiles, Q, Q], the tiles' dB, dC [tiles, B, L, G, N] when
@@ -343,44 +400,75 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         for t in (dx, ddt, dA, dBm, dCm):
             t.zero_()
         return dx, ddt, dA, dBm, dCm
-    stream = torch.cuda.current_stream(dev).cuda_stream
     nc = L // Q
     if x.dtype == torch.bfloat16:
         plan = bwd_plan(Bsz, L, H, P, G, N, Q)
-        # the kernels copy rows 16 bytes at a time
-        x, Bm, Cm, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (x, Bm, Cm, dy))
-        floats = sum(plan["scratch"].values()) // 4
-        if _lib().ssd_scan_bwd_scratch_floats(
-                Bsz, L, H, P, G, N, Q, plan["tile"]) != floats:
-            raise ValueError("ssd_scan_bwd: the plan's scratch differs from "
-                             "the launcher's")
-        scratch = torch.empty(floats, **f32)
-        smem = plan["smem"]
-        err = _lib().ssd_scan_bwd_tc_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
-            scratch.data_ptr(), Bsz, L, H, P, G, N, Q, plan["tile"],
-            smem["increments"], smem["chunk"], smem["group"], stream)
+        scratch = [torch.empty(sum(plan["scratch"].values()) // 4, **f32)]
+        tile = plan["tile"]
+        smem = [plan["smem"][k] for k in ("increments", "chunk", "group")]
     else:
-        dB_part = torch.empty((Bsz, L, H, N), **f32)
-        dC_part = torch.empty((Bsz, L, H, N), **f32)
-        dA_part = torch.empty((Bsz, H), **f32)
-        states = torch.empty((Bsz, H, nc, P, N), **f32)
-        err = _lib().ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
-            dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr(),
-            states.data_ptr(), Bsz, L, H, P, G, N, Q, _DTYPES[x.dtype], smem,
-            stream)
-    raise_on(err, "ssd_scan_bwd")
-    ssd_scan_bwd.launches += 1
+        # dB, dC a head [B, L, H, N], dA a (b, h), the entering states
+        scratch = [torch.empty((Bsz, L, H, N), **f32),
+                   torch.empty((Bsz, L, H, N), **f32),
+                   torch.empty((Bsz, H), **f32),
+                   torch.empty((Bsz, H, nc, P, N), **f32)]
+        tile, smem = 0, [smem]
+    torch.ops.repro_torch.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm,
+                                       dCm, scratch, Q, tile, smem)
     return dx, ddt, dA, dBm, dCm
 
 
 ssd_scan_bwd.launches = 0
+
+
+def _ssd_scan_bwd_op(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm, scratch,
+                     chunk, tile, smem):
+    """The backward kernels' launch into the gradients and the scratch
+    that ``ssd_scan_bwd`` allocated (bf16: ``bwd_plan``'s one buffer and
+    ``tile``; f32: the per-head dB, dC and dA and the entering states),
+    an op of its own as ``repro_torch::ssd_scan`` is."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = chunk
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        # the kernels copy rows 16 bytes at a time
+        x, Bm, Cm, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (x, Bm, Cm, dy))
+        if _lib().ssd_scan_bwd_scratch_floats(
+                Bsz, L, H, P, G, N, Q, tile) != scratch[0].numel():
+            raise ValueError("ssd_scan_bwd: the plan's scratch differs from "
+                             "the launcher's")
+        err = _lib().ssd_scan_bwd_tc_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
+            scratch[0].data_ptr(), Bsz, L, H, P, G, N, Q, tile, *smem,
+            stream)
+    else:
+        err = _lib().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            dBm.data_ptr(), dCm.data_ptr(), dA.data_ptr(),
+            *(t.data_ptr() for t in scratch), Bsz, L, H, P, G, N, Q,
+            _DTYPES[x.dtype], smem[0], stream)
+    raise_on(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+
+
+_OPS.impl("ssd_scan_bwd", _ssd_scan_bwd_op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_bwd", lib=_OPS)
+def _(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm, scratch, chunk, tile,
+      smem):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dBm, dCm, scratch, chunk, tile,
+      smem, **_):
+    return _ssd_flops(x, Bm[3], chunk, backward=True)
 
 
 class _SSDScan(torch.autograd.Function):

@@ -200,7 +200,7 @@ def mesh_shape(mesh) -> dict:
     """Axis name → size of a ``DeviceMesh`` or a ``ShapeMesh``, in the
     mesh's order."""
     if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(mesh.shape)
 
 

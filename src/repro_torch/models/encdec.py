@@ -30,7 +30,7 @@ from repro_torch.kernels.backend import resolve_device
 
 from .layers import (Attention, GeluMLP, as_generator, attention,
                      drawn_param, gelu_mlp, linear, project_qkv, shard_act,
-                     torch_dtype)
+                     split_last, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels, zeros_from_spec)
 from .sp_decode import seqpar_attend, seqpar_update_and_attend
@@ -117,12 +117,9 @@ def _cross_kv(memory, p, cfg):
     """The cross-attention's k, v [B, S_enc, KV, Dh] of the encoder's
     ``memory`` through ``p`` (a layer's ``cross_attn``): no norm, no
     RoPE."""
-    B, Sm, _ = memory.shape
     KV, Dh = cfg.n_kv_heads, cfg.d_head
-    return (linear(memory, p.wk, getattr(p, "bk", None)).reshape(
-                B, Sm, KV, Dh),
-            linear(memory, p.wv, getattr(p, "bv", None)).reshape(
-                B, Sm, KV, Dh))
+    return (split_last(linear(memory, p.wk, getattr(p, "bk", None)), KV, Dh),
+            split_last(linear(memory, p.wv, getattr(p, "bv", None)), KV, Dh))
 
 
 def _decoder(params: EncDec, cfg, x, memory, collect_kv: bool = False):
@@ -247,9 +244,9 @@ def decode_step(params: EncDec, cfg, cache, tokens):
         x = x + linear(out.reshape(B, 1, -1), lp.self_attn.wo,
                        getattr(lp.self_attn, "bo", None))
         p = lp.cross_attn
-        q = linear(norm(x, lp.cross_norm, cfg), p.wq,
-                   getattr(p, "bq", None)).reshape(B, 1, cfg.n_heads,
-                                                    cfg.d_head)
+        q = split_last(linear(norm(x, lp.cross_norm, cfg), p.wq,
+                              getattr(p, "bq", None)), cfg.n_heads,
+                       cfg.d_head)
         out = seqpar_attend(q, ck, cv, enc_len)
         x = x + linear(out.reshape(B, 1, -1), p.wo, getattr(p, "bo", None))
         x = x + gelu_mlp(norm(x, lp.mlp_norm, cfg), lp.mlp)

@@ -26,7 +26,7 @@ from torch import nn
 from repro_torch.kernels.backend import resolve_device
 
 from .layers import (MLP, Attention, apply_rope, as_generator, attention,
-                     drawn_param, linear, shard_act, swiglu_mlp,
+                     drawn_param, linear, shard_act, split_last, swiglu_mlp,
                      torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pad_cache_seq, shift_labels)
@@ -200,9 +200,9 @@ def decode_step(params: Hybrid, cfg, cache, tokens):
             nconv.append(cs)
             nh.append(hst)
         xa = norm(x[:, None], shared.attn_norm, cfg)
-        q = linear(xa, a.wq).reshape(B, 1, H, Dh)
-        k = linear(xa, a.wk).reshape(B, 1, KV, Dh)
-        v = linear(xa, a.wv).reshape(B, 1, KV, Dh)
+        q = split_last(linear(xa, a.wq), H, Dh)
+        k = split_last(linear(xa, a.wk), KV, Dh)
+        v = split_last(linear(xa, a.wv), KV, Dh)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         out, _, _ = seqpar_update_and_attend(q, kc, vc, k, v, pos)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 from functools import partial
 
+import numpy as np
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -88,6 +89,45 @@ def rule_placements(shape, spec, mesh) -> tuple:
     it; an axis of one device replicates (``sharding.to_placements``)."""
     return to_placements(
         spec_if_divisible(shape, mesh, tuple(spec)[:len(shape)]), mesh)
+
+
+def even_placements(placements, shape, mesh) -> tuple:
+    """``placements`` with every ``Shard(d)`` replaced by ``Replicate()``
+    where the mesh dimensions that cut dimension d do not divide it. A
+    ``local_map`` reads the global shape from rank 0's shard, so it may
+    shard only what divides evenly, as ``rule_placements`` does."""
+    cuts: dict[int, int] = {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            cuts[p.dim] = cuts.get(p.dim, 1) * mesh.size(i)
+    return tuple(Replicate() if isinstance(p, Shard) and (
+        shape[p.dim] % cuts[p.dim] or shape[p.dim] < cuts[p.dim]) else p
+        for p in placements)
+
+
+def split_last(y: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``y`` [..., prod(dims)] reshaped to [..., *dims] (heads × head
+    width). A DTensor cut on its last dimension by more shards than
+    divide ``dims[0]`` is gathered there first, so the reshape splits
+    whole heads: the reference's GSPMD also splits a head's width over
+    the devices, DTensor splits only whole leading blocks."""
+    if isinstance(y, DTensor):
+        last = y.dim() - 1
+        pl = tuple(y.placements)
+        even = even_placements(pl, (*y.shape[:-1], dims[0]), y.device_mesh)
+        even = tuple(e if p == Shard(last) else p for p, e in zip(pl, even))
+        if even != pl:
+            y = y.redistribute(y.device_mesh, even)
+    return y.reshape(*y.shape[:-1], *dims)
+
+
+def merge_last(y: torch.Tensor) -> torch.Tensor:
+    """``y`` [..., H, Dh] as [..., H·Dh] (the heads merged), whose
+    gradient is laid out as the merged output is (``grad_as_forward``):
+    the output projection's backward gives it back cut over "model" on
+    H·Dh, which the reshape's backward cannot split into heads that the
+    shards do not divide."""
+    return grad_as_forward(y.reshape(*y.shape[:-2], -1))
 
 
 def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -309,8 +349,12 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, rep, dim=2)
 
 
-def _scale(d_head: int) -> torch.Tensor:
-    return 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=torch.float32))
+def _scale(d_head: int) -> float:
+    """1/√d_head in f32 (each step rounded as the reference's f32 ops
+    round it), as a Python float: the f32 scores it multiplies take it
+    exactly, and no tensor is made here (a run under fake tensors
+    converts every tensor it makes)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d_head)))
 
 
 def _window(window: int | None, window_flag) -> int | None:
@@ -510,13 +554,38 @@ def decode_attention(q, k_cache, v_cache, valid_len,
 # Projections / MLP
 # ---------------------------------------------------------------------------
 
+def fsdp(w, x):
+    """The weight ``w`` gathered over the mesh dimensions that cut the
+    batch (the first dimension) of the activation ``x`` it multiplies:
+    FSDP's all-gather of a weight before its product (its gradient comes
+    back reduce-scattered). GSPMD picks that plan by the cost of the
+    whole program; DTensor picks each product's alone and, where a
+    weight's shard and the batch's share an axis, may gather the batch
+    instead: the whole activation on every device. Anything else as it
+    is."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)):
+        return w
+    pl = tuple(Replicate() if isinstance(q, Shard) and p == Shard(0) else q
+               for q, p in zip(w.placements, x.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(
+        w.device_mesh, pl)
+
+
+def matmul(x, w):
+    """``x @ w`` with the weight gathered first as :func:`fsdp` says.
+    Every product with a weight goes through this or :func:`linear`
+    (which also folds x's leading dims into one mm)."""
+    return x @ fsdp(w, x)
+
+
 def linear(x, w, b=None):
     """x [..., D] @ w [D, F] (+ b), the leading dims folded into one mm
     explicitly: ``torch.matmul`` folds a 3-D x only where its strides
     allow a view, and a DTensor's may not (then it broadcasts into a bmm,
     whose sums round otherwise), so a placed step on one rank would not
     reproduce the unplaced one's bits."""
-    y = (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+    y = (x.reshape(-1, x.shape[-1]) @ fsdp(w, x)).reshape(*x.shape[:-1],
+                                                          w.shape[-1])
     if b is not None:
         y = y + b
     return grad_as_forward(y)
@@ -525,9 +594,9 @@ def linear(x, w, b=None):
 def swiglu_mlp(x, p):
     """LLaMA-style gated MLP: w1 (gate), w3 (up), w2 (down); ``p`` an
     :class:`MLP`."""
-    h = torch.nn.functional.silu(x @ p.w1) * (x @ p.w3)
+    h = torch.nn.functional.silu(matmul(x, p.w1)) * matmul(x, p.w3)
     h = shard_act(h, "btf")
-    return grad_as_forward(h @ p.w2)
+    return grad_as_forward(matmul(h, p.w2))
 
 
 def gelu_mlp(x, p):
@@ -622,11 +691,10 @@ def project_qkv(x, p, cfg, positions):
     """q [B, S, H, Dh] and k, v [B, S, KV, Dh] of ``x`` [B, S, D] through
     ``p`` (an :class:`Attention`, biases where it has them), q and k
     roped at ``positions``."""
-    B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(x, p.wq, getattr(p, "bq", None)).reshape(B, S, H, Dh)
-    k = linear(x, p.wk, getattr(p, "bk", None)).reshape(B, S, KV, Dh)
-    v = linear(x, p.wv, getattr(p, "bv", None)).reshape(B, S, KV, Dh)
+    q = split_last(linear(x, p.wq, getattr(p, "bq", None)), H, Dh)
+    k = split_last(linear(x, p.wk, getattr(p, "bk", None)), KV, Dh)
+    v = split_last(linear(x, p.wv, getattr(p, "bv", None)), KV, Dh)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -672,8 +740,9 @@ def _on_heads(core, q, k, v):
     if not isinstance(q, DTensor):
         return core(q, k, v)
     mesh = q.device_mesh
-    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-               for p in q.placements)
+    pl = even_placements(tuple(
+        p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+        for p in q.placements), q.shape, mesh)
     n_heads = 1
     for i, p in enumerate(pl):
         if p == Shard(2):
@@ -697,12 +766,12 @@ def attention(x, p, cfg, *, positions, causal=True, window=None,
     "attn_out" (:func:`attn_out`). Returns output [B, S, D] (or
     (out, (k, v))).
     """
-    B, S, _ = x.shape
+    S = x.shape[1]
     if kv_override is None:
         q, k, v = project_qkv(x, p, cfg, positions)
     else:
-        q = linear(x, p.wq, getattr(p, "bq", None)).reshape(
-            B, S, cfg.n_heads, cfg.d_head)
+        q = split_last(linear(x, p.wq, getattr(p, "bq", None)),
+                       cfg.n_heads, cfg.d_head)
         k, v = kv_override
     q = shard_act(q, "bshd")
     k = shard_act(k, "bskd")
@@ -715,7 +784,7 @@ def attention(x, p, cfg, *, positions, causal=True, window=None,
     else:
         core = partial(dense_attention, causal=causal, window=window,
                        window_flag=window_flag)
-    out = attn_out(_on_heads(core, q, k, v).reshape(B, S, -1))
+    out = attn_out(merge_last(_on_heads(core, q, k, v)))
     out = linear(out, p.wo, getattr(p, "bo", None))
     if return_kv:
         return out, (k, v)

@@ -10,8 +10,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (layernorm, local, rmsnorm, shard_act, whole_middle,
-                     zeros_param)
+from .layers import (fsdp, layernorm, local, rmsnorm, shard_act,
+                     whole_middle, zeros_param)
 
 
 class Norm(nn.Module):
@@ -102,10 +102,36 @@ def _xent_chunk(xc: torch.Tensor, embed: torch.Tensor, lc: torch.Tensor):
     logits = torch.einsum("bcd,vd->bcv", xc.to(torch.float32),
                           embed.to(torch.float32))
     logits = shard_act(logits, "bcv")
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     tgt = _target_logit(logits, torch.clamp(lc, min=0).long())
+    if isinstance(tgt, DTensor):
+        tgt = tgt.redistribute(tgt.device_mesh, tuple(
+            Replicate() if isinstance(p, Partial) else p
+            for p in tgt.placements))
     valid = (lc >= 0).to(torch.float32)
     return torch.sum((lse - tgt) * valid), torch.sum(valid)
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over the last dimension. Of a DTensor cut there (the
+    "bcv" rule's vocabulary) as the reference's GSPMD reduces it: a max
+    and a sum, each over the shards, instead of gathering the logits
+    (DTensor's own ``logsumexp`` gathers them). The max is a constant of
+    the gradient, which is exact."""
+    v = logits.dim() - 1
+    if not (isinstance(logits, DTensor) and Shard(v) in logits.placements):
+        return torch.logsumexp(logits, dim=-1)
+    mesh = logits.device_mesh
+    rows = tuple(Replicate() if p == Shard(v) else p
+                 for p in logits.placements)
+    # each reduction made whole on the ranks of its shards, the rows kept
+    # as they are: DTensor would otherwise choose another row layout,
+    # against which the backward gathers the logits
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True).redistribute(
+        mesh, rows)
+    m = torch.where(torch.isinf(m), 0.0, m)
+    s = torch.sum(torch.exp(logits - m), dim=-1).redistribute(mesh, rows)
+    return torch.log(s) + m[..., 0]
 
 
 def _target_logit(logits, idx):
@@ -156,6 +182,9 @@ def chunked_xent(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor,
     n = S // chunk
     grad = torch.is_grad_enabled()
     embed = shard_act(embed, "vd")   # pins d_embed accumulation sharding
+    # gathered over the batch's axes once for every chunk's product, where
+    # ``matmul`` in ``_xent_chunk`` would gather it again for each chunk
+    embed = fsdp(embed, x)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):

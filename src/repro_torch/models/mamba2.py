@@ -34,10 +34,12 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import resolve_device, use_kernel
+from repro_torch.launch.mesh import mesh_shape
 
-from .layers import (_param, as_generator, drawn_param, grad_as_forward,
-                     installed_act_rules, relayout, rmsnorm,
-                     rule_placements, shard_act, torch_dtype)
+from .layers import (_param, as_generator, drawn_param, even_placements,
+                     grad_as_forward, installed_act_rules, matmul,
+                     merge_last, relayout, rmsnorm, rule_placements,
+                     shard_act, split_last, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
                         pick_chunk, shift_labels)
 from .transformer import remat
@@ -322,7 +324,7 @@ def _ssd_placed(x, dt, A, Bm, Cm, cfg, return_state: bool):
     G, N = Bm.shape[2], Bm.shape[3]
     base = rule_placements((Bsz, H, P, N),
                            installed_act_rules().get("bhpn", ()), mesh)
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    sizes = mesh_shape(mesh)
     n_heads = 1
     for name, p in zip(sizes, base):
         if p == Shard(1):
@@ -360,7 +362,7 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
     s, d_in, H, d_xbc = _dims(cfg)
     B, S, D = x.shape
     GN = s.n_groups * s.d_state
-    zxbcdt = x @ lp.in_proj
+    zxbcdt = matmul(x, lp.in_proj)
     z, xbc_raw, dt = torch.split(zxbcdt, [d_in, d_xbc, H], dim=-1)
     # causal depthwise conv over xbc, window d_conv, in the model's dtype
     pads = xbc_raw.new_zeros((B, s.d_conv - 1, d_xbc))
@@ -369,9 +371,9 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
               for i in range(s.d_conv)) + lp.conv_b
     xbc = F.silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [d_in, GN, GN], dim=-1)
-    xh = xs.reshape(B, S, H, s.head_dim)
-    Bm = Bm.reshape(B, S, s.n_groups, s.d_state)
-    Cm = Cm.reshape(B, S, s.n_groups, s.d_state)
+    xh = split_last(xs, H, s.head_dim)
+    Bm = split_last(Bm, s.n_groups, s.d_state)
+    Cm = split_last(Cm, s.n_groups, s.d_state)
     dtv = _softplus(dt.to(torch.float32) + lp.dt_bias)
     A = -torch.exp(lp.A_log)
     if return_state:
@@ -379,9 +381,9 @@ def mamba_block(x, lp: MambaLayer, cfg, return_state: bool = False):
     else:
         y = _ssd(xh, dtv, A, Bm, Cm, cfg)
     y = y + lp.D[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(B, S, d_in)
+    y = merge_last(y)
     y = rmsnorm(y * F.silu(z), lp.ssm_norm)
-    out = grad_as_forward(y @ lp.out_proj)
+    out = grad_as_forward(matmul(y, lp.out_proj))
     if return_state:
         return out, (xbc_raw[:, S - (s.d_conv - 1):], h_fin)
     return out
@@ -461,8 +463,8 @@ def _read_state(h, Cm):
     sharded inner dimension, as 2.11 does, cannot do.)"""
     if not isinstance(h, DTensor):
         return torch.einsum("bhpn,bhn->bhp", h, Cm)
-    pl = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
-               for p in h.placements)
+    pl = even_placements(tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+                               for p in h.placements), h.shape, h.device_mesh)
     return local_map(lambda s, c: torch.einsum("bhpn,bhn->bhp", s, c),
                      out_placements=(pl,), in_placements=(pl, pl),
                      device_mesh=h.device_mesh,
@@ -472,10 +474,9 @@ def _read_state(h, Cm):
 def mamba_step(xt, lp: MambaLayer, cfg, conv_state, h):
     """Single-token recurrence. xt: [B, D] → ([B, D], conv_state, h)."""
     s, d_in, H, d_xbc = _dims(cfg)
-    B = xt.shape[0]
     GN = s.n_groups * s.d_state
     f32 = torch.float32
-    zxbcdt = xt @ lp.in_proj
+    zxbcdt = matmul(xt, lp.in_proj)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_xbc, H], dim=-1)
     win = torch.cat([conv_state, xbc[:, None]], dim=1)         # [B, dc, C]
     xbc = torch.einsum("bdc,dc->bc", win.to(f32),
@@ -484,10 +485,10 @@ def mamba_step(xt, lp: MambaLayer, cfg, conv_state, h):
     conv_state = win[:, 1:]
     xs, Bm, Cm = torch.split(xbc, [d_in, GN, GN], dim=-1)
     rep = H // s.n_groups
-    xh = xs.reshape(B, H, s.head_dim).to(f32)
-    Bm = torch.repeat_interleave(Bm.reshape(B, s.n_groups, s.d_state), rep,
+    xh = split_last(xs, H, s.head_dim).to(f32)
+    Bm = torch.repeat_interleave(split_last(Bm, s.n_groups, s.d_state), rep,
                                  dim=1).to(f32)
-    Cm = torch.repeat_interleave(Cm.reshape(B, s.n_groups, s.d_state), rep,
+    Cm = torch.repeat_interleave(split_last(Cm, s.n_groups, s.d_state), rep,
                                  dim=1).to(f32)
     dtv = _softplus(dt.to(f32) + lp.dt_bias)                   # [B, H]
     A = -torch.exp(lp.A_log)
@@ -495,9 +496,9 @@ def mamba_step(xt, lp: MambaLayer, cfg, conv_state, h):
     h = decay * h + (dtv[..., None] * xh)[..., None] * Bm[:, :, None, :]
     y = _read_state(h, Cm)
     y = y + lp.D[None, :, None] * xh
-    y = y.reshape(B, d_in).to(xt.dtype)
+    y = merge_last(y).to(xt.dtype)
     y = rmsnorm(y * F.silu(z), lp.ssm_norm)
-    return y @ lp.out_proj, conv_state, h
+    return matmul(y, lp.out_proj), conv_state, h
 
 
 @torch.no_grad()

@@ -29,7 +29,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.mesh import data_axes, mesh_shape
 
 from .layers import (_NEG, _expand_kv, _scale, decode_attention,
                      installed_act_rules)
@@ -51,7 +51,7 @@ def _seqpar_layout(mesh, dp, k_cache):
     reads on its own."""
     if mesh is None or not isinstance(k_cache, DTensor):
         return None
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    sizes = mesh_shape(mesh)
     n_model = sizes["model"]
     B, S = k_cache.shape[0], k_cache.shape[1]
     if (n_model == 1 or S % n_model != 0 or S < n_model * 2
@@ -105,28 +105,33 @@ def _local_scores(q, kc, start, valid):
 
 
 def seqpar_update_and_attend(q, k_cache, v_cache, k_new, v_new, pos,
-                             lo=None):
+                             lo=None, valid_len=None):
     """Fused cache write + decode attention, sequence-parallel over
     "model" where the branch runs (module docstring).
 
     q: [B, 1, H, Dh]; caches: [B, S, KV, Dh], written in place (one
     layer's view of a stacked cache); k_new/v_new: [B, 1, KV, Dh];
     pos: int or 0-dim int tensor; lo: optional window lower bound of the
-    same kinds (entries below it masked: sliding-window decode).
+    same kinds (entries below it masked: sliding-window decode);
+    valid_len: entries at position ≥ it are masked (default ``pos + 1``;
+    a ring buffer's is its filled length).
     Returns (out [B, 1, H, Dh], k_cache, v_cache).
     """
     mesh, dp = _mesh_and_dp()
     layout = _seqpar_layout(mesh, dp, k_cache)
+    if valid_len is None:
+        valid_len = pos + 1
     if layout is None:
         kc, vc = update_kv_cache(k_cache, v_cache, k_new, v_new, pos)
-        return decode_attention(q, kc, vc, pos + 1, lo_idx=lo), kc, vc
+        return decode_attention(q, kc, vc, valid_len, lo_idx=lo), kc, vc
     cache_pl, row = layout
     rep = (Replicate(),) * mesh.ndim
     group = mesh.get_group("model")
     pos = torch.as_tensor(pos, device=k_cache.device)
     lo = torch.as_tensor(0 if lo is None else lo, device=k_cache.device)
+    valid_len = torch.as_tensor(valid_len, device=k_cache.device)
 
-    def local_fn(q, kc, vc, kn, vn, pos, lo):
+    def local_fn(q, kc, vc, kn, vn, pos, lo, valid_len):
         S_loc = kc.shape[1]
         start = mesh.get_local_rank("model") * S_loc
         li = torch.clamp(pos - start, 0, S_loc - 1).long().reshape(1)
@@ -134,14 +139,16 @@ def seqpar_update_and_attend(q, k_cache, v_cache, k_new, v_new, pos,
         for c, n in ((kc, kn), (vc, vn)):
             old = c.index_select(1, li)
             c.index_copy_(1, li, torch.where(in_rng, n.to(c.dtype), old))
-        s = _local_scores(q, kc, start, lambda i: (i < pos + 1) & (i >= lo))
+        s = _local_scores(q, kc, start,
+                          lambda i: (i < valid_len) & (i >= lo))
         return _combine(s, vc, group).to(q.dtype)
 
     fn = local_map(local_fn, out_placements=(row,),
                    in_placements=(row, cache_pl, cache_pl, row, row, rep,
-                                  rep),
+                                  rep, rep),
                    device_mesh=mesh, redistribute_inputs=True)
-    return fn(q, k_cache, v_cache, k_new, v_new, pos, lo), k_cache, v_cache
+    return (fn(q, k_cache, v_cache, k_new, v_new, pos, lo, valid_len),
+            k_cache, v_cache)
 
 
 def seqpar_attend(q, k_cache, v_cache, valid_len):

@@ -34,11 +34,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.backend import resolve_device
 
 from .layers import (MLP, Attention, GeluMLP, as_generator, attention,
-                     decode_attention, drawn_param, gelu_mlp, linear,
-                     project_qkv, shard_act, swiglu_mlp, torch_dtype)
+                     drawn_param, gelu_mlp, linear, matmul, project_qkv,
+                     shard_act, swiglu_mlp, torch_dtype)
 from .lm_common import (Norm, chunked_xent, embed_tokens, last_logits, norm,
-                        pad_cache_seq, shift_labels, update_kv_cache,
-                        zeros_from_spec)
+                        pad_cache_seq, shift_labels, zeros_from_spec)
 from .sp_decode import seqpar_update_and_attend
 
 
@@ -192,7 +191,7 @@ def _embed_inputs(params: Transformer, cfg, batch):
     if cfg.family != "vlm":
         return tokens, shard_act(x, "btd"), 0
     patches = torch.as_tensor(batch["patches"], device=embed.device)
-    vis = patches.to(x.dtype) @ params.vision_proj
+    vis = matmul(patches.to(x.dtype), params.vision_proj)
     return tokens, shard_act(torch.cat([vis, x], dim=1), "btd"), vis.shape[1]
 
 
@@ -347,8 +346,9 @@ def decode_step_longctx(params: Transformer, cfg, cache, tokens):
             i_loc += 1
 
             def attend(q, k, v, kc=kc, vc=vc):
-                update_kv_cache(kc, vc, k, v, pos % W)
-                return decode_attention(q, kc, vc, torch.clamp(pos + 1, max=W))
+                return seqpar_update_and_attend(
+                    q, kc, vc, k, v, pos % W,
+                    valid_len=torch.clamp(pos + 1, max=W))[0]
         x = _decode_layer(x, lp, cfg, positions, attend)
     x = norm(x, params.final_norm, cfg)
     return last_logits(x[:, 0], params.embed), {**cache, "pos": pos + 1}

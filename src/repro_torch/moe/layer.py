@@ -133,7 +133,9 @@ def _per_group(fn, n_out: int, x, *args, **kw):
     tokens index one another)."""
     if not isinstance(x, DTensor):
         return fn(x, *args, **kw)
-    pl = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    pl = _layers().even_placements(tuple(
+        p if p == Shard(0) else Replicate() for p in x.placements),
+        x.shape, x.device_mesh)
     f = local_map(partial(fn, **kw), out_placements=(pl,) * n_out,
                   in_placements=(pl,) * (1 + len(args)),
                   in_grad_placements=(pl,) * (1 + len(args)),
@@ -179,8 +181,9 @@ def moe_ffn(x: torch.Tensor, p: MoEFFN, cfg):
 
     if p.shared is not None:
         sp = p.shared
-        hs = torch.nn.functional.silu(x @ sp["w1"]) * (x @ sp["w3"])
-        y = y + _layers().grad_as_forward(hs @ sp["w2"])
+        mm = _layers().matmul
+        hs = torch.nn.functional.silu(mm(x, sp["w1"])) * mm(x, sp["w3"])
+        y = y + _layers().grad_as_forward(mm(hs, sp["w2"]))
 
     metrics = {
         "aux_loss": torch.mean(r.aux_loss),

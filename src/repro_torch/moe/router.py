@@ -25,6 +25,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.cg_dispatch import cg_dispatch_with_grad
+from repro_torch.models.layers import even_placements
 
 
 class RoutingResult(NamedTuple):
@@ -102,8 +103,9 @@ def _dispatch(pref, gates, **kw):
     if not isinstance(gates, DTensor):
         return cg_dispatch_with_grad(pref, gates, **kw)
     lead = gates.dim() - 2
-    pl = tuple(p if isinstance(p, Shard) and p.dim < lead else Replicate()
-               for p in gates.placements)
+    pl = even_placements(tuple(
+        p if isinstance(p, Shard) and p.dim < lead else Replicate()
+        for p in gates.placements), gates.shape, gates.device_mesh)
     fn = local_map(partial(cg_dispatch_with_grad, **kw),
                    out_placements=(pl, pl, pl, pl),
                    in_placements=(pl, pl), in_grad_placements=(pl, pl),

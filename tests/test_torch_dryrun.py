@@ -3,7 +3,8 @@
 meshes, its parameter counts against the reference's, one cell's bytes
 against a hand reckoning, and the CLI in a process that cannot import
 JAX. The reference's own dry run compiles 512-device programs and is
-not run here."""
+not run here; the port's run of each cell's step on fake tensors is
+held at the smoke size in ``tests/test_torch_lower.py``."""
 import os
 import subprocess
 import sys
@@ -76,8 +77,11 @@ def test_serve_mode_follows_the_budget():
 
 def test_cli_runs_without_jax(tmp_path):
     """``python -m repro_torch.launch.dryrun --arch gemma3-1b --shape
-    train_4k`` exits 0 where importing JAX fails, and ``--all`` writes a
-    report of every cell."""
+    train_4k --place-only`` exits 0 where importing JAX fails, and
+    ``--all --place-only`` writes a report of every cell. Both check the
+    placement alone: the default runs each cell's step on the production
+    meshes, over a minute a train cell on the CPU
+    (``tests/test_torch_lower.py`` runs the step at the smoke size)."""
     fake = tmp_path / "jax"
     fake.mkdir()
     (fake / "__init__.py").write_text("raise ImportError('no jax here')\n")
@@ -85,10 +89,11 @@ def test_cli_runs_without_jax(tmp_path):
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "gemma3-1b", "--shape", "train_4k"],
+         "gemma3-1b", "--shape", "train_4k", "--place-only"],
         capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
     assert "2/2 cells OK" in proc.stdout
     out = tmp_path / "report.json"
-    assert dryrun.main(["--all", "--single-pod-only", "--out", str(out)]) == 0
+    assert dryrun.main(["--all", "--single-pod-only", "--place-only",
+                        "--out", str(out)]) == 0
     assert out.exists()

@@ -135,7 +135,8 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.models.encdec",
                                     "repro_torch.configs.whisper_small",
                                     "repro_torch.models.sp_decode",
-                                    "repro_torch.launch.dryrun"])
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.step_trace"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
@@ -143,6 +144,33 @@ def test_module_imports_first_in_a_fresh_interpreter(module):
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": str(SRC)})
     assert proc.returncode == 0, proc.stderr
+
+
+_OPS = """
+import sys
+import torch
+from repro_torch.launch import dryrun, step_trace
+from repro_torch.kernels import cg_dispatch, ssd_scan
+for name in ("cg_dispatch", "ssd_scan", "ssd_scan_bwd"):
+    op = getattr(torch.ops.repro_torch, name)
+    assert op.default._schema.returns == [], name
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_dry_run_and_kernel_ops_import_without_jax():
+    """The dry run's modules and the kernels' three custom ops
+    (``repro_torch::cg_dispatch``, ``ssd_scan``, ``ssd_scan_bwd``: each a
+    launch into its caller's buffers, returning nothing) load in a fresh
+    interpreter that imports no JAX."""
+    proc = subprocess.run([sys.executable, "-c", _OPS], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def _imports(path: Path):

@@ -1031,16 +1031,30 @@ def test_ssd_with_grad_launches_both_kernels(dev):
 
 
 def test_ssd_with_grad_refuses_an_oversized_backward_up_front(dev):
-    """f32 at mamba2's P 64, N 128 and chunk 128 does not fit the
-    backward's CTA: ``ssd_scan_with_grad`` raises before its forward
-    launches."""
+    """f32 at P 64, N 256 and chunk 64 fits the forward's CTA but not the
+    backward's, even with x and dy unstaged: ``ssd_scan_with_grad``
+    raises before its forward launches."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_with_grad
     big = [t.requires_grad_(True)
-           for t in ssd_inputs(1, 128, 1, 64, 1, 128, dev)]
+           for t in ssd_inputs(1, 128, 1, 64, 1, 256, dev)]
     before = ssd_scan.launches
     with pytest.raises(ValueError, match="shared memory"):
-        ssd_scan_with_grad(*big, chunk=128)
+        ssd_scan_with_grad(*big, chunk=64)
     assert ssd_scan.launches == before
+
+
+def test_ssd_bwd_f32_at_mamba2s_full_width(dev):
+    """f32 at mamba2's P 64, N 128 and chunk 128 (x and dy read from
+    global memory, not staged: 220,960 bytes of shared memory a CTA)
+    against ``ssd_chunked_bwd``, at its training shape (batch 2), and
+    the same bits from a second launch."""
+    inputs = ssd_inputs(2, 4096, 24, 64, 1, 128, dev, torch.float32,
+                        seed=24)
+    got, want = ssd_bwd_both(inputs, 128, seed=2)
+    again, _ = ssd_bwd_both(inputs, 128, seed=2)
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert relerr(w, g) < SSD_BWD_F32 and torch.equal(g, a)
 
 
 def test_ssd_bwd_wrapper_checks_its_inputs(dev):
@@ -1054,7 +1068,7 @@ def test_ssd_bwd_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError):
         ssd_scan_bwd(x.half(), dt, A, Bm.half(), Cm.half(), dy.half(),
                      chunk=32)
-    # f32 at mamba2's P 64, N 128 and chunk 128: over 227 KB
-    big = ssd_inputs(1, 128, 1, 64, 1, 128, dev)
+    # f32 at P 64, N 256 and chunk 64: over 227 KB, x and dy unstaged
+    big = ssd_inputs(1, 128, 1, 64, 1, 256, dev)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd_scan_bwd(*big, torch.randn_like(big[0]), chunk=128)
+        ssd_scan_bwd(*big, torch.randn_like(big[0]), chunk=64)

@@ -36,8 +36,11 @@ import numpy as np
 import pytest
 
 import torch_mesh_ranks as R
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (enter_mesh, make_smoke_mesh, run_all,
                                      spawn_ranks)
+from repro_torch.launch.step_trace import collective_kind
 from repro_torch.models.layers import act_sharding
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -187,6 +190,41 @@ def test_kernel_calls_redistribute_their_inputs(spawned):
     assert len(hybrid) == 4 and all(sum(c.values()) == 0 for c in hybrid)
     ssm = kc["mamba2-130m"]["train"]["ssd_scan"]
     assert len(ssm) == 2 and all(sum(c.values()) == 0 for c in ssm)
+
+
+MOVING_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+
+
+@pytest.mark.parametrize("arch,kind", [("gemma3-1b", "train"),
+                                       ("qwen3-moe-235b-a22b", "train"),
+                                       ("gemma3-1b", "decode")])
+def test_fake_run_issues_the_gloo_runs_collectives(spawned, arch, kind):
+    """The dry run's step on fake tensors over a fake (2, 2) group
+    (``launch.dryrun.lower_step``) issues the collectives that the same
+    placed step issued on the 4 gloo ranks of the spawn, kind by kind
+    and count by count (``CommDebugMode`` there; the scatters and
+    broadcasts that place the inputs left out, and the gathers of the
+    spawn's route recorder, which brings each route's ``assign``,
+    ``slot`` and ``load`` to the host): the train step on the family
+    run's batch, and its second decode step (cache of ``S +
+    decode_steps`` = 36 positions, batch 2)."""
+    cfg = cs.family_config(arch)
+    spec = (ShapeSpec("spawn", 32, 4, "train") if kind == "train"
+            else ShapeSpec("spawn", 36, 2, "decode"))
+    r = dryrun.lower_step(cfg, spec, (2, 2), ("data", "model"),
+                          device="cpu")
+    real: dict = {}
+    comms = spawned[0][arch]["comms"]["train" if kind == "train"
+                                      else "decode1"]
+    for name, n in comms.items():
+        k = collective_kind(name)
+        if k in MOVING_KINDS:
+            real[k] = real.get(k, 0) + n
+    if kind == "train":
+        real["all-gather"] -= 3 * spawned[0][arch]["routes"].get("train", 0)
+    fake = {k: n for k, n in r["collectives"]["counts"].items()
+            if k in MOVING_KINDS}
+    assert fake == real and sum(real.values()) > 0
 
 
 def test_seqpar_branch_holds_to_the_references_shard_map(spawned):

@@ -20,7 +20,7 @@ import torch
 
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch import configs
-from repro_torch.kernels.ssd_scan import (_SMEM_LIMIT, bwd_plan,
+from repro_torch.kernels.ssd_scan import (_SMEM_LIMIT, _bwd_fits, bwd_plan,
                                           bwd_smem_bytes, ssd_scan,
                                           ssd_scan_bwd, ssd_scan_with_grad)
 from repro_torch.models import mamba2
@@ -212,14 +212,19 @@ def test_bwd_tc_plan_head_tiles():
 
 
 def test_bwd_shared_memory_plan():
-    """The backward's shared memory: bf16 fits at both models' training
-    shapes (zamba2 P 64, N 64; mamba2 N 128; chunk 128), f32 at zamba2's
-    but not at mamba2's, which the card refuses with ``ValueError``."""
+    """The backward's shared memory: bf16 and f32 fit at both models'
+    training shapes (zamba2 P 64, N 64; mamba2 N 128; chunk 128); f32 at
+    mamba2's leaves x and dy unstaged (287,520 bytes staged, 220,960
+    not); a size that does not fit even so is refused with
+    ``ValueError`` before any launch."""
     bf16, f32 = torch.bfloat16, torch.float32
     assert bwd_smem_bytes(64, 64, 128, bf16) <= bwd_smem_bytes(
         64, 128, 128, bf16) <= _SMEM_LIMIT
     assert bwd_smem_bytes(64, 64, 128, f32) <= _SMEM_LIMIT
-    assert bwd_smem_bytes(64, 128, 128, f32) > _SMEM_LIMIT
+    assert bwd_smem_bytes(64, 128, 128, f32) == 220_960 <= _SMEM_LIMIT
+    assert bwd_smem_bytes(128, 128, 128, f32) > _SMEM_LIMIT
+    with pytest.raises(ValueError, match="must fit"):
+        _bwd_fits(128, 128, 128, f32)
     for (_, _, _, P, _, N, Q) in GRID:
         assert bwd_smem_bytes(P, N, Q, f32) <= _SMEM_LIMIT
 
