@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import blocks as kblocks
 from repro_torch.kernels.backend import resolve_device, resolve_engine
+from repro_torch.runtime import tracing
 
 from . import controller, delegation, simulation
 from .hashing import hash_to_bins
@@ -265,7 +266,17 @@ def run(cfg: CGConfig, keys, capacities, state: CGState | None = None,
         CUDA). ``keys``, ``capacities`` and ``state`` move there.
 
     Returns CGResult with per-slot metrics and the full assignment.
+
+    While ``torch.profiler`` records, the call is the span ``cg.run`` and
+    each slot's routing and delegation the spans ``cg.route`` and
+    ``cg.delegate`` inside it (``repro_torch.runtime.tracing``).
     """
+    with tracing.span("cg.run"):
+        return _run(cfg, keys, capacities, state, device)
+
+
+def _run(cfg: CGConfig, keys, capacities, state: CGState | None,
+         device) -> CGResult:
     policy = hh_policy(cfg)
     dev = resolve_device(device)
     keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32)
@@ -294,9 +305,10 @@ def run(cfg: CGConfig, keys, capacities, state: CGState | None = None,
     out = []
     for t in range(slots):
         c = caps[t]
-        vw_load, sketch, vw = _route_slot(cfg, state.vw_load, state.t_offset,
-                                          state.sg_ptr, state.sketch,
-                                          keys[t])
+        with tracing.span("cg.route"):
+            vw_load, sketch, vw = _route_slot(cfg, state.vw_load,
+                                              state.t_offset, state.sg_ptr,
+                                              state.sketch, keys[t])
         workers = state.vw_owner[vw.long()]                # [slot_len]
         arrivals = torch.zeros(cfg.n_workers, dtype=torch.float32,
                                device=dev).index_add_(0, workers.long(), ones)
@@ -310,18 +322,19 @@ def run(cfg: CGConfig, keys, capacities, state: CGState | None = None,
         lat, mean_lat = simulation.slot_latency(q0, arrivals, c)
         imb = simulation.slot_imbalance(arrivals, c)
 
-        # the adaptive controller turns raw pressure into (possibly
-        # latched) busy/idle signals and this slot's move budget
-        cstate, busy, idle, budget = controller.controller_step(
-            ccfg, state.controller, util, q1, move_unit,
-            cfg.theta_busy, cfg.theta_busy - cfg.theta_margin,
-            cfg.theta_idle, cfg.theta_idle + cfg.theta_margin)
-        dstate = delegation.DelegationState(
-            vw_owner=state.vw_owner, vw_rate=state.vw_rate,
-            queues=state.signal_queues, moves=state.moves)
-        dstate, n_done = delegation.rebalance_step(
-            dcfg, dstate, util, busy, idle, vw_load - state.vw_load, c,
-            budget if cfg.adaptive_moves else None)
+        with tracing.span("cg.delegate"):
+            # the adaptive controller turns raw pressure into (possibly
+            # latched) busy/idle signals and this slot's move budget
+            cstate, busy, idle, budget = controller.controller_step(
+                ccfg, state.controller, util, q1, move_unit,
+                cfg.theta_busy, cfg.theta_busy - cfg.theta_margin,
+                cfg.theta_idle, cfg.theta_idle + cfg.theta_margin)
+            dstate = delegation.DelegationState(
+                vw_owner=state.vw_owner, vw_rate=state.vw_rate,
+                queues=state.signal_queues, moves=state.moves)
+            dstate, n_done = delegation.rebalance_step(
+                dcfg, dstate, util, busy, idle, vw_load - state.vw_load, c,
+                budget if cfg.adaptive_moves else None)
 
         out.append((workers, vw, imb, q1.max() - q1.min(),
                     lat.max() - lat.min(), mean_lat, util, budget, n_done,

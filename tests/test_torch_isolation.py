@@ -136,7 +136,8 @@ def test_subprocess_run_imports_no_jax_or_repro():
                                     "repro_torch.configs.whisper_small",
                                     "repro_torch.models.sp_decode",
                                     "repro_torch.launch.dryrun",
-                                    "repro_torch.launch.step_trace"])
+                                    "repro_torch.launch.step_trace",
+                                    "repro_torch.runtime.tracing"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever module a program imports first
     (the GPU tests start from ``repro_torch.kernels``)."""
